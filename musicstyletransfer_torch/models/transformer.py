@@ -1,0 +1,225 @@
+"""Transformer encoder/decoder stacks (counterpart of ``musicstyletransfer_tpu/models/transformer.py``).
+
+Inference only: dropout is not applied. Numerics follow flax at the
+model's compute dtype (``ModelConfig.dtype``), with parameters kept in
+float32 and cast at use:
+
+- ``Dense``: the product in the compute dtype (float32 accumulation),
+  rounded, then the bias added in the compute dtype (flax ``nn.Dense``);
+- ``LayerNorm``: float32 statistics, eps 1e-6 (flax), output cast back;
+- attention scores in the compute dtype, softmax over keys, masked
+  positions at -1e9 (``transformer.py:39, 310-323``).
+
+The batched path is dense attention: at the canonical T=65 the JAX
+package takes the dense XLA route too (``transformer.py:191-214``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import TransformerConfig
+
+NEG_INF = -1e9
+
+# Per-layer KV cache: (k, v), each [batch, max_len, num_heads, head_dim].
+LayerCache = Tuple[torch.Tensor, torch.Tensor]
+Cache = List[LayerCache]
+
+
+def positional_encodings(model_size: int, max_len: int) -> np.ndarray:
+    """Sinusoidal table with the reference's exponent layout: column i uses
+    10000^(2i/d), sine on even columns and cosine on odd ones (not the usual
+    i//2 pairing) — ``transformer.py:42-50``."""
+    pos = np.arange(max_len).reshape(-1, 1) / np.power(
+        10000, (2.0 / model_size) * np.arange(model_size).reshape(1, -1)
+    )
+    pos[:, 0::2] = np.sin(pos[:, 0::2])
+    pos[:, 1::2] = np.cos(pos[:, 1::2])
+    return pos.astype(np.float32)
+
+
+def sqrt_in(value: int, dtype: torch.dtype) -> torch.Tensor:
+    """sqrt(value) computed in ``dtype``, as ``jnp.sqrt(jnp.asarray(value, dtype))``."""
+    return torch.sqrt(torch.tensor(float(value), dtype=dtype))
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with flax ``nn.Dense(dtype=...)`` numerics."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+class LayerNorm(nn.LayerNorm):
+    """float32 LayerNorm with flax's eps, output in the compute dtype."""
+
+    def __init__(self, size: int, dtype: torch.dtype = torch.float32):
+        super().__init__(size, eps=1e-6)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+class FeedForward(nn.Module):
+    """4x-expansion ReLU FFN."""
+
+    def __init__(self, model_size: int, hidden_size: int, dtype: torch.dtype):
+        super().__init__()
+        self.ff1 = Dense(model_size, hidden_size, dtype)
+        self.ff2 = Dense(hidden_size, model_size, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ff2(F.relu(self.ff1(x)))
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Scaled-dot self-attention: a dense batched path and a cached step."""
+
+    def __init__(self, model_size: int, num_heads: int, causal: bool,
+                 dtype: torch.dtype):
+        super().__init__()
+        if model_size % num_heads:
+            raise ValueError(f"model_size {model_size} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.head_dim = model_size // num_heads
+        self.causal = causal
+        self.compute_dtype = dtype
+        self.w_q = Dense(model_size, model_size, dtype)
+        self.w_k = Dense(model_size, model_size, dtype)
+        self.w_v = Dense(model_size, model_size, dtype)
+        self.w_o = Dense(model_size, model_size, dtype)
+        self.register_buffer("scale", sqrt_in(self.head_dim, dtype),
+                             persistent=False)
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(*x.shape[:-1], self.num_heads, self.head_dim)
+
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+        """x: [B, T, D]; key_mask: [B, T] True at valid (non-PAD) keys."""
+        B, T, D = x.shape
+        dt = self.compute_dtype
+        q, k, v = (self._heads(w(x)) for w in (self.w_q, self.w_k, self.w_v))
+        bias = torch.where(key_mask[:, None, None, :].bool(), 0.0, NEG_INF)
+        if self.causal:
+            tri = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+            bias = bias + torch.where(tri, 0.0, NEG_INF)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / self.scale
+        probs = torch.softmax(logits + bias.to(dt), dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return self.w_o(out.reshape(B, T, D))
+
+    def step(self, x_t: torch.Tensor, cache_k: torch.Tensor,
+             cache_v: torch.Tensor, t: int) -> torch.Tensor:
+        """One cached decode position. x_t: [B, D]; cache_{k,v}:
+        [B, T_max, H, hd], written at ``t`` in place (the JAX package
+        returns new arrays; updating in place saves a cache copy a step)."""
+        B = x_t.shape[0]
+        q = self._heads(self.w_q(x_t))  # [B, H, hd]
+        cache_k[:, t] = self._heads(self.w_k(x_t)).to(cache_k.dtype)
+        cache_v[:, t] = self._heads(self.w_v(x_t)).to(cache_v.dtype)
+        logits = torch.einsum("bhd,bkhd->bhk", q, cache_k) / self.scale
+        # Mask the cache slots not yet written (positions beyond t).
+        logits[:, :, t + 1:] = NEG_INF
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhk,bkhd->bhd", probs, cache_v)
+        return self.w_o(out.reshape(B, -1))
+
+
+class TransformerLayer(nn.Module):
+    """Post-LN (the reference's) or pre-LN residual block: attention + FFN."""
+
+    def __init__(self, config: TransformerConfig, causal: bool, dtype: torch.dtype):
+        super().__init__()
+        c = config
+        self.pre_ln = c.norm_scheme == "pre"
+        self.attention = MultiHeadSelfAttention(c.model_size, c.num_heads,
+                                                causal, dtype)
+        self.ln1 = LayerNorm(c.model_size, dtype)
+        self.ff = FeedForward(c.model_size, c.model_size * c.ffn_multiplier, dtype)
+        self.ln2 = LayerNorm(c.model_size, dtype)
+
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+        if self.pre_ln:
+            x = x + self.attention(self.ln1(x), key_mask)
+            return x + self.ff(self.ln2(x))
+        x = self.ln1(x + self.attention(x, key_mask))
+        return self.ln2(x + self.ff(x))
+
+    def step(self, x_t: torch.Tensor, cache: LayerCache, t: int) -> torch.Tensor:
+        if self.pre_ln:
+            x_t = x_t + self.attention.step(self.ln1(x_t), cache[0], cache[1], t)
+            return x_t + self.ff(self.ln2(x_t))
+        x_t = self.ln1(x_t + self.attention.step(x_t, cache[0], cache[1], t))
+        return self.ln2(x_t + self.ff(x_t))
+
+
+class TransformerStack(nn.Module):
+    """sqrt(d)*x + positional table, N layers, and a final LayerNorm under
+    pre-LN (``transformer.py:476-552``)."""
+
+    def __init__(self, config: TransformerConfig, causal: bool, dtype: torch.dtype):
+        super().__init__()
+        self.config = config
+        self.compute_dtype = dtype
+        self.layers = nn.ModuleList(
+            TransformerLayer(config, causal, dtype) for _ in range(config.num_layers)
+        )
+        if config.norm_scheme == "pre":
+            self.final_ln = LayerNorm(config.model_size, dtype)
+        self.register_buffer(
+            "pos_table",
+            torch.from_numpy(positional_encodings(config.model_size,
+                                                  config.max_positions)).to(dtype),
+            persistent=False,
+        )
+        self.register_buffer("scale", sqrt_in(config.model_size, dtype),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+        """x: [B, T, D] (before scaling); key_mask: [B, T] True at valid keys."""
+        x = self.scale * x + self.pos_table[: x.shape[1]]
+        for layer in self.layers:
+            x = layer(x, key_mask)
+        if self.config.norm_scheme == "pre":
+            x = self.final_ln(x)
+        return x
+
+    def step(self, x_t: torch.Tensor, cache: Cache, t: int) -> torch.Tensor:
+        """One incremental decode position. x_t: [B, D] (before scaling)."""
+        x_t = self.scale * x_t + self.pos_table[t]
+        for layer, layer_cache in zip(self.layers, cache):
+            x_t = layer.step(x_t, layer_cache, t)
+        if self.config.norm_scheme == "pre":
+            x_t = self.final_ln(x_t)
+        return x_t
+
+    def init_cache(self, batch_size: int, max_len: int) -> Cache:
+        c = self.config
+        shape = (batch_size, max_len, c.num_heads, c.model_size // c.num_heads)
+        dev = self.pos_table.device
+        return [
+            (torch.zeros(shape, dtype=self.compute_dtype, device=dev),
+             torch.zeros(shape, dtype=self.compute_dtype, device=dev))
+            for _ in range(c.num_layers)
+        ]
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+

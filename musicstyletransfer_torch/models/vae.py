@@ -1,0 +1,148 @@
+"""Class-conditional sequence VAE (counterpart of ``musicstyletransfer_tpu/models/vae.py``).
+
+Inference only: ``encode`` returns (mu, logvar) and generation uses z = mu.
+Token lookups are plain gathers; the JAX package's one-hot embedding matmul
+(``vae.py:37-49``) is a TPU workaround and is not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from musicstyletransfer_tpu.midi.vocab import PAD_ID
+
+from .config import DecoderConfig, EncoderConfig, ModelConfig
+from .transformer import Cache, Dense, TransformerStack, compute_dtype
+
+
+class VAEEncoder(nn.Module):
+    """Token + class embeddings -> transformer -> position-0 state -> (mu, logvar)."""
+
+    def __init__(self, config: EncoderConfig, dtype: torch.dtype):
+        super().__init__()
+        c = config
+        d = c.transformer_config.model_size
+        self.compute_dtype = dtype
+        self.token_emb = nn.Embedding(c.input_dim, d)
+        self.class_emb = nn.Embedding(c.num_classes, d)
+        self.encoder = TransformerStack(c.transformer_config, causal=False, dtype=dtype)
+        self.latent_proj = Dense(d, 2 * c.latent_dim, torch.float32)
+
+    def forward(self, tokens: torch.Tensor,
+                classes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt = self.compute_dtype
+        key_mask = tokens != PAD_ID
+        x = self.token_emb(tokens).to(dt) + self.class_emb(classes).to(dt)[:, None, :]
+        h0 = self.encoder(x, key_mask)[:, 0, :]  # position-0 readout
+        mu, logvar = self.latent_proj(h0.float()).chunk(2, dim=-1)
+        # The JAX package clamps logvar to +-8 (vae.py:82-90).
+        return mu, logvar.clamp(-8.0, 8.0)
+
+
+class VAEDecoder(nn.Module):
+    """Causal transformer decoder with a prepended conditioning state -> logits."""
+
+    def __init__(self, config: DecoderConfig, dtype: torch.dtype):
+        super().__init__()
+        c = config
+        d = c.transformer_config.model_size
+        self.config = config
+        self.compute_dtype = dtype
+        self.latent2hid = Dense(c.latent_dim, d, dtype)
+        self.class_emb = nn.Embedding(c.num_classes, d)
+        self.token_emb = nn.Embedding(c.output_dim, d)
+        self.decoder = TransformerStack(c.transformer_config, causal=True, dtype=dtype)
+        self.output_layer = Dense(d, c.output_dim, torch.float32)
+
+    @property
+    def per_step_conditioning(self) -> bool:
+        return self.config.class_conditioning == "per_step"
+
+    def initial_state(self, z: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+        """[B, D] conditioning state latent2hid(z) + class_emb(class)."""
+        dt = self.compute_dtype
+        return self.latent2hid(z) + self.class_emb(classes).to(dt)
+
+    def step_bias(self, classes: Optional[torch.Tensor]) -> torch.Tensor:
+        """[B, D] class row added to every token embedding under ``per_step``."""
+        if classes is None:
+            raise ValueError("class_conditioning='per_step' decoders need the "
+                             "classes at every decode step")
+        return self.class_emb(classes).to(self.compute_dtype)
+
+    def embed(self, tokens: torch.Tensor,
+              classes: Optional[torch.Tensor]) -> torch.Tensor:
+        x = self.token_emb(tokens).to(self.compute_dtype)
+        if self.per_step_conditioning:
+            bias = self.step_bias(classes)
+            x = x + (bias[:, None, :] if x.dim() == 3 else bias)
+        return x
+
+    def forward(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
+                z: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced: SOS-prefixed tokens [B, L+1] -> logits [B, L+1, V]."""
+        init = self.initial_state(z, classes)[:, None, :]
+        x = torch.cat([init, self.embed(tokens, classes)], dim=1)  # [B, L+2, D]
+        positions = torch.arange(x.shape[1], device=x.device)
+        key_mask = positions[None, :] < (seq_lens[:, None] + 1)
+        h = self.decoder(x, key_mask)[:, 1:, :]  # drop the conditioning position
+        return self.output_layer(h.float())
+
+    def step_embedded(self, x_t: torch.Tensor, cache: Cache, t: int) -> torch.Tensor:
+        return self.output_layer(self.decoder.step(x_t, cache, t).float())
+
+    def step_token(self, token_t: torch.Tensor, cache: Cache, t: int,
+                   classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits [B, V] at position t from token ids [B]; updates ``cache``."""
+        return self.step_embedded(self.embed(token_t, classes), cache, t)
+
+    def prefill(self, z: torch.Tensor, classes: torch.Tensor, max_len: int) -> Cache:
+        """A fresh cache with position 0 (the conditioning state) processed."""
+        cache = self.decoder.init_cache(z.shape[0], max_len)
+        self.decoder.step(self.initial_state(z, classes), cache, 0)
+        return cache
+
+
+class StyleVAE(nn.Module):
+    """Encoder + decoder; parameter names mirror the flax tree (``convert.py``)."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        if config.decoder_config.decoder_type != "transformer":
+            raise NotImplementedError(
+                f"decoder_type={config.decoder_config.decoder_type!r} is not "
+                "ported yet (ROADMAP queue 1, item 11: legacy LSTM decoder)"
+            )
+        self.config = config
+        self.compute_dtype = compute_dtype(config.dtype)
+        self.encoder = VAEEncoder(config.encoder_config, self.compute_dtype)
+        self.decoder = VAEDecoder(config.decoder_config, self.compute_dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.output_layer.weight.device
+
+    def forward(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
+                classes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Deterministic (z = mu) forward: (logits, mu, logvar)."""
+        mu, logvar = self.encoder(tokens, classes)
+        return self.decoder(tokens, seq_lens, mu, classes), mu, logvar
+
+    def encode(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
+               classes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        del seq_lens  # lengths are implied by the PAD mask
+        return self.encoder(tokens, classes)
+
+    def decode_init(self, z: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+        return self.decoder.initial_state(z, classes)
+
+    def decode_prefill(self, z: torch.Tensor, classes: torch.Tensor,
+                       max_len: int) -> Cache:
+        return self.decoder.prefill(z, classes, max_len)
+
+    def decode_step(self, token_t: torch.Tensor, cache: Cache, t: int,
+                    classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.decoder.step_token(token_t, cache, t, classes)
