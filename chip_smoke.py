@@ -4,19 +4,35 @@
     python3 chip_smoke.py
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
-2. Builds K1 (musicstyletransfer_torch/ops/csrc/fused_decode.cu) with nvcc.
-3. Holds the kernel against its plain PyTorch version on the card, at the
-   canonical decoder shape (D=128, H=8, V=293, B=64, T=130) with seeded
-   weights, in float32 and bfloat16: forced-mode logits, greedy tokens and
-   scores, the top-k/top-p support of sampled tokens, sample-mode statistics
-   over 256 rows, and a pre-LN + per-step-conditioned two-layer decoder.
-4. Drives the main path: the shipped models/guitar_bass export through
-   Sampling.process_dataset (--gpu) on the first two batches of
-   work/data/guitar_bass (batch 32, L=64), writes MIDI, parses every file
-   back, and checks that the decode went through the kernel only.
-5. Times style_transfer_all_classes at 32 sources x 2 classes, T=130, through
-   the kernel and through the plain loop, K1 alone against the plain loop,
-   and the p50 latency of one MIDI file -> MIDI transfer.
+2. Builds the kernels of musicstyletransfer_torch/ops/csrc with nvcc, one
+   process per source, all at once: K1 (fused_decode.cu), K2/K3
+   (attention_core.cu).
+3. Holds K1 against its plain PyTorch version on the card, at the canonical
+   decoder shape (D=128, H=8, V=293, B=64, T=130) with seeded weights, in
+   float32 and bfloat16: forced-mode logits, greedy tokens and scores, the
+   top-k/top-p support of sampled tokens, sample-mode statistics over 256
+   rows, and a pre-LN + per-step-conditioned two-layer decoder; then at the
+   wide decoder (D=512, 2 layers, 16 heads, pre-LN) over T=1026 positions.
+4. Holds K2 and K3 against their plain versions at the wide training shapes
+   (B=8, H=16; encoder T=513, hd=64; decoder T=514, hd=32, causal), in
+   float32 and bfloat16, with ragged key lengths (one row 1, one row 0), and
+   K3 at 1e19 cotangents, where every value must be finite.
+5. Serving path: the shipped models/guitar_bass export through
+   Sampling.process_dataset on the first two batches of work/data/guitar_bass
+   (batch 32, L=64); the MIDI parses back, the decode went through K1 only.
+6. Training path: musicstyletransfer_torch.cli.main with
+   scripts/train-vae-wide.sh's flags (L=512, batch 8, bf16, pre-LN, the
+   attention core) for two epochs with a checkpoint after each; a copy of
+   the run resumed from the first checkpoint for one epoch, whose first
+   logged step must equal the uninterrupted run's; cli.sample on the
+   resumed checkpoint, whose MIDI parses back. Loss and gradient norm stay
+   finite, no update is skipped, K3 runs on every attention layer of every
+   step, and no plain version runs on the card.
+7. Times (CUDA events, beside the card's name and power limit): the serving
+   transfer, K1 against its plain loop, p50 MIDI->MIDI latency; K2 and K3
+   at both wide shapes beside their bounds, their plain versions and
+   torch's scaled_dot_product_attention; the wide training step, its
+   target tokens per second and K2/K3's share of it (torch.profiler).
 
 Exits non-zero on any failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -26,12 +42,16 @@ from __future__ import annotations
 
 import glob
 import json
+import math
 import os
+import shlex
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -49,6 +69,27 @@ B, T, L = 64, 130, 64  # decode rows (32 sources x 2 classes), max_len, source l
 #   kernel-vs-XLA bf16 test uses (tests/test_fused_decode.py).
 TOL_LOGITS = {torch.float32: 1e-3, torch.bfloat16: 0.15}
 TOL_SCORE_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+# The wide recipe's attention shapes: (name, T, head_dim, causal), B=8, H=16.
+CORE_SHAPES = (("encoder", 513, 64, False), ("decoder", 514, 32, True))
+CORE_B, CORE_H = 8, 16
+# K2/K3 against their plain versions on the card:
+# - float32: the same float32 products summed in other orders (the kernel's
+#   online softmax rescales as it goes): ~1e-6 on O(1) values;
+# - bfloat16: both round q*scale, p and the outputs to bf16 (2^-8 relative),
+#   but the kernel rounds p against its running maximum, the plain version
+#   against the row's final one, so single probabilities round apart: a
+#   few bf16 ulps on the context; lse is float32 in both.
+# dqkv is compared relative to its largest magnitude.
+TOL_CTX = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+TOL_LSE = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+TOL_DQKV_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# A resumed run's first logged step against the uninterrupted run's: the same
+# batch, parameters, optimizer state and random numbers; bf16 tolerance.
+TOL_RESUME_REL = 1e-2
+# Peak rates of one H100 SXM (NVIDIA's data sheet).
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -88,7 +129,7 @@ def decode_inputs(model, rows: int, seed: int):
 
 def live_mask(seqs: torch.Tensor) -> torch.Tensor:
     """[B, T] True at generated positions up to and including each row's EOS."""
-    from musicstyletransfer_tpu.midi.vocab import EOS_ID
+    from musicstyletransfer_torch.midi.vocab import EOS_ID
 
     s = seqs.long()
     eos_before = torch.cumsum((s == EOS_ID).long(), dim=1) - (s == EOS_ID).long()
@@ -161,7 +202,7 @@ def check_kernel(dtype: torch.dtype, fd, decode) -> float:
     torch.cuda.synchronize()
 
     def stats(seqs, scores):
-        from musicstyletransfer_tpu.midi.vocab import EOS_ID, PAD_ID
+        from musicstyletransfer_torch.midi.vocab import EOS_ID, PAD_ID
 
         ended = float((seqs == EOS_ID).any(1).float().mean())
         length = float((seqs != PAD_ID).sum(1).float().mean())
@@ -195,15 +236,405 @@ def check_kernel(dtype: torch.dtype, fd, decode) -> float:
     return err
 
 
+def check_wide_decoder(fd, dtype: torch.dtype) -> float:
+    """K1 at the wide recipe's decoder (D=512, 2 layers, 16 heads, pre-LN,
+    latent 1024) over T=2*(512+1) positions on 8 rows: forced logits against
+    the plain loop, and every greedy token the plain argmax on its prefix."""
+    from musicstyletransfer_torch.models import (
+        DecoderConfig, EncoderConfig, ModelConfig, StyleVAE, TransformerConfig)
+
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    rows, steps = 8, 1026
+    dec = TransformerConfig(model_size=512, num_layers=2, num_heads=16, norm_scheme="pre")
+    cfg = ModelConfig(
+        encoder_config=EncoderConfig(transformer_config=TransformerConfig(model_size=64),
+                                     latent_dim=1024),
+        decoder_config=DecoderConfig(transformer_config=dec, latent_dim=1024), dtype=name)
+    torch.manual_seed(0)
+    model = StyleVAE(cfg).cuda().eval()
+    g = np.random.default_rng(5)
+    z = torch.as_tensor(g.normal(size=(rows, 1024)), dtype=torch.float32).cuda()
+    classes = torch.as_tensor(g.integers(0, 2, rows)).cuda()
+    with torch.inference_mode():
+        x0 = model.decode_init(z, classes).contiguous()
+    forced = torch.as_tensor(g.integers(3, 293, (rows, steps)), dtype=torch.int32).cuda()
+    _, _, kl = fd.fused_decode(model, x0, steps, 0, mode="forced", forced_tokens=forced)
+    _, _, pl = fd.fused_decode_reference(model, x0, steps, 0, mode="forced",
+                                         forced_tokens=forced)
+    kseq, _ = fd.fused_decode(model, x0, steps, 0, mode="greedy")
+    _, _, gl = fd.fused_decode_reference(model, x0, steps, 0, mode="forced", forced_tokens=kseq)
+    torch.cuda.synchronize()
+    err = float((kl - pl).abs().max())
+    check(bool(torch.isfinite(kl).all()), f"wide K1 {name}: non-finite logits")
+    check(err <= TOL_LOGITS[dtype], f"wide K1 {name} forced max|err| {err} > {TOL_LOGITS[dtype]}")
+    chosen = gl.gather(2, kseq.long()[:, :, None])[:, :, 0]
+    gap = float((gl.max(-1).values - chosen)[live_mask(kseq)].max())
+    check(gap <= TOL_LOGITS[dtype], f"wide K1 {name} greedy: a token {gap} below the plain argmax")
+    ms = time_cuda(lambda: fd.fused_decode(model, x0, steps, 0, mode="greedy"), 3)
+    log(f"[{name}] wide decoder D=512 x2 layers, 16 heads, pre-LN, T={steps}, {rows} rows: "
+        f"forced max|err| {err:.3g} (tol {TOL_LOGITS[dtype]}), greedy max argmax gap {gap:.3g}; "
+        f"K1 greedy {ms:.3f} ms a launch")
+    return err
+
+
+def core_inputs(T: int, hd: int, dtype: torch.dtype, seed: int):
+    """qkv [8, T, 16*3*hd], ragged key_lens (one row 1, one row 0) and a
+    cotangent, seeded with numpy."""
+    g = np.random.default_rng(seed)
+    qkv = torch.as_tensor(g.normal(size=(CORE_B, T, CORE_H * 3 * hd)),
+                          dtype=torch.float32).to(dtype).cuda()
+    lens = torch.tensor([T, T - 1, 300, 129, 64, 17, 1, 0], dtype=torch.int32).cuda()
+    dout = torch.as_tensor(g.normal(size=(CORE_B, T, CORE_H * hd)),
+                           dtype=torch.float32).to(dtype).cuda()
+    return qkv, lens, dout
+
+
+def check_core(ac) -> dict:
+    """K2 and K3 against their plain versions at both wide shapes; returns
+    the largest absolute errors {"K2": ..., "K3": ...}."""
+    worst = {"K2": 0.0, "K3": 0.0}
+    for name, T, hd, causal in CORE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+            qkv, lens, dout = core_inputs(T, hd, dtype, seed=T + hd)
+            scale = 1.0 / math.sqrt(hd)
+            ctx, lse = ac.core_forward(qkv, lens, CORE_H, causal, scale)
+            pctx, plse = ac.core_forward_reference(qkv, lens, CORE_H, causal, scale)
+            torch.cuda.synchronize()
+            ctx_err = float((ctx.float() - pctx.float()).abs().max())
+            masked = plse <= -1e29
+            check(bool(torch.equal(lse <= -1e29, masked)), f"K2 {name} {dn}: lse sentinel rows differ")
+            lse_err = float((lse - plse)[~masked].abs().max())
+            check(bool(torch.isfinite(ctx.float()).all()), f"K2 {name} {dn}: non-finite ctx")
+            check(bool((ctx[CORE_B - 1] == 0).all()), f"K2 {name} {dn}: key_lens=0 row not zeros")
+            check(ctx_err <= TOL_CTX[dtype], f"K2 {name} {dn}: ctx max|err| {ctx_err} > {TOL_CTX[dtype]}")
+            check(lse_err <= TOL_LSE[dtype], f"K2 {name} {dn}: lse max|err| {lse_err} > {TOL_LSE[dtype]}")
+            worst["K2"] = max(worst["K2"], ctx_err)
+            # K3 on the plain forward's residuals, so only the backward differs.
+            line = []
+            for label, g in (("dO ~ N(0,1)", dout), ("dO = 1e19", torch.full_like(dout, 1e19))):
+                dq = ac.core_backward(qkv, lens, plse, pctx, g, CORE_H, causal, scale)
+                pdq = ac.core_backward_reference(qkv, lens, plse, pctx, g, CORE_H, causal, scale)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(dq.float()).all()), f"K3 {name} {dn} {label}: non-finite dqkv")
+                err = float((dq.float() - pdq.float()).abs().max())
+                rel = err / max(float(pdq.float().abs().max()), 1e-30)
+                check(rel <= TOL_DQKV_REL[dtype],
+                      f"K3 {name} {dn} {label}: dqkv rel err {rel} > {TOL_DQKV_REL[dtype]}")
+                if label.startswith("dO ~"):
+                    worst["K3"] = max(worst["K3"], err)
+                line.append(f"{label}: max|err| {err:.3g}, rel {rel:.3g}")
+            log(f"[{dn}] K2 {name} T={T} hd={hd} causal={causal}: ctx max|err| {ctx_err:.3g} "
+                f"(tol {TOL_CTX[dtype]}), lse {lse_err:.3g} (tol {TOL_LSE[dtype]}); K3 "
+                + "; ".join(line) + f" (rel tol {TOL_DQKV_REL[dtype]}, all finite)")
+    return worst
+
+
+def wide_recipe_argv(data: str, model_output: str, out_samples: str):
+    """scripts/train-vae-wide.sh's flags, with its paths replaced."""
+    with open(os.path.join(REPO, "scripts", "train-vae-wide.sh")) as f:
+        text = f.read()
+    body = text.split("musicstyletransfer_tpu.cli.main", 1)[1].split('"$@"', 1)[0]
+    argv = shlex.split(body.replace("\\\n", " "))
+    subs = {"--data": data, "--model-output": model_output, "--out-samples": out_samples}
+    for i, a in enumerate(argv[:-1]):
+        if a in subs:
+            argv[i + 1] = subs[a]
+    for flag in ("--use-flash-attention", "--norm-scheme", "--max-seq-len", "--batch-size"):
+        check(flag in argv, f"train-vae-wide.sh lost {flag}")
+    return argv
+
+
+def counts(ac, fd, reset: bool = False) -> dict:
+    """Launch counts of K1-K3 and runs of their plain versions on CUDA."""
+    names = {"K1": (fd.fused_decode, "launches"), "K2": (ac.core_forward, "launches"),
+             "K3": (ac.core_backward, "launches"),
+             "K1 plain": (fd.fused_decode_reference, "cuda_runs"),
+             "K2 plain": (ac.core_forward_reference, "cuda_runs"),
+             "K3 plain": (ac.core_backward_reference, "cuda_runs"),
+             "XLA-backward twin": (ac.core_xla_backward, "cuda_runs")}
+    out = {}
+    for k, (fn, attr) in names.items():
+        out[k] = getattr(fn, attr)
+        if reset:
+            setattr(fn, attr, 0)
+    return out
+
+
+def train_lines(path: str):
+    with open(path) as f:
+        lines = [json.loads(x) for x in f]
+    return lines
+
+
+def check_train_log(lines, label: str) -> None:
+    train = [x for x in lines if "grad_norm" in x]
+    check(train, f"{label}: no training metrics logged")
+    for x in train:
+        for k in ("ce_loss", "total_loss", "grad_norm"):
+            check(isinstance(x[k], float) and math.isfinite(x[k]),
+                  f"{label}: {k} at step {x['step']} is {x[k]}")
+    skipped = [x["nonfinite_updates_skipped"] for x in lines if "nonfinite_updates_skipped" in x]
+    check(skipped and all(v == 0 for v in skipped), f"{label}: skipped updates {skipped}")
+
+
+def train_path(ac, fd, tmp: str) -> dict:
+    """The wide recipe through cli.main, a resumed run, and cli.sample."""
+    from musicstyletransfer_torch.cli import main as cli_main
+    from musicstyletransfer_torch.cli import sample as cli_sample
+    from musicstyletransfer_torch.data import Loader, MelodyDataset, load_dataset
+
+    data = os.path.join(REPO, "work", "data", "guitar_bass")
+    loader = Loader(data, 512)
+    per_epoch = load_dataset(loader, 8, 0.1)[0].num_batches()
+    u, r = os.path.join(tmp, "wide"), os.path.join(tmp, "wide-resumed")
+
+    def argv(model, epochs):
+        return wide_recipe_argv(data, model, os.path.join(tmp, "out-wide")) + [
+            "--epochs", str(epochs), "--checkpoint-frequency", str(per_epoch),
+            "--logdir", model + "-log", "--log-every", "1"]
+
+    layers = 4 + 2  # the recipe's encoder and decoder layers
+    counts(ac, fd, reset=True)
+    t0 = time.perf_counter()
+    cli_main.main(argv(u, 2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts(ac, fd)
+    steps = 2 * per_epoch
+    log(f"train path: cli.main, wide recipe, {steps} steps in {wall:.1f} s (2 checkpoints, "
+        f"validation, generation-health probe); launches {c}")
+    lines_u = train_lines(os.path.join(u + "-log", "scalars.jsonl"))
+    check_train_log(lines_u, "wide run")
+    check(c["K3"] == layers * steps, f"K3 launched {c['K3']} times, expected {layers} x {steps}")
+    check(c["K2"] >= c["K3"], f"K2 launched {c['K2']} times, fewer than K3")
+    check(c["K1"] > 0, "the generation-health probe did not launch K1")
+    for k in ("K1 plain", "K2 plain", "K3 plain", "XLA-backward twin"):
+        check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the training path")
+    main_counts = c
+
+    # Resume: a copy of the run as it stood at its first checkpoint.
+    shutil.copytree(u, r, ignore=shutil.ignore_patterns("params.2.pt"))
+    counts(ac, fd, reset=True)
+    cli_main.main(argv(r, 1))
+    torch.cuda.synchronize()
+    c = counts(ac, fd)
+    lines_r = train_lines(os.path.join(r + "-log", "scalars.jsonl"))
+    check_train_log(lines_r, "resumed run")
+    check(c["K3"] == layers * per_epoch, f"resumed: K3 launched {c['K3']} times")
+    first = next(x for x in lines_r if "grad_norm" in x)
+    same = next(x for x in lines_u if "grad_norm" in x and x["step"] == first["step"])
+    diffs = {k: abs(first[k] - same[k]) / max(abs(same[k]), 1e-12)
+             for k in ("ce_loss", "kl_loss", "total_loss", "grad_norm")}
+    check(max(diffs.values()) <= TOL_RESUME_REL,
+          f"resumed step {first['step']} differs from the uninterrupted run: {diffs}")
+    log(f"resume: step {first['step']} ce_loss {first['ce_loss']:.6f} vs {same['ce_loss']:.6f} "
+        f"uninterrupted, grad_norm {first['grad_norm']:.6f} vs {same['grad_norm']:.6f}; "
+        f"max rel diff {max(diffs.values()):.3g} (tol {TOL_RESUME_REL})")
+
+    # Sample from the resumed run's checkpoint.
+    out = os.path.join(tmp, "samples-wide")
+    counts(ac, fd, reset=True)
+    t0 = time.perf_counter()
+    cli_sample.main(["--model-output", r, "--checkpoint", "-1", "--data", data,
+                     "--out-samples", out, "--batch-size", "8", "--max-seq-len", "512"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts(ac, fd)
+    names, notes = parse_midi_dir(out)
+    expected = 3 * 8 * MelodyDataset(8, 512, loader.melodies).num_batches()
+    check(len(names) == expected, f"cli.sample wrote {len(names)} files, expected {expected}")
+    check(c["K1"] > 0 and c["K2"] > 0, f"cli.sample launches {c}")
+    for k in ("K1 plain", "K2 plain"):
+        check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in cli.sample")
+    log(f"sample path: cli.sample on the resumed checkpoint, max_len 1026: {len(names)} MIDI "
+        f"files written and parsed back ({notes} note events) in {wall:.1f} s; launches {c}")
+    return main_counts
+
+
+def core_flops_bytes(key_lens, T: int, hd: int, causal: bool, esize: int):
+    """(unmasked (query, key) pairs x heads, forward bytes, backward bytes) of
+    one K2/K3 call: each input read once, each output written once."""
+    lens = key_lens.long().clamp(0, T).cpu()
+    if causal:  # query q sees min(q + 1, len) keys
+        q = torch.arange(T)
+        pairs = int(torch.minimum(q[None, :] + 1, lens[:, None]).sum())
+    else:
+        pairs = int(lens.sum()) * T
+    pairs *= CORE_H
+    B = lens.shape[0]
+    qkv = B * T * CORE_H * 3 * hd * esize
+    ctx = B * T * CORE_H * hd * esize
+    lse = B * CORE_H * T * 4
+    return pairs, qkv + ctx + lse + 4 * B, 2 * qkv + 2 * ctx + lse + 4 * B
+
+
+def bound(flops: float, nbytes: float, dtype: torch.dtype):
+    """(bound ms, "operations" or "bytes")."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def measure_core(ac, batch) -> dict:
+    """K2 and K3 per launch at both wide shapes (bf16, the main path's key
+    lengths from a corpus batch, random values), beside their bounds, their
+    plain versions and scaled_dot_product_attention on the same q, k, v."""
+    import torch.nn.functional as F
+
+    out = {}
+    for name, T, hd, causal in CORE_SHAPES:
+        seq_lens = torch.as_tensor(batch.seq_lens).long()
+        lens = (seq_lens if name == "encoder" else seq_lens + 1).to(torch.int32).cuda()
+        qkv, _, dout = core_inputs(T, hd, torch.bfloat16, seed=1)
+        scale = 1.0 / math.sqrt(hd)
+        fwd = lambda: ac.core_forward(qkv, lens, CORE_H, causal, scale)  # noqa: E731
+        ctx, lse = fwd()
+        bwd = lambda: ac.core_backward(qkv, lens, lse, ctx, dout, CORE_H, causal, scale)  # noqa: E731
+        k2 = [time_cuda(fwd, 20), time_cuda(fwd, 20)]
+        k3 = [time_cuda(bwd, 20), time_cuda(bwd, 20)]
+        p2 = time_cuda(lambda: ac.core_forward_reference(qkv, lens, CORE_H, causal, scale), 3)
+        p3 = time_cuda(lambda: ac.core_backward_reference(qkv, lens, lse, ctx, dout, CORE_H,
+                                                          causal, scale), 3)
+        q, k, v = (x.permute(0, 2, 1, 3).contiguous().requires_grad_()
+                   for x in ac._split(qkv, CORE_H))
+        mask = ac._mask(lens, T, causal)  # [B, 1, T, T], True = attend
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)  # noqa: E731
+        lib2 = time_cuda(sdpa, 20)
+        o = sdpa()
+        g = dout.reshape(CORE_B, T, CORE_H, hd).permute(0, 2, 1, 3).contiguous()
+        lib3 = time_cuda(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 20)
+        pairs, fbytes, bbytes = core_flops_bytes(lens, T, hd, causal, 2)
+        b2, by2 = bound(4 * hd * pairs, fbytes, torch.bfloat16)
+        b3, by3 = bound(10 * hd * pairs, bbytes, torch.bfloat16)
+        out[name] = {"K2": (min(k2), p2, lib2, b2, by2), "K3": (min(k3), p3, lib3, b3, by3)}
+        log(f"{name} T={T} hd={hd} causal={causal} key_lens={lens.tolist()} bf16: "
+            f"K2 {k2[0]:.4f} / {k2[1]:.4f} ms (bound {b2:.4f} ms, {by2}; plain {p2:.3f} ms; "
+            f"SDPA {lib2:.4f} ms), K3 {k3[0]:.4f} / {k3[1]:.4f} ms (bound {b3:.4f} ms, {by3}; "
+            f"plain {p3:.3f} ms; SDPA backward {lib3:.4f} ms)")
+    return out
+
+
+def measure_training(batch) -> dict:
+    """ms per wide training step (the CLI's model and optimizer, bf16), target
+    tokens per second, and K2/K3's share of the step's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from types import SimpleNamespace
+
+    from musicstyletransfer_torch.cli.flags import build_parser
+    from musicstyletransfer_torch.cli.main import create_model_config
+    from musicstyletransfer_torch.midi.vocab import NUM_EVENTS, PAD_ID
+    from musicstyletransfer_torch.models.vae import StyleVAE, init_params
+    from musicstyletransfer_torch.training.optimizer import Adam, OptimizerConfig
+    from musicstyletransfer_torch.training.train_step import LossConfig, batch_tensors, train_step
+
+    args, _ = build_parser().parse_known_args(wide_recipe_argv("-", "-", "-"))
+
+    corpus = SimpleNamespace(num_classes=lambda: 2, num_tokens=lambda: NUM_EVENTS)
+    model = init_params(StyleVAE(create_model_config(args, corpus)), 0).cuda()
+    opt = Adam(list(model.parameters()), OptimizerConfig(
+        args.optimizer, args.optimizer_params, args.learning_rate))
+    loss_cfg = LossConfig(kl_weight=args.kl_loss, kl_anneal_steps=args.kl_anneal_steps,
+                          free_bits=args.free_bits)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tensors = batch_tensors(batch, "cuda")
+    state = {"step": 0, "acc": None}
+
+    def step():
+        state["acc"] = train_step(model, opt, loss_cfg, state["step"], state["acc"],
+                                  *tensors, generator=gen)
+        state["step"] += 1
+
+    for _ in range(3):
+        step()
+    ms = [time_cuda(step, 10), time_cuda(step, 10)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 100
+    tokens = int((tensors[3] != PAD_ID).sum())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+
+    def dev(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    # Device-side events only: a CPU op (an autograd Function around a
+    # ctypes launch, aten::mm) also carries its kernels' time as its own.
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    check(events, "torch.profiler recorded no device events")
+    total = sum(dev(e) for e in events) / 1e3  # ms over 5 steps
+    k2 = sum(dev(e) for e in events if "core_fwd_kernel" in e.key) / 1e3
+    k3 = sum(dev(e) for e in events if "core_bwd_" in e.key) / 1e3
+    res = {"ms": min(ms), "host_ms": host_ms, "tokens_per_s": tokens / (min(ms) / 1e3),
+           "k2_share": k2 / max(total, 1e-9), "k3_share": k3 / max(total, 1e-9),
+           "busy": total / max(prof_wall, 1e-9)}
+    top = sorted(events, key=dev, reverse=True)[:8]
+    log(f"wide training step (B=8, L=512, bf16, Adam + clips): {ms[0]:.3f} / {ms[1]:.3f} ms "
+        f"(CUDA events, 10 steps each), {host_ms:.3f} ms host clock; {tokens} target tokens "
+        f"-> {res['tokens_per_s']:.0f} tokens/s; profiler (5 steps, {prof_wall:.1f} ms wall): "
+        f"device busy {res['busy']:.3f}, {total / 5:.3f} ms/step of kernels, "
+        f"K2 {k2 / 5:.3f} ms/step ({res['k2_share']:.3f}), "
+        f"K3 {k3 / 5:.3f} ms/step ({res['k3_share']:.3f})")
+    log("  top device time: " + "; ".join(f"{e.key[:70]} {dev(e) / 5e3:.3f} ms/step ({e.count // 5}/step)"
+                                         for e in top))
+    return res
+
+
+def k1_bound(model, x0, seqs, T_: int):
+    """K1's bound for one call from this call's output: the decode steps each
+    row ran (up to its EOS) times the flops of a step, the weights read once
+    and the outputs written once."""
+    from musicstyletransfer_torch.midi.vocab import EOS_ID
+
+    tc = model.decoder.config.transformer_config
+    D, NL, V = tc.model_size, tc.num_layers, model.decoder.config.output_dim
+    s = seqs.long().cpu()
+    eos = (s == EOS_ID).int().argmax(1)
+    ended = (s == EOS_ID).any(1)
+    last = torch.where(ended, eos, torch.full_like(eos, T_ - 1))  # last position computed
+    flops = 0.0
+    for n in last.tolist():
+        t = np.arange(n + 1)  # positions 0..n, attention over t+1 keys
+        flops += float(np.sum(NL * (24 * D * D + 4 * (t + 1) * D) + 2 * D * V))
+    pack = model._fused_decode_pack
+    esize = x0.element_size()
+    nbytes = (pack["wt"].numel() * esize + pack["wf"].numel() * 4 + pack["emb"].numel() * esize
+              + T_ * D * pack["pos"].element_size() + x0.numel() * esize + s.numel() * 4
+              + s.shape[0] * 4)
+    return bound(flops, nbytes, x0.dtype)
+
+
+def parse_midi_dir(out: str):
+    """Parse every MIDI file in ``out`` back to tokens; returns (names,
+    note events)."""
+    from musicstyletransfer_torch.midi import smf
+    from musicstyletransfer_torch.midi.codec import tokenize_track
+    from musicstyletransfer_torch.midi.vocab import FEATURE_OFFSET, is_timeshift
+
+    names = sorted(os.listdir(out))
+    notes = 0
+    for n in names:
+        tracks = smf.read_midifile(os.path.join(out, n)).tracks
+        toks = np.concatenate([tokenize_track(t) for t in tracks])
+        check(bool((toks >= FEATURE_OFFSET).all()), f"{n}: bad token")
+        notes += int(sum(not is_timeshift(int(t)) for t in toks))
+    return names, notes
+
+
 def main_path(fd, device):
     """Sampling.process_dataset on the shipped checkpoint, through --gpu."""
     import itertools
 
-    from musicstyletransfer_tpu.cli.flags import get_config
-    from musicstyletransfer_tpu.data import Loader, MelodyDataset
-    from musicstyletransfer_tpu.midi import smf
-    from musicstyletransfer_tpu.midi.codec import tokenize_track
-    from musicstyletransfer_tpu.midi.vocab import FEATURE_OFFSET, is_timeshift
+    from musicstyletransfer_torch.cli.flags import get_config
+    from musicstyletransfer_torch.data import Loader, MelodyDataset
     from musicstyletransfer_torch.inference.sampler import get_sampler
     from musicstyletransfer_torch.utils import resolve_device
 
@@ -234,14 +665,8 @@ def main_path(fd, device):
         plain_runs = fd.fused_decode_reference.cuda_runs
         check(launches > 0, "the main path launched the fused decode kernel 0 times")
         check(plain_runs == 0, f"the plain decode loop ran {plain_runs} times on CUDA")
-        names = sorted(os.listdir(out))
+        names, notes = parse_midi_dir(out)
         check(len(names) == 2 * 32 * 3, f"expected 192 MIDI files, got {len(names)}")
-        notes = 0
-        for n in names:
-            tracks = smf.read_midifile(os.path.join(out, n)).tracks
-            toks = np.concatenate([tokenize_track(t) for t in tracks])
-            check(bool((toks >= FEATURE_OFFSET).all()), f"{n}: bad token")
-            notes += int(sum(not is_timeshift(int(t)) for t in toks))
         log(f"main path: {len(names)} MIDI files written and parsed back "
             f"({notes} note events); fused_decode launches {launches}, plain "
             f"decode loops on CUDA {plain_runs}")
@@ -263,9 +688,9 @@ def time_cuda(fn, n: int) -> float:
 
 def measure(model, dataset, fd, decode):
     """The card's own numbers on the shipped model (bf16)."""
-    from musicstyletransfer_tpu.midi import smf
-    from musicstyletransfer_tpu.midi.codec import EventBasedMIDIReader, MelodyWriter, melody_from_ids
-    from musicstyletransfer_tpu.midi.vocab import PAD_ID, SOS_ID
+    from musicstyletransfer_torch.midi import smf
+    from musicstyletransfer_torch.midi.codec import EventBasedMIDIReader, MelodyWriter, melody_from_ids
+    from musicstyletransfer_torch.midi.vocab import PAD_ID, SOS_ID
 
     batch = next(iter(dataset))
     tokens = torch.as_tensor(batch.tokens, dtype=torch.long).cuda()
@@ -312,9 +737,11 @@ def measure(model, dataset, fd, decode):
     ms = time_cuda(lambda: fd.fused_decode(model, x0, T, 5), 50)
     ms2 = time_cuda(lambda: fd.fused_decode(model, x0, T, 5), 50)
     plain_ms2 = time_cuda(lambda: fd.fused_decode_reference(model, x0, T, 5), 5)
+    seqs, _ = fd.fused_decode(model, x0, T, 5)
+    bound_ms, bound_by = k1_bound(model, x0, seqs, T)
     fd.fused_decode.launches = launches  # timing launches are not the main path's
-    log(f"K1 fused_decode B={x0.shape[0]} T={T} bf16 sample: {ms:.4f} / {ms2:.4f} ms; "
-        f"plain loop {plain_ms:.3f} / {plain_ms2:.3f} ms")
+    log(f"K1 fused_decode B={x0.shape[0]} T={T} bf16 sample: {ms:.4f} / {ms2:.4f} ms "
+        f"(bound {bound_ms:.5f} ms, {bound_by}); plain loop {plain_ms:.3f} / {plain_ms2:.3f} ms")
 
     # p50 MIDI -> MIDI latency: one file, both classes, through the kernel.
     files = sorted(glob.glob(os.path.join(REPO, "work", "data", "guitar_bass", "*", "*.mid")))
@@ -342,7 +769,8 @@ def measure(model, dataset, fd, decode):
     p50 = statistics.median(lat)
     log(f"p50 MIDI->MIDI latency (1 file x 2 classes, kernel): {p50:.3f} ms over 20 calls")
     return {"ms": ms, "plain_ms": plain_ms, "events_per_s": k_eps,
-            "plain_events_per_s": p_eps, "p50_ms": p50}
+            "plain_events_per_s": p_eps, "p50_ms": p50, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def main() -> int:
@@ -353,36 +781,69 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
-    log(f"card: {smi.stdout.strip().splitlines()[0]}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
+    from musicstyletransfer_torch.data import Loader, MelodyDataset
     from musicstyletransfer_torch.inference import decode
     from musicstyletransfer_torch.ops import _build
+    from musicstyletransfer_torch.ops import attention_core as ac
     from musicstyletransfer_torch.ops import fused_decode as fd
 
     t0 = time.perf_counter()
-    _build.build("fused_decode")
-    _build.load("fused_decode")
-    log(f"build: K1 compiled and loaded in {time.perf_counter() - t0:.1f} s")
+    sources = ("fused_decode", "attention_core")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        list(pool.map(_build.build, sources))
+    for name in sources:
+        _build.load(name)
+    log(f"build: {', '.join(sources)} compiled and loaded in {time.perf_counter() - t0:.1f} s")
 
     err32 = check_kernel(torch.float32, fd, decode)
     err16 = check_kernel(torch.bfloat16, fd, decode)
-    model, dataset, launches = main_path(fd, device)
-    numbers = measure(model, dataset, fd, decode)
+    wide32 = check_wide_decoder(fd, torch.float32)
+    wide16 = check_wide_decoder(fd, torch.bfloat16)
+    core_err = check_core(ac)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_decode",
-        "route": "cuda",
+    counts(ac, fd, reset=True)
+    model, dataset, launches = main_path(fd, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts = train_path(ac, fd, tmp)
+
+    numbers = measure(model, dataset, fd, decode)
+    wide_batch = next(iter(MelodyDataset(8, 512, Loader(
+        os.path.join(REPO, "work", "data", "guitar_bass"), 512).melodies)))
+    core = measure_core(ac, wide_batch)
+    step = measure_training(wide_batch)
+    log(f"timings above on: {card}")
+
+    enc = core["encoder"]
+    kernels = [{
+        "name": "fused_decode", "route": "cuda",
         "source": "musicstyletransfer_torch/ops/csrc/fused_decode.cu",
         "replaces": "musicstyletransfer_tpu/ops/fused_decode.py:494",
         "launches": launches,
-        "max_abs_err": max(err32, err16),
-        "ms": numbers["ms"],
-        "plain_ms": numbers["plain_ms"],
-    }]}), flush=True)
+        "max_abs_err": max(err32, err16, wide32, wide16),
+        "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
+        "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
+        "library_ms": None,
+    }]
+    for kid, name, replaces in (
+            ("K2", "attention_core_forward", "musicstyletransfer_tpu/ops/attention_core.py:203"),
+            ("K3", "attention_core_backward", "musicstyletransfer_tpu/ops/attention_core.py:235")):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = enc[kid]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "musicstyletransfer_torch/ops/csrc/attention_core.cu",
+            "replaces": replaces, "launches": train_counts[kid],
+            "max_abs_err": core_err[kid], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+    log(f"wide training step {step['ms']:.3f} ms, {step['tokens_per_s']:.0f} target tokens/s")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,21 +1,20 @@
 """Sampling / style-transfer CLI of the PyTorch port:
 
     python -m musicstyletransfer_torch.cli.sample --model-output models/guitar_bass \\
-        --checkpoint -1 --data work/data/guitar_bass --out-samples out/ --gpu
+        --checkpoint -1 --data work/data/guitar_bass --out-samples out/
 
-Same flags as ``python -m musicstyletransfer_tpu.cli.sample``. ``--gpu``
-runs on CUDA (and fails when there is none); ``--cpu`` or neither runs on
-the CPU. The model folder needs the ``torch/`` export
-(``scripts/export-torch-weights.py``).
+Same flags as ``python -m musicstyletransfer_tpu.cli.sample``. It runs on
+CUDA, and fails when there is no card, unless ``--cpu`` is given. The model
+folder needs the ``torch/`` export (``scripts/export-torch-weights.py``, or
+a checkpoint written by ``musicstyletransfer_torch.cli.main``).
 """
 
 from __future__ import annotations
 
-from musicstyletransfer_tpu.cli.flags import get_config
-from musicstyletransfer_tpu.data import Loader, MelodyDataset
-
+from ..data import Loader, MelodyDataset
 from ..inference.sampler import get_sampler
 from ..utils import resolve_device
+from .flags import get_config
 
 
 def main(argv=None) -> None:

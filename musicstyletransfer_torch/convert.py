@@ -1,4 +1,4 @@
-"""Flax parameter tree -> ``StyleVAE`` state_dict.
+"""Flax parameter tree <-> ``StyleVAE`` state_dict.
 
 The flax names of ``musicstyletransfer_tpu/models/vae.py`` carry over
 path for path (``/`` becomes ``.``), with four renames:
@@ -9,6 +9,10 @@ path for path (``/`` becomes ``.``), with four renames:
 - an Embed ``embedding`` becomes ``weight``;
 - a LayerNorm ``scale`` becomes ``weight``;
 - ``layer{i}`` of a stack becomes ``layers.{i}`` (an ``nn.ModuleList``).
+
+``params_to_jax`` is the inverse: the port's trainer writes its checkpoints'
+``torch/params.npz`` with it, in the layout ``scripts/export-torch-weights.py``
+writes.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -55,3 +60,21 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
     """The flat ``/``-keyed arrays of an export's ``params.npz``."""
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """``model``'s parameters as the flat ``/``-keyed float32 arrays of an
+    export's ``params.npz`` (flax names and layouts)."""
+    out: Dict[str, np.ndarray] = {}
+    for mod_name, module in model.named_modules():
+        for leaf, p in module.named_parameters(recurse=False):
+            arr = p.detach().float().cpu().numpy()
+            if isinstance(module, nn.Embedding):
+                leaf = "embedding"
+            elif isinstance(module, nn.LayerNorm):
+                leaf = "scale" if leaf == "weight" else leaf
+            elif leaf == "weight":
+                arr, leaf = arr.T, "kernel"
+            name = re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layer\2", mod_name)
+            out["/".join(name.split(".") + [leaf])] = np.ascontiguousarray(arr)
+    return out

@@ -14,8 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from musicstyletransfer_tpu.data.dataset import Batch, Dataset
-from musicstyletransfer_tpu.midi.codec import MelodyWriter, melody_from_ids
+from ..data.dataset import Batch, Dataset
+from ..midi.codec import MelodyWriter, melody_from_ids
 
 from ..convert import load_npz, params_from_jax
 from ..models.config import load_config
@@ -41,10 +41,11 @@ def load_inference_model(model_folder: str, checkpoint: Optional[int],
     return model.to(device).eval()
 
 
-def get_sampler(type: str, model_folder: str, checkpoint: Optional[int], args,
-                device: torch.device = torch.device("cpu")) -> "SamplerBase":
+def get_sampler(type: str, model_folder: Optional[str], checkpoint: Optional[int], args,
+                device: torch.device = torch.device("cpu"),
+                model: Optional[StyleVAE] = None) -> "SamplerBase":
     if type == "sampling":
-        return Sampling(model_folder, checkpoint, device=device,
+        return Sampling(model_folder, checkpoint, device=device, model=model,
                         seed=getattr(args, "seed", 0),
                         temperature=getattr(args, "temperature", 1.0),
                         top_k=getattr(args, "top_k", 0),
@@ -56,13 +57,16 @@ def get_sampler(type: str, model_folder: str, checkpoint: Optional[int], args,
 
 
 class SamplerBase:
-    """Loads the model and writes a dataset's transfers as MIDI files;
+    """Loads the model (or shares a given one, as the trainer's in-training
+    sampling does) and writes a dataset's transfers as MIDI files;
     subclasses say how a batch is transferred into every class."""
 
-    def __init__(self, model_folder: str, checkpoint: Optional[int],
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, model_folder: Optional[str], checkpoint: Optional[int],
+                 device: torch.device = torch.device("cpu"),
+                 model: Optional[StyleVAE] = None):
         self.device = device
-        self.model = load_inference_model(model_folder, checkpoint, device)
+        self.model = (model if model is not None
+                      else load_inference_model(model_folder, checkpoint, device))
 
     def process_dataset(self, dataset: Dataset, output_suffix: str) -> None:
         """Write originals + per-target-class transfers for every batch."""
@@ -76,6 +80,12 @@ class SamplerBase:
                               index_offset=current)
             current += batch.batch_size
         print("Done with dataset decoding")
+
+    def process_batch(self, batch: Batch, output_suffix: str, num_classes: int) -> None:
+        """Originals + per-target-class transfers of one batch (reference:
+        sampler.py:111-135)."""
+        os.makedirs(output_suffix, exist_ok=True)
+        self._write_batch(batch, output_suffix, num_classes, MelodyWriter(), index_offset=0)
 
     def _write_batch(self, batch: Batch, output_suffix: str, num_classes: int,
                      writer: MelodyWriter, index_offset: int) -> None:
@@ -103,10 +113,11 @@ class Sampling(SamplerBase):
     """Ancestral sampling with temperature / top-k / top-p. Each call draws
     the kernel's Philox key from a ``torch.Generator`` seeded with ``seed``."""
 
-    def __init__(self, model_folder: str, checkpoint: Optional[int],
+    def __init__(self, model_folder: Optional[str], checkpoint: Optional[int],
                  device: torch.device = torch.device("cpu"), seed: int = 0,
-                 temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0):
-        super().__init__(model_folder, checkpoint, device)
+                 temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
+                 model: Optional[StyleVAE] = None):
+        super().__init__(model_folder, checkpoint, device, model)
         self._generator = torch.Generator().manual_seed(seed)
         self.temperature = temperature
         self.top_k = int(top_k)

@@ -1,17 +1,23 @@
 """Model configuration, read from ``<model>/torch/config.json``.
 
 Dataclass twins of ``musicstyletransfer_tpu/models/config.py`` with the
-same field names and defaults for everything the port computes with. The
-JSON is written by ``scripts/export-torch-weights.py``; keys the port has
-no use for (dropout, the TPU attention-dispatch knobs, sharding, remat) are
-ignored on load, the way the JAX loader ignores unknown YAML keys.
+same field names and defaults. The JSON is written by
+``scripts/export-torch-weights.py`` and by the port's own trainer
+(``training/checkpoint.py``); unknown keys are ignored on load, the way the
+JAX loader ignores unknown YAML keys.
+
+Options the port does not have yet are refused, never run some other way:
+``remat``, ``ring_attention`` and ``sequence_sharding`` raise
+``NotImplementedError`` when a model is built (``TransformerConfig.check``),
+and the flash route (T >= ``flash_min_seq_len`` with
+``use_flash_attention``) raises when it is reached.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 def _known(cls, d: Dict[str, Any]) -> Dict[str, Any]:
@@ -22,15 +28,44 @@ def _known(cls, d: Dict[str, Any]) -> Dict[str, Any]:
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     model_size: int = 128
+    dropout: float = 0.0
     num_layers: int = 1
     num_heads: int = 8
+    vocab_size: Optional[int] = None
     ffn_multiplier: int = 4
     max_positions: int = 10000
+    # The attention dispatch (models/transformer.py): with
+    # use_flash_attention, T in [attention_core_min_seq_len,
+    # min(flash_min_seq_len, 1024)) runs the attention core (K2 forward, K3
+    # backward, ops/attention_core.py); T >= flash_min_seq_len is the flash
+    # route (K4/K5), not ported yet. attention_core_xla_backward routes the
+    # core's backward through the plain twin of the JAX package's XLA
+    # backward instead of K3.
+    use_flash_attention: bool = False
+    flash_min_seq_len: int = 1024
+    attention_core_min_seq_len: int = 256
+    attention_core_xla_backward: bool = False
     norm_scheme: str = "post"  # "post" | "pre" (pre adds a final LayerNorm)
+    sequence_sharding: bool = False
+    ring_attention: bool = False
+    remat: bool = False
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TransformerConfig":
         return cls(**_known(cls, d))
+
+    def check(self) -> None:
+        """Raise for the options the port does not implement yet."""
+        missing = {
+            "remat": "ROADMAP queue 1, item 7 (torch.utils.checkpoint)",
+            "ring_attention": "ROADMAP queue 1, item 9 (multi-GPU)",
+            "sequence_sharding": "ROADMAP queue 1, item 9 (multi-GPU)",
+        }
+        for name, item in missing.items():
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"TransformerConfig.{name}=True is not ported to PyTorch "
+                    f"yet: {item}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,7 @@
 """Transformer encoder/decoder stacks (counterpart of ``musicstyletransfer_tpu/models/transformer.py``).
 
-Inference only: dropout is not applied. Numerics follow flax at the
-model's compute dtype (``ModelConfig.dtype``), with parameters kept in
-float32 and cast at use:
+Numerics follow flax at the model's compute dtype (``ModelConfig.dtype``),
+with parameters kept in float32 and cast at use:
 
 - ``Dense``: the product in the compute dtype (float32 accumulation),
   rounded, then the bias added in the compute dtype (flax ``nn.Dense``);
@@ -10,19 +9,30 @@ float32 and cast at use:
 - attention scores in the compute dtype, softmax over keys, masked
   positions at -1e9 (``transformer.py:39, 310-323``).
 
-The batched path is dense attention: at the canonical T=65 the JAX
-package takes the dense XLA route too (``transformer.py:191-214``).
+The batched attention has the JAX package's dispatch, mesh-free
+(``transformer.py:191-214, 243-323``): with ``use_flash_attention`` and
+``attention_core_min_seq_len`` <= T < min(``flash_min_seq_len``, 1024) it runs
+the attention core (``ops/attention_core.py``: K2 forward, K3 backward) on the
+interleaved QKV projection; below that window, or without
+``use_flash_attention``, dense attention (the canonical T=65 lands there);
+at or above ``flash_min_seq_len`` with ``use_flash_attention`` the flash
+route, which is not ported yet and raises.
+
+Dropout sits where flax has it (after the FFN's ReLU, and on both residual
+branches) and applies only in training mode, drawing its masks from the
+``torch.Generator`` passed down from ``StyleVAE.forward``.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention_core import MAX_CORE_SEQ_LEN, attention_core, interleave_qkv_weights
 from .config import TransformerConfig
 
 NEG_INF = -1e9
@@ -75,31 +85,51 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
-class FeedForward(nn.Module):
-    """4x-expansion ReLU FFN."""
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
+    1 / (1 - rate), in x's dtype; the identity outside training or at rate
+    0. The mask comes from ``generator`` (on x's device)."""
+    if not training or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, model_size: int, hidden_size: int, dtype: torch.dtype):
+
+class FeedForward(nn.Module):
+    """4x-expansion ReLU FFN, dropout after the ReLU."""
+
+    def __init__(self, model_size: int, hidden_size: int, dtype: torch.dtype,
+                 rate: float = 0.0):
         super().__init__()
         self.ff1 = Dense(model_size, hidden_size, dtype)
         self.ff2 = Dense(hidden_size, model_size, dtype)
+        self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ff2(F.relu(self.ff1(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.ff2(dropout(F.relu(self.ff1(x)), self.rate, self.training, generator))
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """Scaled-dot self-attention: a dense batched path and a cached step."""
+    """Scaled-dot self-attention: the batched path (attention core or dense)
+    and a cached step."""
 
     def __init__(self, model_size: int, num_heads: int, causal: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, config: Optional[TransformerConfig] = None):
         super().__init__()
         if model_size % num_heads:
             raise ValueError(f"model_size {model_size} is not a multiple of "
                              f"num_heads {num_heads}")
+        c = config or TransformerConfig()
         self.num_heads = num_heads
         self.head_dim = model_size // num_heads
         self.causal = causal
         self.compute_dtype = dtype
+        self.use_flash = c.use_flash_attention
+        self.flash_min_seq_len = c.flash_min_seq_len
+        self.core_min_seq_len = c.attention_core_min_seq_len
+        self.core_xla_backward = c.attention_core_xla_backward
         self.w_q = Dense(model_size, model_size, dtype)
         self.w_k = Dense(model_size, model_size, dtype)
         self.w_v = Dense(model_size, model_size, dtype)
@@ -110,10 +140,38 @@ class MultiHeadSelfAttention(nn.Module):
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(*x.shape[:-1], self.num_heads, self.head_dim)
 
+    def _core_eligible(self, T: int) -> bool:
+        """The JAX package's ``_core_eligible`` without its mesh clauses:
+        the window [core_min_seq_len, min(flash_min_seq_len, 1024))."""
+        lo = self.core_min_seq_len
+        return (self.use_flash and 0 < lo <= T and T < self.flash_min_seq_len
+                and T <= MAX_CORE_SEQ_LEN)
+
+    def _qkv_interleaved(self, x: torch.Tensor) -> torch.Tensor:
+        """The QKV projection in the core's layout (column group h is
+        [q_h | k_h | v_h]), permuted on the weight side: one
+        [B, T, D] x [D, 3D] product, flax Dense rounding."""
+        dt = self.compute_dtype
+        w, b = interleave_qkv_weights(
+            self.w_q.weight.t(), self.w_q.bias, self.w_k.weight.t(), self.w_k.bias,
+            self.w_v.weight.t(), self.w_v.bias, self.num_heads, self.head_dim)
+        return F.linear(x.to(dt), w.t().to(dt)) + b.to(dt)
+
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-        """x: [B, T, D]; key_mask: [B, T] True at valid (non-PAD) keys."""
+        """x: [B, T, D]; key_mask: [B, T] True at valid (non-PAD) keys, a
+        prefix of each row."""
         B, T, D = x.shape
         dt = self.compute_dtype
+        if self._core_eligible(T):
+            key_lens = key_mask.sum(-1, dtype=torch.int32)
+            ctx = attention_core(self._qkv_interleaved(x), key_lens, self.num_heads,
+                                 self.causal, xla_backward=self.core_xla_backward)
+            return self.w_o(ctx)
+        if self.use_flash and T >= self.flash_min_seq_len:
+            raise NotImplementedError(
+                f"flash attention at T={T} >= flash_min_seq_len="
+                f"{self.flash_min_seq_len} is not ported to PyTorch yet: ROADMAP "
+                "queue 2, K4/K5 (queue 1, item 7)")
         q, k, v = (self._heads(w(x)) for w in (self.w_q, self.w_k, self.w_v))
         bias = torch.where(key_mask[:, None, None, :].bool(), 0.0, NEG_INF)
         if self.causal:
@@ -148,18 +206,24 @@ class TransformerLayer(nn.Module):
         super().__init__()
         c = config
         self.pre_ln = c.norm_scheme == "pre"
+        self.rate = c.dropout
         self.attention = MultiHeadSelfAttention(c.model_size, c.num_heads,
-                                                causal, dtype)
+                                                causal, dtype, c)
         self.ln1 = LayerNorm(c.model_size, dtype)
-        self.ff = FeedForward(c.model_size, c.model_size * c.ffn_multiplier, dtype)
+        self.ff = FeedForward(c.model_size, c.model_size * c.ffn_multiplier, dtype,
+                              c.dropout)
         self.ln2 = LayerNorm(c.model_size, dtype)
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        def drop(y):
+            return dropout(y, self.rate, self.training, generator)
+
         if self.pre_ln:
-            x = x + self.attention(self.ln1(x), key_mask)
-            return x + self.ff(self.ln2(x))
-        x = self.ln1(x + self.attention(x, key_mask))
-        return self.ln2(x + self.ff(x))
+            x = x + drop(self.attention(self.ln1(x), key_mask))
+            return x + drop(self.ff(self.ln2(x), generator))
+        x = self.ln1(x + drop(self.attention(x, key_mask)))
+        return self.ln2(x + drop(self.ff(x, generator)))
 
     def step(self, x_t: torch.Tensor, cache: LayerCache, t: int) -> torch.Tensor:
         if self.pre_ln:
@@ -175,6 +239,7 @@ class TransformerStack(nn.Module):
 
     def __init__(self, config: TransformerConfig, causal: bool, dtype: torch.dtype):
         super().__init__()
+        config.check()
         self.config = config
         self.compute_dtype = dtype
         self.layers = nn.ModuleList(
@@ -191,11 +256,13 @@ class TransformerStack(nn.Module):
         self.register_buffer("scale", sqrt_in(config.model_size, dtype),
                              persistent=False)
 
-    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
-        """x: [B, T, D] (before scaling); key_mask: [B, T] True at valid keys."""
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [B, T, D] (before scaling); key_mask: [B, T] True at valid keys;
+        ``generator`` draws the dropout masks in training mode."""
         x = self.scale * x + self.pos_table[: x.shape[1]]
         for layer in self.layers:
-            x = layer(x, key_mask)
+            x = layer(x, key_mask, generator)
         if self.config.norm_scheme == "pre":
             x = self.final_ln(x)
         return x

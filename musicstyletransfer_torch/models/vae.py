@@ -1,7 +1,8 @@
 """Class-conditional sequence VAE (counterpart of ``musicstyletransfer_tpu/models/vae.py``).
 
-Inference only: ``encode`` returns (mu, logvar) and generation uses z = mu.
-Token lookups are plain gathers; the JAX package's one-hot embedding matmul
+``StyleVAE.forward`` in training mode samples the reparameterised
+z = mu + eps * exp(logvar / 2) (``vae.py:238-245``) and applies dropout; in
+eval mode it uses z = mu, as ``encode`` and generation do. Token lookups are plain gathers; the JAX package's one-hot embedding matmul
 (``vae.py:37-49``) is a TPU workaround and is not carried over.
 """
 
@@ -12,10 +13,14 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from musicstyletransfer_tpu.midi.vocab import PAD_ID
+from ..midi.vocab import PAD_ID
 
 from .config import DecoderConfig, EncoderConfig, ModelConfig
 from .transformer import Cache, Dense, TransformerStack, compute_dtype
+
+# flax's lecun_normal: a normal truncated at two standard deviations, its
+# stddev divided by that truncation's own stddev so the variance is 1/fan_in.
+_TRUNCATED_STD = 0.87962566103423978
 
 
 class VAEEncoder(nn.Module):
@@ -31,12 +36,13 @@ class VAEEncoder(nn.Module):
         self.encoder = TransformerStack(c.transformer_config, causal=False, dtype=dtype)
         self.latent_proj = Dense(d, 2 * c.latent_dim, torch.float32)
 
-    def forward(self, tokens: torch.Tensor,
-                classes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, tokens: torch.Tensor, classes: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         dt = self.compute_dtype
         key_mask = tokens != PAD_ID
         x = self.token_emb(tokens).to(dt) + self.class_emb(classes).to(dt)[:, None, :]
-        h0 = self.encoder(x, key_mask)[:, 0, :]  # position-0 readout
+        h0 = self.encoder(x, key_mask, generator)[:, 0, :]  # position-0 readout
         mu, logvar = self.latent_proj(h0.float()).chunk(2, dim=-1)
         # The JAX package clamps logvar to +-8 (vae.py:82-90).
         return mu, logvar.clamp(-8.0, 8.0)
@@ -82,13 +88,14 @@ class VAEDecoder(nn.Module):
         return x
 
     def forward(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
-                z: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+                z: torch.Tensor, classes: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Teacher-forced: SOS-prefixed tokens [B, L+1] -> logits [B, L+1, V]."""
         init = self.initial_state(z, classes)[:, None, :]
         x = torch.cat([init, self.embed(tokens, classes)], dim=1)  # [B, L+2, D]
         positions = torch.arange(x.shape[1], device=x.device)
         key_mask = positions[None, :] < (seq_lens[:, None] + 1)
-        h = self.decoder(x, key_mask)[:, 1:, :]  # drop the conditioning position
+        h = self.decoder(x, key_mask, generator)[:, 1:, :]  # drop the conditioning position
         return self.output_layer(h.float())
 
     def step_embedded(self, x_t: torch.Tensor, cache: Cache, t: int) -> torch.Tensor:
@@ -126,10 +133,19 @@ class StyleVAE(nn.Module):
         return self.decoder.output_layer.weight.device
 
     def forward(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
-                classes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Deterministic (z = mu) forward: (logits, mu, logvar)."""
-        mu, logvar = self.encoder(tokens, classes)
-        return self.decoder(tokens, seq_lens, mu, classes), mu, logvar
+                classes: torch.Tensor, eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(logits, mu, logvar). In training mode z = mu + eps * exp(logvar/2)
+        with ``eps`` [B, latent] as given, else drawn from ``generator``,
+        which also draws the dropout masks; in eval mode z = mu."""
+        mu, logvar = self.encoder(tokens, classes, generator)
+        z = mu
+        if self.training:
+            if eps is None:
+                eps = torch.randn(mu.shape, generator=generator, device=mu.device)
+            z = mu + eps * torch.exp(0.5 * logvar)
+        return self.decoder(tokens, seq_lens, z, classes, generator), mu, logvar
 
     def encode(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
                classes: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -146,3 +162,27 @@ class StyleVAE(nn.Module):
     def decode_step(self, token_t: torch.Tensor, cache: Cache, t: int,
                     classes: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.decoder.step_token(token_t, cache, t, classes)
+
+
+@torch.no_grad()
+def init_params(model: StyleVAE, seed: int) -> StyleVAE:
+    """Seeded initialisation with flax's default initializers (the JAX
+    package's ``init_params``; the numbers differ, the distributions do
+    not): Dense kernels lecun_normal and biases zero, embeddings
+    normal(0, 1/sqrt(features)), LayerNorms one and zero. Drawn on the CPU,
+    so a seed gives the same weights on every device."""
+    g = torch.Generator().manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            w = torch.empty(module.weight.shape)
+            std = module.in_features ** -0.5 / _TRUNCATED_STD
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+            module.weight.copy_(w)
+            module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            w = torch.randn(module.weight.shape, generator=g) * module.embedding_dim ** -0.5
+            module.weight.copy_(w)
+        elif isinstance(module, nn.LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    return model

@@ -31,7 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from musicstyletransfer_tpu.midi.vocab import EOS_ID, PAD_ID, SOS_ID
+from ..midi.vocab import EOS_ID, PAD_ID, SOS_ID
 
 from ..models.transformer import sqrt_in
 from . import _build

@@ -159,9 +159,18 @@ class TestSampling:
 
 
 class TestDevice:
-    def test_cpu_and_default(self):
-        assert resolve_device() == torch.device("cpu")
+    def test_cpu_and_default(self, monkeypatch):
+        """No flag means CUDA (raising without a card); --cpu means the CPU."""
         assert resolve_device(cpu=True) == torch.device("cpu")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="--cpu"):
+            resolve_device()
+        with pytest.raises(RuntimeError, match="--cpu"):
+            cli_sample.main(["--model-output", MODEL, "--data", CORPUS,
+                             "--out-samples", "unused"])
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        assert resolve_device() == torch.device("cuda")
+        assert resolve_device(gpu=True) == torch.device("cuda")
 
     def test_gpu_without_cuda_raises(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
