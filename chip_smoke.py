@@ -6,21 +6,30 @@
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of musicstyletransfer_torch/ops/csrc with nvcc, one
    process per source, all at once: K1 (fused_decode.cu), K2/K3
-   (attention_core.cu).
+   (attention_core.cu), K4/K5 (flash_attention.cu).
 3. Holds K1 against its plain PyTorch version on the card, at the canonical
    decoder shape (D=128, H=8, V=293, B=64, T=130) with seeded weights, in
    float32 and bfloat16: forced-mode logits, greedy tokens and scores, the
    top-k/top-p support of sampled tokens, sample-mode statistics over 256
    rows, and a pre-LN + per-step-conditioned two-layer decoder; then at the
-   wide decoder (D=512, 2 layers, 16 heads, pre-LN) over T=1026 positions.
+   wide decoder (D=512, 2 layers, 16 heads, pre-LN) over T=1026 positions
+   and at the long decoder (D=256, 2 layers, 8 heads, post-LN, per_step)
+   over T=4094.
 4. Holds K2 and K3 against their plain versions at the wide training shapes
    (B=8, H=16; encoder T=513, hd=64; decoder T=514, hd=32, causal), in
    float32 and bfloat16, with ragged key lengths (one row 1, one row 0), and
    K3 at 1e19 cotangents, where every value must be finite.
-5. Serving path: the shipped models/guitar_bass export through
+5. Holds K4 and K5 against their plain versions at the long training shapes
+   (H=8; encoder T=2047, hd=64; decoder T=2048, hd=32, causal; the key
+   lengths of the corpus's first L=2046 batch plus a row of 1 and a row of
+   0) and at T=8192 (causal and not), in float32 and bfloat16, on the
+   model's strided [B, T, H, hd] layout: out, lse, and dq/dk/dv with and
+   without an lse cotangent, through flash_attention_with_lse's autograd
+   too, and K5 at 1e19 cotangents.
+6. Serving path: the shipped models/guitar_bass export through
    Sampling.process_dataset on the first two batches of work/data/guitar_bass
    (batch 32, L=64); the MIDI parses back, the decode went through K1 only.
-6. Training path: musicstyletransfer_torch.cli.main with
+7. Wide training path: musicstyletransfer_torch.cli.main with
    scripts/train-vae-wide.sh's flags (L=512, batch 8, bf16, pre-LN, the
    attention core) for two epochs with a checkpoint after each; a copy of
    the run resumed from the first checkpoint for one epoch, whose first
@@ -28,11 +37,18 @@
    resumed checkpoint, whose MIDI parses back. Loss and gradient norm stay
    finite, no update is skipped, K3 runs on every attention layer of every
    step, and no plain version runs on the card.
-7. Times (CUDA events, beside the card's name and power limit): the serving
-   transfer, K1 against its plain loop, p50 MIDI->MIDI latency; K2 and K3
-   at both wide shapes beside their bounds, their plain versions and
-   torch's scaled_dot_product_attention; the wide training step, its
-   target tokens per second and K2/K3's share of it (torch.profiler).
+8. Long training path: cli.main with scripts/train-vae-long.sh's flags
+   (L=2046, batch 4, post-LN, per_step, --ring-attention --tp 1) for two
+   epochs (24 steps) with a checkpoint after each, then cli.sample on the
+   checkpoint at max_len 4094, whose MIDI parses back. K5 runs on every
+   attention layer of every step, K2/K3 never, no plain version on the
+   card; loss and gradient norm finite, no update skipped.
+9. Times (CUDA events, beside the card's name and power limit): the serving
+   transfer, K1 against its plain loop, p50 MIDI->MIDI latency; K2/K3 at
+   both wide shapes and K4/K5 at both long shapes beside their bounds,
+   their plain versions and torch's scaled_dot_product_attention; the wide
+   and the long training step, their target tokens per second and the
+   attention kernels' share of them (torch.profiler).
 
 Exits non-zero on any failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -44,6 +60,7 @@ import glob
 import json
 import math
 import os
+import re
 import shlex
 import shutil
 import statistics
@@ -56,6 +73,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
@@ -84,6 +102,13 @@ CORE_B, CORE_H = 8, 16
 TOL_CTX = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 TOL_LSE = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 TOL_DQKV_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# The long recipe's attention shapes: (name, T, head_dim, causal), H=8; and
+# the streaming regime's length, where the JAX dispatch takes K4b/K5b/K5c.
+FLASH_SHAPES = (("encoder", 2047, 64, False), ("decoder", 2048, 32, True))
+FLASH_H, FLASH_LONG_T = 8, 8192
+LONG_L, LONG_B = 2046, 4
+# K4/K5 against their plain versions: K2/K3's tolerances (TOL_CTX, TOL_LSE,
+# TOL_DQKV_REL), for the same reasons.
 # A resumed run's first logged step against the uninterrupted run's: the same
 # batch, parameters, optimizer state and random numbers; bf16 tolerance.
 TOL_RESUME_REL = 1e-2
@@ -236,42 +261,49 @@ def check_kernel(dtype: torch.dtype, fd, decode) -> float:
     return err
 
 
-def check_wide_decoder(fd, dtype: torch.dtype) -> float:
-    """K1 at the wide recipe's decoder (D=512, 2 layers, 16 heads, pre-LN,
-    latent 1024) over T=2*(512+1) positions on 8 rows: forced logits against
-    the plain loop, and every greedy token the plain argmax on its prefix."""
+def check_decoder(fd, dtype: torch.dtype, label: str, dec, latent: int, steps: int,
+                  conditioning: str = "initial", reps: int = 3) -> float:
+    """K1 at a recipe's decoder ``dec`` over T=``steps`` positions on 8 rows:
+    forced logits against the plain loop, and every greedy token the plain
+    argmax on its prefix; returns the forced logits' max abs error."""
     from musicstyletransfer_torch.models import (
         DecoderConfig, EncoderConfig, ModelConfig, StyleVAE, TransformerConfig)
 
     name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
-    rows, steps = 8, 1026
-    dec = TransformerConfig(model_size=512, num_layers=2, num_heads=16, norm_scheme="pre")
+    rows = 8
     cfg = ModelConfig(
         encoder_config=EncoderConfig(transformer_config=TransformerConfig(model_size=64),
-                                     latent_dim=1024),
-        decoder_config=DecoderConfig(transformer_config=dec, latent_dim=1024), dtype=name)
+                                     latent_dim=latent),
+        decoder_config=DecoderConfig(transformer_config=dec, latent_dim=latent,
+                                     class_conditioning=conditioning), dtype=name)
     torch.manual_seed(0)
     model = StyleVAE(cfg).cuda().eval()
     g = np.random.default_rng(5)
-    z = torch.as_tensor(g.normal(size=(rows, 1024)), dtype=torch.float32).cuda()
+    z = torch.as_tensor(g.normal(size=(rows, latent)), dtype=torch.float32).cuda()
     classes = torch.as_tensor(g.integers(0, 2, rows)).cuda()
     with torch.inference_mode():
         x0 = model.decode_init(z, classes).contiguous()
     forced = torch.as_tensor(g.integers(3, 293, (rows, steps)), dtype=torch.int32).cuda()
-    _, _, kl = fd.fused_decode(model, x0, steps, 0, mode="forced", forced_tokens=forced)
+    _, _, kl = fd.fused_decode(model, x0, steps, 0, mode="forced", forced_tokens=forced,
+                               classes=classes)
     _, _, pl = fd.fused_decode_reference(model, x0, steps, 0, mode="forced",
-                                         forced_tokens=forced)
-    kseq, _ = fd.fused_decode(model, x0, steps, 0, mode="greedy")
-    _, _, gl = fd.fused_decode_reference(model, x0, steps, 0, mode="forced", forced_tokens=kseq)
+                                         forced_tokens=forced, classes=classes)
+    kseq, _ = fd.fused_decode(model, x0, steps, 0, mode="greedy", classes=classes)
+    _, _, gl = fd.fused_decode_reference(model, x0, steps, 0, mode="forced", forced_tokens=kseq,
+                                         classes=classes)
     torch.cuda.synchronize()
     err = float((kl - pl).abs().max())
-    check(bool(torch.isfinite(kl).all()), f"wide K1 {name}: non-finite logits")
-    check(err <= TOL_LOGITS[dtype], f"wide K1 {name} forced max|err| {err} > {TOL_LOGITS[dtype]}")
+    check(bool(torch.isfinite(kl).all()), f"{label} K1 {name}: non-finite logits")
+    check(err <= TOL_LOGITS[dtype],
+          f"{label} K1 {name} forced max|err| {err} > {TOL_LOGITS[dtype]}")
     chosen = gl.gather(2, kseq.long()[:, :, None])[:, :, 0]
     gap = float((gl.max(-1).values - chosen)[live_mask(kseq)].max())
-    check(gap <= TOL_LOGITS[dtype], f"wide K1 {name} greedy: a token {gap} below the plain argmax")
-    ms = time_cuda(lambda: fd.fused_decode(model, x0, steps, 0, mode="greedy"), 3)
-    log(f"[{name}] wide decoder D=512 x2 layers, 16 heads, pre-LN, T={steps}, {rows} rows: "
+    check(gap <= TOL_LOGITS[dtype],
+          f"{label} K1 {name} greedy: a token {gap} below the plain argmax")
+    ms = time_cuda(lambda: fd.fused_decode(model, x0, steps, 0, mode="greedy", classes=classes),
+                   reps)
+    log(f"[{name}] {label} decoder D={dec.model_size} x{dec.num_layers} layers, "
+        f"{dec.num_heads} heads, {dec.norm_scheme}-LN, {conditioning}, T={steps}, {rows} rows: "
         f"forced max|err| {err:.3g} (tol {TOL_LOGITS[dtype]}), greedy max argmax gap {gap:.3g}; "
         f"K1 greedy {ms:.3f} ms a launch")
     return err
@@ -330,29 +362,119 @@ def check_core(ac) -> dict:
     return worst
 
 
-def wide_recipe_argv(data: str, model_output: str, out_samples: str):
-    """scripts/train-vae-wide.sh's flags, with its paths replaced."""
-    with open(os.path.join(REPO, "scripts", "train-vae-wide.sh")) as f:
+def flash_inputs(B: int, T: int, hd: int, dtype: torch.dtype, seed: int):
+    """q, k, v and a cotangent dO as [B, H, T, hd] views of [B, T, H, hd]
+    tensors (the model's layout), and an lse cotangent, seeded with numpy."""
+    g = np.random.default_rng(seed)
+
+    def bthd():
+        x = torch.as_tensor(g.normal(size=(B, T, FLASH_H, hd)), dtype=torch.float32)
+        return x.to(dtype).cuda().transpose(1, 2)
+
+    q, k, v, dout = bthd(), bthd(), bthd(), bthd()
+    g_lse = torch.as_tensor(g.normal(size=(B, FLASH_H, T)), dtype=torch.float32).cuda()
+    return q, k, v, dout, g_lse
+
+
+def check_flash(fa, enc_lens) -> dict:
+    """K4 and K5 against their plain versions at both long shapes (the corpus
+    batch's key lengths ``enc_lens`` plus a row of 1 and a row of 0, +1 in
+    the decoder) and at T=8192; returns the largest absolute errors
+    {"K4": ..., "K5": ...}."""
+    enc = [int(n) for n in enc_lens]
+    cases = [(name, T, hd, causal, (enc if name == "encoder" else [n + 1 for n in enc]) + [1, 0])
+             for name, T, hd, causal in FLASH_SHAPES]
+    cases += [("single row", FLASH_LONG_T, 64, causal, [FLASH_LONG_T * 7 // 8])
+              for causal in (False, True)]
+    worst = {"K4": 0.0, "K5": 0.0}
+    for name, T, hd, causal, lens in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+            tag = f"{name} T={T} hd={hd} causal={causal} {dn}"
+            q, k, v, dout, g_lse = flash_inputs(len(lens), T, hd, dtype, seed=T + hd)
+            key_lens = torch.tensor(lens, dtype=torch.int32).cuda()
+            scale = hd ** -0.5
+            out, lse = fa.flash_forward(q, k, v, key_lens, causal, scale)
+            pout, plse = fa.flash_forward_reference(q, k, v, key_lens, causal, scale)
+            torch.cuda.synchronize()
+            out_err = float((out.float() - pout.float()).abs().max())
+            masked = plse <= -1e29
+            check(bool(torch.equal(lse <= -1e29, masked)), f"K4 {tag}: lse sentinel rows differ")
+            lse_err = float((lse - plse)[~masked].abs().max())
+            check(bool(torch.isfinite(out.float()).all()), f"K4 {tag}: non-finite out")
+            check(bool((out[key_lens == 0] == 0).all()), f"K4 {tag}: key_lens=0 row not zeros")
+            check(out_err <= TOL_CTX[dtype], f"K4 {tag}: out max|err| {out_err} > {TOL_CTX[dtype]}")
+            check(lse_err <= TOL_LSE[dtype], f"K4 {tag}: lse max|err| {lse_err} > {TOL_LSE[dtype]}")
+            worst["K4"] = max(worst["K4"], out_err)
+            # K5 on the plain forward's residuals, so only the backward
+            # differs; then through flash_attention_with_lse's autograd on the
+            # kernel's own residuals, with an lse cotangent.
+            line = []
+            x = [t.detach().requires_grad_() for t in (q, k, v)]
+            o2, l2 = fa.flash_attention_with_lse(*x, key_lens, causal)
+            torch.autograd.backward([o2, l2], [dout, g_lse])
+            runs = (("dO ~ N(0,1)", dout, None, plse, pout, None),
+                    ("with g_lse", dout, g_lse, plse, pout, None),
+                    ("dO = 1e19", torch.full_like(dout, 1e19), None, plse, pout, None),
+                    ("autograd, with g_lse", dout, g_lse, l2.detach(), o2.detach(),
+                     [t.grad for t in x]))
+            for label, g, gl, lse_r, out_r, grads in runs:
+                if grads is None:
+                    grads = fa.flash_backward(q, k, v, key_lens, lse_r, out_r, g, causal, scale, gl)
+                pgrads = fa.flash_backward_reference(q, k, v, key_lens, lse_r, out_r, g, causal,
+                                                     scale, gl)
+                torch.cuda.synchronize()
+                errs, rels = [], []
+                for gname, d, pd in zip("qkv", grads, pgrads):
+                    check(bool(torch.isfinite(d.float()).all()), f"K5 {tag} {label}: non-finite d{gname}")
+                    errs.append(float((d.float() - pd.float()).abs().max()))
+                    rels.append(errs[-1] / max(float(pd.float().abs().max()), 1e-30))
+                check(max(rels) <= TOL_DQKV_REL[dtype],
+                      f"K5 {tag} {label}: rel errs {rels} > {TOL_DQKV_REL[dtype]}")
+                if label != "dO = 1e19":
+                    worst["K5"] = max(worst["K5"], max(errs))
+                line.append(f"{label}: max|err| {max(errs):.3g}, rel {max(rels):.3g}")
+            log(f"[{dn}] K4 {name} T={T} hd={hd} causal={causal} key_lens={lens}: out max|err| "
+                f"{out_err:.3g} (tol {TOL_CTX[dtype]}), lse {lse_err:.3g} (tol {TOL_LSE[dtype]}); "
+                "K5 " + "; ".join(line) + f" (rel tol {TOL_DQKV_REL[dtype]}, all finite)")
+    return worst
+
+
+def recipe_argv(script: str, data: str, model_output: str, out_samples: str):
+    """scripts/<script>'s flags, shell defaults (${TP:-1}) taken, with its
+    paths replaced."""
+    with open(os.path.join(REPO, "scripts", script)) as f:
         text = f.read()
     body = text.split("musicstyletransfer_tpu.cli.main", 1)[1].split('"$@"', 1)[0]
+    body = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", body)
     argv = shlex.split(body.replace("\\\n", " "))
     subs = {"--data": data, "--model-output": model_output, "--out-samples": out_samples}
     for i, a in enumerate(argv[:-1]):
         if a in subs:
             argv[i + 1] = subs[a]
-    for flag in ("--use-flash-attention", "--norm-scheme", "--max-seq-len", "--batch-size"):
-        check(flag in argv, f"train-vae-wide.sh lost {flag}")
+    for flag in ("--use-flash-attention", "--max-seq-len", "--batch-size"):
+        check(flag in argv, f"{script} lost {flag}")
     return argv
 
 
-def counts(ac, fd, reset: bool = False) -> dict:
-    """Launch counts of K1-K3 and runs of their plain versions on CUDA."""
+PLAIN = ("K1 plain", "K2 plain", "K3 plain", "XLA-backward twin", "K4 plain", "K5 plain")
+
+
+def counts(reset: bool = False) -> dict:
+    """Launch counts of K1-K5 and runs of their plain versions on CUDA."""
+    from musicstyletransfer_torch.ops import attention_core as ac
+    from musicstyletransfer_torch.ops import flash_attention as fa
+    from musicstyletransfer_torch.ops import fused_decode as fd
+
     names = {"K1": (fd.fused_decode, "launches"), "K2": (ac.core_forward, "launches"),
-             "K3": (ac.core_backward, "launches"),
+             "K3": (ac.core_backward, "launches"), "K4": (fa.flash_forward, "launches"),
+             "K5": (fa.flash_backward, "launches"),
              "K1 plain": (fd.fused_decode_reference, "cuda_runs"),
              "K2 plain": (ac.core_forward_reference, "cuda_runs"),
              "K3 plain": (ac.core_backward_reference, "cuda_runs"),
-             "XLA-backward twin": (ac.core_xla_backward, "cuda_runs")}
+             "XLA-backward twin": (ac.core_xla_backward, "cuda_runs"),
+             "K4 plain": (fa.flash_forward_reference, "cuda_runs"),
+             "K5 plain": (fa.flash_backward_reference, "cuda_runs")}
     out = {}
     for k, (fn, attr) in names.items():
         out[k] = getattr(fn, attr)
@@ -390,17 +512,17 @@ def train_path(ac, fd, tmp: str) -> dict:
     u, r = os.path.join(tmp, "wide"), os.path.join(tmp, "wide-resumed")
 
     def argv(model, epochs):
-        return wide_recipe_argv(data, model, os.path.join(tmp, "out-wide")) + [
+        return recipe_argv("train-vae-wide.sh", data, model, os.path.join(tmp, "out-wide")) + [
             "--epochs", str(epochs), "--checkpoint-frequency", str(per_epoch),
             "--logdir", model + "-log", "--log-every", "1"]
 
     layers = 4 + 2  # the recipe's encoder and decoder layers
-    counts(ac, fd, reset=True)
+    counts(reset=True)
     t0 = time.perf_counter()
     cli_main.main(argv(u, 2))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    c = counts(ac, fd)
+    c = counts()
     steps = 2 * per_epoch
     log(f"train path: cli.main, wide recipe, {steps} steps in {wall:.1f} s (2 checkpoints, "
         f"validation, generation-health probe); launches {c}")
@@ -409,16 +531,16 @@ def train_path(ac, fd, tmp: str) -> dict:
     check(c["K3"] == layers * steps, f"K3 launched {c['K3']} times, expected {layers} x {steps}")
     check(c["K2"] >= c["K3"], f"K2 launched {c['K2']} times, fewer than K3")
     check(c["K1"] > 0, "the generation-health probe did not launch K1")
-    for k in ("K1 plain", "K2 plain", "K3 plain", "XLA-backward twin"):
+    for k in PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the training path")
     main_counts = c
 
     # Resume: a copy of the run as it stood at its first checkpoint.
     shutil.copytree(u, r, ignore=shutil.ignore_patterns("params.2.pt"))
-    counts(ac, fd, reset=True)
+    counts(reset=True)
     cli_main.main(argv(r, 1))
     torch.cuda.synchronize()
-    c = counts(ac, fd)
+    c = counts()
     lines_r = train_lines(os.path.join(r + "-log", "scalars.jsonl"))
     check_train_log(lines_r, "resumed run")
     check(c["K3"] == layers * per_epoch, f"resumed: K3 launched {c['K3']} times")
@@ -434,38 +556,96 @@ def train_path(ac, fd, tmp: str) -> dict:
 
     # Sample from the resumed run's checkpoint.
     out = os.path.join(tmp, "samples-wide")
-    counts(ac, fd, reset=True)
+    counts(reset=True)
     t0 = time.perf_counter()
     cli_sample.main(["--model-output", r, "--checkpoint", "-1", "--data", data,
                      "--out-samples", out, "--batch-size", "8", "--max-seq-len", "512"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    c = counts(ac, fd)
+    c = counts()
     names, notes = parse_midi_dir(out)
     expected = 3 * 8 * MelodyDataset(8, 512, loader.melodies).num_batches()
     check(len(names) == expected, f"cli.sample wrote {len(names)} files, expected {expected}")
     check(c["K1"] > 0 and c["K2"] > 0, f"cli.sample launches {c}")
-    for k in ("K1 plain", "K2 plain"):
+    for k in PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in cli.sample")
     log(f"sample path: cli.sample on the resumed checkpoint, max_len 1026: {len(names)} MIDI "
         f"files written and parsed back ({notes} note events) in {wall:.1f} s; launches {c}")
     return main_counts
 
 
-def core_flops_bytes(key_lens, T: int, hd: int, causal: bool, esize: int):
+def long_path(tmp: str) -> dict:
+    """The long recipe through cli.main for two epochs, then cli.sample on its
+    checkpoint at max_len 2 * (L + 1) = 4094; returns the training run's
+    launch counts."""
+    from musicstyletransfer_torch.cli import main as cli_main
+    from musicstyletransfer_torch.cli import sample as cli_sample
+    from musicstyletransfer_torch.data import Loader, MelodyDataset, load_dataset
+
+    data = os.path.join(REPO, "work", "data", "guitar_bass")
+    loader = Loader(data, LONG_L)
+    per_epoch = load_dataset(loader, LONG_B, 0.1)[0].num_batches()
+    model = os.path.join(tmp, "long")
+    argv = recipe_argv("train-vae-long.sh", data, model, os.path.join(tmp, "out-long")) + [
+        "--epochs", "2", "--checkpoint-frequency", str(per_epoch),
+        "--logdir", model + "-log", "--log-every", "1"]
+    for flag in ("--ring-attention", "--class-conditioning", "--free-bits"):
+        check(flag in argv, f"train-vae-long.sh lost {flag}")
+    layers = 4 + 2  # the recipe's encoder and decoder layers
+    counts(reset=True)
+    t0 = time.perf_counter()
+    cli_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    steps = 2 * per_epoch
+    log(f"long path: cli.main, long recipe, {steps} steps in {wall:.1f} s (2 checkpoints, "
+        f"validation, generation-health probe at max_len {2 * (LONG_L + 1)}); launches {c}")
+    check_train_log(train_lines(os.path.join(model + "-log", "scalars.jsonl")), "long run")
+    check(c["K5"] == layers * steps, f"K5 launched {c['K5']} times, expected {layers} x {steps}")
+    check(c["K4"] >= c["K5"], f"K4 launched {c['K4']} times, fewer than K5")
+    check(c["K2"] == 0 and c["K3"] == 0, f"the long path launched K2/K3: {c}")
+    check(c["K1"] > 0, "the generation-health probe did not launch K1")
+    for k in PLAIN:
+        check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the long training path")
+    main_counts = c
+
+    out = os.path.join(tmp, "samples-long")
+    counts(reset=True)
+    t0 = time.perf_counter()
+    cli_sample.main(["--model-output", model, "--checkpoint", "-1", "--data", data,
+                     "--out-samples", out, "--batch-size", "8", "--max-seq-len", str(LONG_L)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counts()
+    names, notes = parse_midi_dir(out)
+    expected = 3 * 8 * MelodyDataset(8, LONG_L, loader.melodies).num_batches()
+    check(len(names) == expected, f"cli.sample wrote {len(names)} files, expected {expected}")
+    check(c["K1"] > 0 and c["K4"] > 0 and c["K2"] == 0, f"cli.sample launches {c}")
+    for k in PLAIN:
+        check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in cli.sample")
+    log(f"long sample path: cli.sample on the long checkpoint, max_len {2 * (LONG_L + 1)}: "
+        f"{len(names)} MIDI files written and parsed back ({notes} note events) in {wall:.1f} s; "
+        f"launches {c}")
+    return main_counts
+
+
+def core_flops_bytes(key_lens, T: int, hd: int, causal: bool, esize: int, H: int = CORE_H):
     """(unmasked (query, key) pairs x heads, forward bytes, backward bytes) of
-    one K2/K3 call: each input read once, each output written once."""
+    one K2/K3 (or K4/K5) call: each input read once, each output written
+    once (forward: q, k, v read, out and lse written; backward: q, k, v,
+    out, dO and lse read, dq, dk, dv written)."""
     lens = key_lens.long().clamp(0, T).cpu()
     if causal:  # query q sees min(q + 1, len) keys
         q = torch.arange(T)
         pairs = int(torch.minimum(q[None, :] + 1, lens[:, None]).sum())
     else:
         pairs = int(lens.sum()) * T
-    pairs *= CORE_H
+    pairs *= H
     B = lens.shape[0]
-    qkv = B * T * CORE_H * 3 * hd * esize
-    ctx = B * T * CORE_H * hd * esize
-    lse = B * CORE_H * T * 4
+    qkv = B * T * H * 3 * hd * esize
+    ctx = B * T * H * hd * esize
+    lse = B * H * T * 4
     return pairs, qkv + ctx + lse + 4 * B, 2 * qkv + 2 * ctx + lse + 4 * B
 
 
@@ -514,9 +694,50 @@ def measure_core(ac, batch) -> dict:
     return out
 
 
-def measure_training(batch) -> dict:
-    """ms per wide training step (the CLI's model and optimizer, bf16), target
-    tokens per second, and K2/K3's share of the step's device time."""
+def measure_flash(fa, ac, batch) -> dict:
+    """K4 and K5 per launch at both long shapes (bf16, the main path's key
+    lengths from a corpus batch, random values, the model's strided layout),
+    beside their bounds, their plain versions and scaled_dot_product_attention
+    on the same q, k, v."""
+    import torch.nn.functional as F
+
+    out = {}
+    for name, T, hd, causal in FLASH_SHAPES:
+        seq_lens = torch.as_tensor(batch.seq_lens).long()
+        lens = (seq_lens if name == "encoder" else seq_lens + 1).to(torch.int32).cuda()
+        q, k, v, dout, _ = flash_inputs(LONG_B, T, hd, torch.bfloat16, seed=1)
+        scale = hd ** -0.5
+        fwd = lambda: fa.flash_forward(q, k, v, lens, causal, scale)  # noqa: E731
+        o, lse = fwd()
+        bwd = lambda: fa.flash_backward(q, k, v, lens, lse, o, dout, causal, scale)  # noqa: E731
+        k4 = [time_cuda(fwd, 10), time_cuda(fwd, 10)]
+        k5 = [time_cuda(bwd, 10), time_cuda(bwd, 10)]
+        p4 = time_cuda(lambda: fa.flash_forward_reference(q, k, v, lens, causal, scale), 3)
+        p5 = time_cuda(lambda: fa.flash_backward_reference(q, k, v, lens, lse, o, dout, causal,
+                                                           scale), 3)
+        qs, ks, vs = (x.contiguous().requires_grad_() for x in (q, k, v))
+        mask = ac._mask(lens, T, causal)  # [B, 1, T, T], True = attend
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)  # noqa: E731
+        lib4 = time_cuda(sdpa, 10)
+        o2 = sdpa()
+        lib5 = time_cuda(lambda: torch.autograd.grad(o2, (qs, ks, vs), dout, retain_graph=True), 10)
+        pairs, fbytes, bbytes = core_flops_bytes(lens, T, hd, causal, 2, FLASH_H)
+        b4, by4 = bound(4 * hd * pairs, fbytes, torch.bfloat16)
+        b5, by5 = bound(10 * hd * pairs, bbytes, torch.bfloat16)
+        out[name] = {"K4": (min(k4), p4, lib4, b4, by4), "K5": (min(k5), p5, lib5, b5, by5)}
+        log(f"{name} B={LONG_B} H={FLASH_H} T={T} hd={hd} causal={causal} key_lens={lens.tolist()} "
+            f"bf16: {pairs} unmasked pairs, {4 * hd * pairs / 1e9:.2f} GFLOP forward, "
+            f"{fbytes / 1e6:.1f} MB forward / {bbytes / 1e6:.1f} MB backward; "
+            f"K4 {k4[0]:.4f} / {k4[1]:.4f} ms (bound {b4:.4f} ms, {by4}; plain {p4:.3f} ms; "
+            f"SDPA {lib4:.4f} ms), K5 {k5[0]:.4f} / {k5[1]:.4f} ms (bound {b5:.4f} ms, {by5}; "
+            f"plain {p5:.3f} ms; SDPA backward {lib5:.4f} ms)")
+    return out
+
+
+def measure_training(batch, label: str, script: str, kernels: dict) -> dict:
+    """ms per training step of a recipe (the CLI's model and optimizer),
+    target tokens per second, and the share of the step's device time of
+    each kernel in ``kernels`` ({id: substring of its symbols})."""
     from torch.profiler import ProfilerActivity, profile
 
     from types import SimpleNamespace
@@ -528,7 +749,7 @@ def measure_training(batch) -> dict:
     from musicstyletransfer_torch.training.optimizer import Adam, OptimizerConfig
     from musicstyletransfer_torch.training.train_step import LossConfig, batch_tensors, train_step
 
-    args, _ = build_parser().parse_known_args(wide_recipe_argv("-", "-", "-"))
+    args, _ = build_parser().parse_known_args(recipe_argv(script, "-", "-", "-"))
 
     corpus = SimpleNamespace(num_classes=lambda: 2, num_tokens=lambda: NUM_EVENTS)
     model = init_params(StyleVAE(create_model_config(args, corpus)), 0).cuda()
@@ -571,18 +792,17 @@ def measure_training(batch) -> dict:
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     check(events, "torch.profiler recorded no device events")
     total = sum(dev(e) for e in events) / 1e3  # ms over 5 steps
-    k2 = sum(dev(e) for e in events if "core_fwd_kernel" in e.key) / 1e3
-    k3 = sum(dev(e) for e in events if "core_bwd_" in e.key) / 1e3
+    ms_by = {k: sum(dev(e) for e in events if sym in e.key) / 1e3 for k, sym in kernels.items()}
     res = {"ms": min(ms), "host_ms": host_ms, "tokens_per_s": tokens / (min(ms) / 1e3),
-           "k2_share": k2 / max(total, 1e-9), "k3_share": k3 / max(total, 1e-9),
+           "shares": {k: v / max(total, 1e-9) for k, v in ms_by.items()},
            "busy": total / max(prof_wall, 1e-9)}
     top = sorted(events, key=dev, reverse=True)[:8]
-    log(f"wide training step (B=8, L=512, bf16, Adam + clips): {ms[0]:.3f} / {ms[1]:.3f} ms "
-        f"(CUDA events, 10 steps each), {host_ms:.3f} ms host clock; {tokens} target tokens "
-        f"-> {res['tokens_per_s']:.0f} tokens/s; profiler (5 steps, {prof_wall:.1f} ms wall): "
-        f"device busy {res['busy']:.3f}, {total / 5:.3f} ms/step of kernels, "
-        f"K2 {k2 / 5:.3f} ms/step ({res['k2_share']:.3f}), "
-        f"K3 {k3 / 5:.3f} ms/step ({res['k3_share']:.3f})")
+    log(f"{label} training step (B={args.batch_size}, L={args.max_seq_len}, {args.dtype}, Adam "
+        f"+ clips): {ms[0]:.3f} / {ms[1]:.3f} ms (CUDA events, 10 steps each), {host_ms:.3f} ms "
+        f"host clock; {tokens} target tokens -> {res['tokens_per_s']:.0f} tokens/s; profiler "
+        f"(5 steps, {prof_wall:.1f} ms wall): device busy {res['busy']:.3f}, {total / 5:.3f} "
+        "ms/step of kernels, " + ", ".join(
+            f"{k} {v / 5:.3f} ms/step ({res['shares'][k]:.3f})" for k, v in ms_by.items()))
     log("  top device time: " + "; ".join(f"{e.key[:70]} {dev(e) / 5e3:.3f} ms/step ({e.count // 5}/step)"
                                          for e in top))
     return res
@@ -792,10 +1012,11 @@ def main() -> int:
     from musicstyletransfer_torch.inference import decode
     from musicstyletransfer_torch.ops import _build
     from musicstyletransfer_torch.ops import attention_core as ac
+    from musicstyletransfer_torch.ops import flash_attention as fa
     from musicstyletransfer_torch.ops import fused_decode as fd
 
     t0 = time.perf_counter()
-    sources = ("fused_decode", "attention_core")
+    sources = ("fused_decode", "attention_core", "flash_attention")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, sources))
     for name in sources:
@@ -804,20 +1025,34 @@ def main() -> int:
 
     err32 = check_kernel(torch.float32, fd, decode)
     err16 = check_kernel(torch.bfloat16, fd, decode)
-    wide32 = check_wide_decoder(fd, torch.float32)
-    wide16 = check_wide_decoder(fd, torch.bfloat16)
-    core_err = check_core(ac)
+    from musicstyletransfer_torch.models import TransformerConfig
 
-    counts(ac, fd, reset=True)
+    wide_dec = TransformerConfig(model_size=512, num_layers=2, num_heads=16, norm_scheme="pre")
+    long_dec = TransformerConfig(model_size=256, num_layers=2, num_heads=8)
+    k1_errs = [err32, err16]
+    for dt in (torch.float32, torch.bfloat16):
+        k1_errs.append(check_decoder(fd, dt, "wide", wide_dec, 1024, 1026))
+        k1_errs.append(check_decoder(fd, dt, "long", long_dec, 512, 2 * (LONG_L + 1),
+                                     "per_step", reps=1))
+    core_err = check_core(ac)
+    corpus = os.path.join(REPO, "work", "data", "guitar_bass")
+    long_batch = next(iter(MelodyDataset(LONG_B, LONG_L, Loader(corpus, LONG_L).melodies)))
+    flash_err = check_flash(fa, long_batch.seq_lens)
+
+    counts(reset=True)
     model, dataset, launches = main_path(fd, device)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = train_path(ac, fd, tmp)
+        long_counts = long_path(tmp)
 
     numbers = measure(model, dataset, fd, decode)
-    wide_batch = next(iter(MelodyDataset(8, 512, Loader(
-        os.path.join(REPO, "work", "data", "guitar_bass"), 512).melodies)))
+    wide_batch = next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
     core = measure_core(ac, wide_batch)
-    step = measure_training(wide_batch)
+    step = measure_training(wide_batch, "wide", "train-vae-wide.sh",
+                            {"K2": "core_fwd_kernel", "K3": "core_bwd_"})
+    flash = measure_flash(fa, ac, long_batch)
+    long_step = measure_training(long_batch, "long", "train-vae-long.sh",
+                                 {"K4": "flash_fwd_kernel", "K5": "flash_bwd_"})
     log(f"timings above on: {card}")
 
     enc = core["encoder"]
@@ -826,7 +1061,7 @@ def main() -> int:
         "source": "musicstyletransfer_torch/ops/csrc/fused_decode.cu",
         "replaces": "musicstyletransfer_tpu/ops/fused_decode.py:494",
         "launches": launches,
-        "max_abs_err": max(err32, err16, wide32, wide16),
+        "max_abs_err": max(k1_errs),
         "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
         "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
         "library_ms": None,
@@ -842,7 +1077,21 @@ def main() -> int:
             "max_abs_err": core_err[kid], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
-    log(f"wide training step {step['ms']:.3f} ms, {step['tokens_per_s']:.0f} target tokens/s")
+    for kid, name, replaces in (
+            ("K4", "flash_attention_forward", "musicstyletransfer_tpu/ops/flash_attention.py:367"),
+            ("K5", "flash_attention_backward", "musicstyletransfer_tpu/ops/flash_attention.py:786")):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = flash["encoder"][kid]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "musicstyletransfer_torch/ops/csrc/flash_attention.cu",
+            "replaces": replaces, "launches": long_counts[kid],
+            "max_abs_err": flash_err[kid], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+    for label, st in (("wide", step), ("long", long_step)):
+        log(f"{label} training step {st['ms']:.3f} ms, {st['tokens_per_s']:.0f} target tokens/s, "
+            "kernel shares " + ", ".join(f"{k} {v:.3f}" for k, v in st["shares"].items()))
+    log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

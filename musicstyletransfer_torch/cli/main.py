@@ -13,10 +13,13 @@ every checkpoint also writes ``<model-output>/torch/`` for
 
 Refused until ported (ROADMAP queue 1): ``--toy``, ``--decoder-type lstm``,
 ``--tp`` > 1, multi-process (``--dist-*``), ``--grad-accum-steps`` > 1,
-``--profile-dir``, ``--log-param-grad-norms``, ``--remat``,
-``--ring-attention`` and ``--sampling-type beam-search``. ``--prefetch`` and ``--rng-impl`` are accepted and
-have no effect (batches are laid out on the host and copied; randomness
-comes from one ``torch.Generator``).
+``--profile-dir``, ``--log-param-grad-norms`` and ``--sampling-type
+beam-search``. ``--remat`` recomputes each layer in the backward.
+``--ring-attention`` (with ``--tp 1``, as ``scripts/train-vae-long.sh``
+passes it) runs on one device as the JAX package does there: no ring, the
+flash route at T >= ``flash_min_seq_len``. ``--prefetch`` and
+``--rng-impl`` are accepted and have no effect (batches are laid out on the
+host and copied; randomness comes from one ``torch.Generator``).
 """
 
 from __future__ import annotations

@@ -6,11 +6,12 @@ same field names and defaults. The JSON is written by
 (``training/checkpoint.py``); unknown keys are ignored on load, the way the
 JAX loader ignores unknown YAML keys.
 
-Options the port does not have yet are refused, never run some other way:
-``remat``, ``ring_attention`` and ``sequence_sharding`` raise
-``NotImplementedError`` when a model is built (``TransformerConfig.check``),
-and the flash route (T >= ``flash_min_seq_len`` with
-``use_flash_attention``) raises when it is reached.
+``ring_attention`` and ``sequence_sharding`` act only on a multi-device
+mesh, which the port does not have yet (``cli/main.py`` refuses ``--tp`` > 1
+and ``--dist-*``): on one device they are inert, as the JAX package's
+``_ring_eligible`` and ``_seq_shard`` are without a model axis > 1, except
+that ``ring_attention`` keeps the attention core out
+(``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -38,9 +39,9 @@ class TransformerConfig:
     # use_flash_attention, T in [attention_core_min_seq_len,
     # min(flash_min_seq_len, 1024)) runs the attention core (K2 forward, K3
     # backward, ops/attention_core.py); T >= flash_min_seq_len is the flash
-    # route (K4/K5), not ported yet. attention_core_xla_backward routes the
-    # core's backward through the plain twin of the JAX package's XLA
-    # backward instead of K3.
+    # route (K4 forward, K5 backward, ops/flash_attention.py).
+    # attention_core_xla_backward routes the core's backward through the
+    # plain twin of the JAX package's XLA backward instead of K3.
     use_flash_attention: bool = False
     flash_min_seq_len: int = 1024
     attention_core_min_seq_len: int = 256
@@ -48,24 +49,11 @@ class TransformerConfig:
     norm_scheme: str = "post"  # "post" | "pre" (pre adds a final LayerNorm)
     sequence_sharding: bool = False
     ring_attention: bool = False
-    remat: bool = False
+    remat: bool = False  # recompute each layer in the backward (training)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TransformerConfig":
         return cls(**_known(cls, d))
-
-    def check(self) -> None:
-        """Raise for the options the port does not implement yet."""
-        missing = {
-            "remat": "ROADMAP queue 1, item 7 (torch.utils.checkpoint)",
-            "ring_attention": "ROADMAP queue 1, item 9 (multi-GPU)",
-            "sequence_sharding": "ROADMAP queue 1, item 9 (multi-GPU)",
-        }
-        for name, item in missing.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"TransformerConfig.{name}=True is not ported to PyTorch "
-                    f"yet: {item}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,18 +9,24 @@ with parameters kept in float32 and cast at use:
 - attention scores in the compute dtype, softmax over keys, masked
   positions at -1e9 (``transformer.py:39, 310-323``).
 
-The batched attention has the JAX package's dispatch, mesh-free
-(``transformer.py:191-214, 243-323``): with ``use_flash_attention`` and
-``attention_core_min_seq_len`` <= T < min(``flash_min_seq_len``, 1024) it runs
-the attention core (``ops/attention_core.py``: K2 forward, K3 backward) on the
-interleaved QKV projection; below that window, or without
-``use_flash_attention``, dense attention (the canonical T=65 lands there);
-at or above ``flash_min_seq_len`` with ``use_flash_attention`` the flash
-route, which is not ported yet and raises.
+The batched attention has the JAX package's dispatch on one device
+(``transformer.py:191-241, 243-323``): with ``use_flash_attention`` and
+``attention_core_min_seq_len`` <= T < min(``flash_min_seq_len``, 1024), and
+without ``ring_attention``, it runs the attention core
+(``ops/attention_core.py``: K2 forward, K3 backward) on the interleaved QKV
+projection; at or above ``flash_min_seq_len`` with ``use_flash_attention``
+the flash route (``ops/flash_attention.py``: K4 forward, K5 backward);
+otherwise dense attention (the canonical T=65 lands there). The ring route
+needs a mesh with a model axis > 1, which the port does not have yet, so
+``ring_attention`` only keeps the core out, as in the JAX package.
 
 Dropout sits where flax has it (after the FFN's ReLU, and on both residual
 branches) and applies only in training mode, drawing its masks from the
-``torch.Generator`` passed down from ``StyleVAE.forward``.
+``torch.Generator`` passed down from ``StyleVAE.forward``. ``remat`` in
+training mode recomputes each layer in the backward
+(``torch.utils.checkpoint``) from the generator state the layer started
+from, so the masks, the loss, the gradients and the generator's final
+state are those of a run without it.
 """
 
 from __future__ import annotations
@@ -31,8 +37,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_core import MAX_CORE_SEQ_LEN, attention_core, interleave_qkv_weights
+from ..ops.flash_attention import flash_attention
 from .config import TransformerConfig
 
 NEG_INF = -1e9
@@ -112,8 +120,8 @@ class FeedForward(nn.Module):
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """Scaled-dot self-attention: the batched path (attention core or dense)
-    and a cached step."""
+    """Scaled-dot self-attention: the batched path (attention core, flash
+    or dense) and a cached step."""
 
     def __init__(self, model_size: int, num_heads: int, causal: bool,
                  dtype: torch.dtype, config: Optional[TransformerConfig] = None):
@@ -130,6 +138,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.flash_min_seq_len = c.flash_min_seq_len
         self.core_min_seq_len = c.attention_core_min_seq_len
         self.core_xla_backward = c.attention_core_xla_backward
+        self.use_ring = c.ring_attention
         self.w_q = Dense(model_size, model_size, dtype)
         self.w_k = Dense(model_size, model_size, dtype)
         self.w_v = Dense(model_size, model_size, dtype)
@@ -142,10 +151,11 @@ class MultiHeadSelfAttention(nn.Module):
 
     def _core_eligible(self, T: int) -> bool:
         """The JAX package's ``_core_eligible`` without its mesh clauses:
-        the window [core_min_seq_len, min(flash_min_seq_len, 1024))."""
+        the window [core_min_seq_len, min(flash_min_seq_len, 1024)), and
+        never under ``ring_attention``."""
         lo = self.core_min_seq_len
-        return (self.use_flash and 0 < lo <= T and T < self.flash_min_seq_len
-                and T <= MAX_CORE_SEQ_LEN)
+        return (self.use_flash and not self.use_ring and 0 < lo <= T
+                and T < self.flash_min_seq_len and T <= MAX_CORE_SEQ_LEN)
 
     def _qkv_interleaved(self, x: torch.Tensor) -> torch.Tensor:
         """The QKV projection in the core's layout (column group h is
@@ -167,19 +177,23 @@ class MultiHeadSelfAttention(nn.Module):
             ctx = attention_core(self._qkv_interleaved(x), key_lens, self.num_heads,
                                  self.causal, xla_backward=self.core_xla_backward)
             return self.w_o(ctx)
-        if self.use_flash and T >= self.flash_min_seq_len:
-            raise NotImplementedError(
-                f"flash attention at T={T} >= flash_min_seq_len="
-                f"{self.flash_min_seq_len} is not ported to PyTorch yet: ROADMAP "
-                "queue 2, K4/K5 (queue 1, item 7)")
         q, k, v = (self._heads(w(x)) for w in (self.w_q, self.w_k, self.w_v))
-        bias = torch.where(key_mask[:, None, None, :].bool(), 0.0, NEG_INF)
-        if self.causal:
-            tri = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-            bias = bias + torch.where(tri, 0.0, NEG_INF)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / self.scale
-        probs = torch.softmax(logits + bias.to(dt), dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        if self.use_flash and T >= self.flash_min_seq_len:
+            # [B, H, T, hd] views, no copies. The flash kernels scale q by
+            # sm_scale = 1/sqrt(hd) rounded to the compute dtype; the dense
+            # route below divides by sqrt(hd) in it, which rounds otherwise
+            # at hd=32.
+            key_lens = key_mask.sum(-1, dtype=torch.int32)
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  key_lens, self.causal).transpose(1, 2)
+        else:
+            bias = torch.where(key_mask[:, None, None, :].bool(), 0.0, NEG_INF)
+            if self.causal:
+                tri = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+                bias = bias + torch.where(tri, 0.0, NEG_INF)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / self.scale
+            probs = torch.softmax(logits + bias.to(dt), dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
         return self.w_o(out.reshape(B, T, D))
 
     def step(self, x_t: torch.Tensor, cache_k: torch.Tensor,
@@ -239,7 +253,6 @@ class TransformerStack(nn.Module):
 
     def __init__(self, config: TransformerConfig, causal: bool, dtype: torch.dtype):
         super().__init__()
-        config.check()
         self.config = config
         self.compute_dtype = dtype
         self.layers = nn.ModuleList(
@@ -261,8 +274,10 @@ class TransformerStack(nn.Module):
         """x: [B, T, D] (before scaling); key_mask: [B, T] True at valid keys;
         ``generator`` draws the dropout masks in training mode."""
         x = self.scale * x + self.pos_table[: x.shape[1]]
+        remat = self.config.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, key_mask, generator)
+            x = (_remat_layer(layer, x, key_mask, generator) if remat
+                 else layer(x, key_mask, generator))
         if self.config.norm_scheme == "pre":
             x = self.final_ln(x)
         return x
@@ -285,6 +300,29 @@ class TransformerStack(nn.Module):
              torch.zeros(shape, dtype=self.compute_dtype, device=dev))
             for _ in range(c.num_layers)
         ]
+
+
+def _remat_layer(layer: TransformerLayer, x: torch.Tensor, key_mask: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer`` under ``torch.utils.checkpoint`` (non-reentrant). The
+    checkpoint restores only the global RNG, so the forward and the
+    recompute each draw their dropout masks from a fresh generator set to
+    the state ``generator`` had before the layer; ``generator`` is then left
+    where the forward left that copy, as a run without remat leaves it."""
+    if generator is None:
+        return checkpoint(layer, x, key_mask, None, use_reentrant=False)
+    start, end = generator.get_state(), []
+
+    def run(x_, mask_):
+        g = torch.Generator(device=generator.device)
+        g.set_state(start)
+        y = layer(x_, mask_, g)
+        end.append(g.get_state())
+        return y
+
+    y = checkpoint(run, x, key_mask, use_reentrant=False, preserve_rng_state=False)
+    generator.set_state(end[0])
+    return y
 
 
 def compute_dtype(name: str) -> torch.dtype:

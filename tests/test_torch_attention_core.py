@@ -175,19 +175,66 @@ class TestDispatch:
                                  flash_min_seq_len=4096)
         assert not MultiHeadSelfAttention(32, 4, True, torch.float32, wide)._core_eligible(1025)
 
-    def test_flash_route_raises(self):
+    def test_ring_attention_keeps_the_core_out(self):
+        """As the JAX package's _core_eligible: a ring config keeps its own
+        route, so at 256 <= T < 1024 on one device it runs dense attention."""
         c = TransformerConfig(model_size=32, num_heads=4, use_flash_attention=True,
-                              attention_core_min_seq_len=0, flash_min_seq_len=16)
-        stack = TransformerStack(c, causal=True, dtype=torch.float32)
-        x = torch.zeros(1, 16, 32)
-        with pytest.raises(NotImplementedError, match="K4/K5"):
-            stack(x, torch.ones(1, 16, dtype=torch.bool))
+                              attention_core_min_seq_len=8, flash_min_seq_len=64,
+                              ring_attention=True)
+        attn = MultiHeadSelfAttention(32, 4, True, torch.float32, c)
+        assert [attn._core_eligible(t) for t in (7, 8, 63, 64)] == [False] * 4
+
+    def test_flash_route_runs(self, monkeypatch):
+        """At T >= flash_min_seq_len the stack takes the flash route: one
+        flash forward a layer, the result equal to the dense route's."""
+        from musicstyletransfer_torch.ops import flash_attention as fa
+
+        def stack(flash_min):
+            c = TransformerConfig(model_size=32, num_layers=2, num_heads=4,
+                                  use_flash_attention=flash_min is not None,
+                                  attention_core_min_seq_len=0,
+                                  flash_min_seq_len=flash_min or 1024)
+            torch.manual_seed(0)
+            return TransformerStack(c, causal=True, dtype=torch.float32)
+
+        rng = np.random.default_rng(8)
+        x = torch.from_numpy(rng.normal(size=(2, 16, 32)).astype(np.float32))
+        mask = torch.arange(16)[None, :] < torch.tensor([[16], [9]])
+        ref = stack(None)(x, mask)
+        calls = []
+        real = fa.flash_forward
+        monkeypatch.setattr(fa, "flash_forward", lambda *a: calls.append(1) or real(*a))
+        out = stack(16)(x, mask)
+        assert len(calls) == 2
+        torch.testing.assert_close(out * mask[..., None], ref * mask[..., None], rtol=0,
+                                   atol=1e-5)
 
     @pytest.mark.parametrize("field", ["remat", "ring_attention", "sequence_sharding"])
-    def test_unported_options_raise(self, field):
-        c = TransformerConfig(model_size=32, num_heads=4, **{field: True})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerStack(c, causal=False, dtype=torch.float32)
+    def test_single_device_options_run(self, field):
+        """Each option is accepted and, on one device, gives the output and
+        gradients of the stack without it (remat in training mode, with
+        dropout drawn from a generator)."""
+        def run(on):
+            c = TransformerConfig(model_size=32, num_layers=2, num_heads=4, dropout=0.1,
+                                  use_flash_attention=True, attention_core_min_seq_len=8,
+                                  flash_min_seq_len=20, **{field: on})
+            torch.manual_seed(0)
+            stack = TransformerStack(c, causal=False, dtype=torch.float32).train()
+            rng = np.random.default_rng(9)
+            out = []
+            for T in (12, 24):  # below and at flash_min_seq_len
+                x = torch.from_numpy(rng.normal(size=(2, T, 32)).astype(np.float32))
+                mask = torch.arange(T)[None, :] < torch.tensor([[T], [T - 5]])
+                y = stack(x, mask, torch.Generator().manual_seed(T))
+                (y ** 2).sum().backward()
+                out.append(y.detach())
+            return out, [p.grad for p in stack.parameters()]
+
+        # Under ring_attention T=12 runs dense attention instead of the
+        # core: equal up to float32 sums in another order.
+        (y0, g0), (y1, g1) = run(False), run(True)
+        for a, b in zip(y0 + g0, y1 + g1):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
     @pytest.mark.parametrize("xla_backward", [False, True])
     def test_core_route_equals_dense_route(self, xla_backward):
