@@ -2,10 +2,10 @@
 
 Each source becomes a shared library with a plain C interface, compiled for
 Hopper (``sm_90a``) into ``build/kernels/`` under the repository root at
-first use, and rebuilt when the source or the flags change (the file name
-carries their hash). ``torch.utils.cpp_extension`` is not used: a source
-that includes PyTorch's headers takes minutes to compile, a plain C one
-seconds.
+first use, and rebuilt when the source, a header (``*.cuh``) or the flags
+change (the file name carries their hash). ``torch.utils.cpp_extension`` is
+not used: a source that includes PyTorch's headers takes minutes to compile,
+a plain C one seconds.
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

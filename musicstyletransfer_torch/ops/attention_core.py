@@ -26,6 +26,7 @@ dtype; scores in float32; p rounded to the v dtype before P.V; o / max(l,
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -200,8 +201,10 @@ def _launch(fn_name: str, args: _Args, device: torch.device) -> None:
                            + lib.mst_core_error_string(err).decode())
 
 
+@functools.lru_cache(maxsize=None)
 def _scales(dtype: torch.dtype, sm_scale: float) -> Tuple[float, float]:
-    """(sm_scale rounded to ``dtype``, sm_scale as float32)."""
+    """(sm_scale rounded to ``dtype``, sm_scale as float32); cached, since
+    a wrapper asks at every launch."""
     return (float(torch.tensor(sm_scale, dtype=dtype)),
             float(torch.tensor(sm_scale, dtype=torch.float32)))
 

@@ -14,6 +14,19 @@ never fall back from one to the other. ``flash_attention`` and
 ``flash_attention_with_lse`` bind the two through one
 ``torch.autograd.Function``.
 
+Two sources hold the kernels, and the wrappers choose between them by dtype
+and head dimension alone, before the launch (``kernel_route``): bfloat16 at
+head dimension 32 or 64 goes to ``csrc/flash_attention_tc.cu``, whose matrix
+products run on the tensor cores (``wgmma``) from bf16 shared-memory tiles
+that a producer warpgroup fills with asynchronous copies; float32, and the
+other head dimensions, go to ``csrc/flash_attention.cu`` (CUDA-core float32
+FMA). The
+tensor-core kernels need 16-byte aligned rows (base address, and (b, h, t)
+strides that are multiples of 8 elements), which the model's layouts have;
+the wrapper raises on anything else and never falls back. ``launches``
+counts every launch of a wrapper, ``tc_launches`` those of the tensor-core
+kernels.
+
 The layout is the JAX package's: q, k, v [B, H, T, D], ``key_lens`` [B]
 prefix key counts (int32), out [B, H, T, D] in the input dtype and lse
 [B, H, T] in float32. A query sees the keys k < key_lens[b], and under
@@ -30,7 +43,10 @@ float32; p rounded to v's dtype before P.V; float32 accumulation;
 acc / max(l, 1e-30). The backward is all float32 with the scale in float32:
 P recomputed from lse, a row live where lse > -1e29, ds = p * (dp - delta)
 with delta = rowsum(dO * O) - g_lse, dq = ds K scale, dk = ds^T (q scale),
-dv = p^T dO.
+dv = p^T dO. The tensor-core backward keeps float32 sums, softmax and scale
+but feeds bf16 operands to its products: S from the raw q, scaled
+afterwards; P (for dv) and ds (for dq, dk) rounded to bf16; dk scaled at the
+end.
 """
 
 from __future__ import annotations
@@ -44,6 +60,7 @@ from . import _build
 from .attention_core import _HEAD_DIMS, _NEG_INF, _mask, _scales
 
 _SENTINEL = -1e29  # lse at or below it: a row that sees no key
+_TC_HEAD_DIMS = (32, 64)  # head dimensions of the tensor-core kernels (bfloat16 only)
 
 
 # ----------------------------------------------------------------------------
@@ -121,29 +138,55 @@ class _Args(ctypes.Structure):
     ]
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    if lib.mst_flash_forward.argtypes is None:
-        for fn in (lib.mst_flash_forward, lib.mst_flash_backward):
+# route -> (source in csrc/, prefix of its C entry points)
+_SOURCES = {"cuda-core": ("flash_attention", "mst_flash"),
+            "tensor-core": ("flash_attention_tc", "mst_flash_tc")}
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels take CUDA inputs of this dtype and head dimension:
+    "tensor-core" (``csrc/flash_attention_tc.cu``) or "cuda-core"
+    (``csrc/flash_attention.cu``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q must be float32 or bfloat16, got {dtype}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not supported by the kernel (one of {_HEAD_DIMS})")
+    return "tensor-core" if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS else "cuda-core"
+
+
+def check_tc_layout(**tensors: torch.Tensor) -> None:
+    """The tensor-core kernels move 16-byte pieces of rows: raise unless each
+    [B, H, T, D] tensor starts 16-byte aligned and its (b, h, t) strides
+    are multiples of 8 elements."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16 != 0 or any(st % 8 != 0 for st in x.stride()[:3]):
+            raise ValueError(
+                f"{name}: the tensor-core flash kernels need a 16-byte aligned base address and "
+                f"(b, h, t) strides that are multiples of 8 elements, got offset "
+                f"{x.data_ptr() % 16} and strides {tuple(x.stride())}")
+
+
+def _library(route: str) -> Tuple[ctypes.CDLL, str]:
+    source, prefix = _SOURCES[route]
+    lib = _build.load(source)
+    if getattr(lib, prefix + "_forward").argtypes is None:
+        for fn in (getattr(lib, prefix + "_forward"), getattr(lib, prefix + "_backward")):
             fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.mst_flash_error_string.argtypes = [ctypes.c_int]
-        lib.mst_flash_error_string.restype = ctypes.c_char_p
-    return lib
+        getattr(lib, prefix + "_error_string").argtypes = [ctypes.c_int]
+        getattr(lib, prefix + "_error_string").restype = ctypes.c_char_p
+    return lib, prefix
 
 
 def _strides(x: torch.Tensor) -> "_Strides":
     return _Strides(*x.stride()[:3])
 
 
-def _check(q, k, v, key_lens) -> Tuple[int, int, int, int]:
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+def _check(q, k, v, key_lens) -> Tuple[int, int, int, int, str]:
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, T, D], got {tuple(q.shape)}")
     B, H, T, D = q.shape
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not supported by the kernel (one of {_HEAD_DIMS})")
+    route = kernel_route(q.dtype, D)
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"{name} must match q: {tuple(q.shape)} {q.dtype} on {q.device}, "
@@ -154,7 +197,9 @@ def _check(q, k, v, key_lens) -> Tuple[int, int, int, int]:
     if (key_lens.dtype != torch.int32 or key_lens.shape != (B,)
             or key_lens.device != q.device or not key_lens.is_contiguous()):
         raise ValueError(f"key_lens must be a contiguous int32 [B={B}] tensor on {q.device}")
-    return B, H, T, D
+    if route == "tensor-core":
+        check_tc_layout(q=q, k=k, v=v)
+    return B, H, T, D, route
 
 
 def _empty_bthd(B: int, H: int, T: int, D: int, like: torch.Tensor) -> torch.Tensor:
@@ -162,22 +207,23 @@ def _empty_bthd(B: int, H: int, T: int, D: int, like: torch.Tensor) -> torch.Ten
     return torch.empty(B, T, H, D, dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
-def _launch(fn_name: str, args: _Args, device: torch.device) -> None:
-    lib = _library()
+def _launch(route: str, direction: str, args: _Args, device: torch.device) -> None:
+    lib, prefix = _library(route)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn_name)(ctypes.byref(args), stream)
+    err = getattr(lib, f"{prefix}_{direction}")(ctypes.byref(args), stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           + lib.mst_flash_error_string(err).decode())
+        raise RuntimeError(f"{prefix}_{direction} launch failed: "
+                           + getattr(lib, prefix + "_error_string")(err).decode())
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: torch.Tensor,
                   causal: bool, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4: (out [B, H, T, D], lse [B, H, T]); one kernel launch for CUDA
-    tensors, ``flash_forward_reference`` for CPU ones."""
+    """K4: (out [B, H, T, D], lse [B, H, T]); one kernel launch (of the
+    source ``kernel_route`` names) for CUDA tensors,
+    ``flash_forward_reference`` for CPU ones."""
     if not q.is_cuda:
         return flash_forward_reference(q, k, v, key_lens, causal, sm_scale)
-    B, H, T, D = _check(q, k, v, key_lens)
+    B, H, T, D, route = _check(q, k, v, key_lens)
     out = _empty_bthd(B, H, T, D, q)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     fwd_scale, bwd_scale = _scales(q.dtype, sm_scale)
@@ -186,12 +232,14 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: t
                  sv=_strides(v), so=_strides(out), B=B, H=H, T=T, HD=D, causal=int(causal),
                  is_bf16=int(q.dtype == torch.bfloat16), fwd_scale=fwd_scale,
                  bwd_scale=bwd_scale)
-    _launch("mst_flash_forward", args, q.device)
+    _launch(route, "forward", args, q.device)
     flash_forward.launches += 1
+    flash_forward.tc_launches += route == "tensor-core"
     return out, lse
 
 
 flash_forward.launches = 0
+flash_forward.tc_launches = 0
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: torch.Tensor,
@@ -199,11 +247,12 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: 
                    sm_scale: float, g_lse: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5: (dq, dk, dv) in q's dtype; one call (three kernels: delta, dQ,
-    dK/dV) for CUDA tensors, ``flash_backward_reference`` for CPU ones."""
+    dK/dV, of the source ``kernel_route`` names) for CUDA tensors,
+    ``flash_backward_reference`` for CPU ones."""
     if not q.is_cuda:
         return flash_backward_reference(q, k, v, key_lens, lse, out, g, causal, sm_scale,
                                         g_lse)
-    B, H, T, D = _check(q, k, v, key_lens)
+    B, H, T, D, route = _check(q, k, v, key_lens)
     g = g.to(q.dtype)
     if g.stride(-1) != 1:
         g = g.contiguous()
@@ -216,6 +265,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: 
                               or not x.is_contiguous() or x.device != q.device):
             raise ValueError(f"{name} must be a contiguous [{B}, {H}, {T}] float32 tensor "
                              f"on {q.device}")
+    if route == "tensor-core":
+        check_tc_layout(out=out, g=g)
     dq, dk, dv = (_empty_bthd(B, H, T, D, q) for _ in range(3))
     delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     fwd_scale, bwd_scale = _scales(q.dtype, sm_scale)
@@ -228,12 +279,14 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: 
                  B=B, H=H, T=T, HD=D, causal=int(causal),
                  is_bf16=int(q.dtype == torch.bfloat16), fwd_scale=fwd_scale,
                  bwd_scale=bwd_scale)
-    _launch("mst_flash_backward", args, q.device)
+    _launch(route, "backward", args, q.device)
     flash_backward.launches += 1
+    flash_backward.tc_launches += route == "tensor-core"
     return dq, dk, dv
 
 
 flash_backward.launches = 0
+flash_backward.tc_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

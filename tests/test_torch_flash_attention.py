@@ -12,6 +12,12 @@ maximum and the plain version against the row's final one, so out may
 differ by 2 bf16 ulps (2^-6 absolute on values below 2), the gradients by
 2e-2 relative; lse stays float32 (1e-5). Model loss and gradients: 1e-4
 relative. Remat against no remat: identical.
+
+The tensor-core kernels (bfloat16, head dimension 32 or 64) run only on a
+card; their arithmetic is emulated here in plain PyTorch (bf16 operands,
+float32 sums, their rounding points and their tiles) and held to the plain
+versions within the tolerances ``chip_smoke.py`` uses on the card
+(TOL_CTX, TOL_LSE, TOL_DQKV_REL).
 """
 
 import dataclasses
@@ -214,6 +220,178 @@ def test_kernel_input_checks(bad, match):
     q, lens = bad(torch.from_numpy(q), torch.from_numpy(lens))
     with pytest.raises(ValueError, match=match):
         fa._check(q, q, q, lens)
+
+
+# ----------------------------------------------------------------------------
+# The tensor-core kernels' arithmetic, emulated, and the wrapper's dispatch
+
+BF16_TOL_CTX = chip_smoke.TOL_CTX[torch.bfloat16]
+BF16_TOL_LSE = chip_smoke.TOL_LSE[torch.bfloat16]
+BF16_TOL_DQKV = chip_smoke.TOL_DQKV_REL[torch.bfloat16]
+
+
+def rb(x):
+    """Round to bf16, back in float32: an operand of a tensor-core product."""
+    return x.bfloat16().float()
+
+
+def tc_forward_emulation(q, k, v, lens, causal, scale, tile):
+    """The tensor-core forward: q * scale rounded to bf16 (the scale rounded
+    first), key tiles of ``tile`` with an online softmax in float32, a
+    masked p selected to zero, p rounded to bf16 before P.V against the
+    running maximum, out = acc / max(l, 1e-30), lse = m + log l."""
+    B, H, T, D = q.shape
+    qs = (q * torch.tensor(scale, dtype=q.dtype)).float()
+    mask = ac._mask(lens, T, causal).expand(B, H, T, T)
+    m = torch.full((B, H, T), -1e30)
+    l = torch.zeros(B, H, T)
+    acc = torch.zeros(B, H, T, D)
+    for k0 in range(0, T, tile):
+        ok = mask[..., k0:k0 + tile]
+        s = torch.where(ok, torch.einsum("bhqd,bhkd->bhqk", qs, k[:, :, k0:k0 + tile].float()),
+                        -1e30)
+        mt = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - mt)
+        p = torch.where(ok, torch.exp(s - mt[..., None]), 0.0)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", rb(p),
+                                                    v[:, :, k0:k0 + tile].float())
+        m = mt
+    lm = l.clamp_min(1e-30)
+    return (acc / lm[..., None]).to(q.dtype), m + torch.log(lm)
+
+
+def tc_backward_emulation(q, k, v, lens, lse, out, g, causal, scale, g_lse=None):
+    """The tensor-core backward: S from the raw bf16 q with a float32 sum,
+    scaled afterwards in float32; P and dS in float32, masked terms selected
+    away; P (for dv) and dS (for dq, dk) rounded to bf16 before the second
+    products; dq and dk scaled at the end."""
+    T = q.shape[2]
+    qf, kf, vf, do = q.float(), k.float(), v.float(), g.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    mask = ac._mask(lens, T, causal) & (lse[..., None] > -1e29)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    delta = (do * out.float()).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
+    ds = rb(torch.where(mask, p * (dp - delta[..., None]), 0.0))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", rb(p), do)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def bf16_inputs(hd, T, seed):
+    """bf16 q, k, v, dO, a float32 lse cotangent and ragged key lengths
+    [T, T // 2, 1, 0]."""
+    q, k, v, g, g_lse, lens = inputs(hd, T, seed)
+    return (*(torch.from_numpy(x).bfloat16() for x in (q, k, v, g)), torch.from_numpy(g_lse),
+            torch.from_numpy(lens))
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("hd,causal", [(32, True), (32, False), (64, True), (64, False)])
+def test_tensor_core_forward_arithmetic(hd, causal, tile):
+    """Tiles of 64 and 128 keys over T=150 (a ragged last tile, a causal row
+    of key length 1, a row with no key): within TOL_CTX and TOL_LSE."""
+    q, k, v, _, _, lens = bf16_inputs(hd, 150, seed=7)
+    scale = hd ** -0.5
+    out, lse = tc_forward_emulation(q, k, v, lens, causal, scale, tile)
+    pout, plse = fa.flash_forward_reference(q, k, v, lens, causal, scale)
+    assert torch.equal(lse <= -1e29, plse <= -1e29)
+    assert (out[3] == 0).all()
+    live = plse > -1e29
+    assert float((out.float() - pout.float()).abs().max()) <= BF16_TOL_CTX
+    assert float((lse - plse)[live].abs().max()) <= BF16_TOL_LSE
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("hd,causal", [(32, True), (32, False), (64, True), (64, False)])
+def test_tensor_core_backward_arithmetic(hd, causal, with_lse):
+    """bf16 P and dS before the second products, S scaled after the product,
+    dK scaled at the end: within TOL_DQKV_REL of the plain version."""
+    q, k, v, g, g_lse, lens = bf16_inputs(hd, 150, seed=8)
+    scale = hd ** -0.5
+    out, lse = fa.flash_forward_reference(q, k, v, lens, causal, scale)
+    gl = g_lse if with_lse else None
+    got = tc_backward_emulation(q, k, v, lens, lse, out, g, causal, scale, gl)
+    want = fa.flash_backward_reference(q, k, v, lens, lse, out, g, causal, scale, gl)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        assert rel_err(as_np(a), as_np(b)) <= BF16_TOL_DQKV, name
+    assert all((x[3] == 0).all() for x in got)  # key_lens 0: no gradient
+
+
+@pytest.mark.parametrize("hd,causal", [(32, True), (64, False)])
+def test_tensor_core_backward_finite_at_extreme_cotangents(hd, causal):
+    q, k, v, g, _, lens = bf16_inputs(hd, 150, seed=9)
+    scale = hd ** -0.5
+    out, lse = fa.flash_forward_reference(q, k, v, lens, causal, scale)
+    big = torch.full_like(g, 1e19)
+    got = tc_backward_emulation(q, k, v, lens, lse, out, big, causal, scale)
+    want = fa.flash_backward_reference(q, k, v, lens, lse, out, big, causal, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert bool(torch.isfinite(a.float()).all()), name
+        assert rel_err(as_np(a), as_np(b)) <= BF16_TOL_DQKV, name
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 32, "tensor-core"), (torch.bfloat16, 64, "tensor-core"),
+    (torch.bfloat16, 8, "cuda-core"), (torch.bfloat16, 16, "cuda-core"),
+    (torch.bfloat16, 128, "cuda-core"),
+    (torch.float32, 32, "cuda-core"), (torch.float32, 64, "cuda-core"),
+])
+def test_kernel_route(dtype, hd, route):
+    """The wrapper chooses the kernels by dtype and head dimension alone."""
+    assert fa.kernel_route(dtype, hd) == route
+    q = torch.zeros(2, 2, 16, hd, dtype=dtype)
+    assert fa._check(q, q, q, torch.zeros(2, dtype=torch.int32))[4] == route
+    source, prefix = fa._SOURCES[route]
+    assert os.path.exists(os.path.join(REPO, "musicstyletransfer_torch", "ops", "csrc",
+                                       source + ".cu"))
+    assert prefix == {"tensor-core": "mst_flash_tc", "cuda-core": "mst_flash"}[route]
+
+
+def test_kernel_route_rejects_other_types():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.kernel_route(torch.float16, 64)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        fa.kernel_route(torch.bfloat16, 48)
+
+
+def test_tensor_core_layout_checks():
+    """The model's layouts pass ([B, H, T, hd] views of separate [B, T, D]
+    projections, of a fused [B, T, 3D] one, and of an interleaved
+    [B, T, H, 3, hd] one); rows that do not start on 16 bytes raise, through
+    ``_check`` too, and float32 tensors of the same layout do not."""
+    B, T, H, hd = 2, 16, 2, 32
+    lens = torch.zeros(B, dtype=torch.int32)
+    sep = torch.zeros(B, T, H, hd, dtype=torch.bfloat16).transpose(1, 2)
+    fused = torch.zeros(B, T, 3 * H * hd, dtype=torch.bfloat16)
+    k_fused = fused[..., H * hd:2 * H * hd].reshape(B, T, H, hd).transpose(1, 2)
+    inter = torch.zeros(B, T, H, 3, hd, dtype=torch.bfloat16)[:, :, :, 1].transpose(1, 2)
+    fa.check_tc_layout(q=sep, k=k_fused, v=inter)
+    assert fa._check(sep, k_fused, inter, lens)[4] == "tensor-core"
+    shifted = torch.zeros(B, T, H, hd + 4, dtype=torch.bfloat16)[..., 4:].transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.check_tc_layout(q=shifted)  # base address 8 bytes in, row stride 36 elements
+    odd = torch.zeros(B, T, H, hd + 4, dtype=torch.bfloat16)[..., :hd].transpose(1, 2)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa.check_tc_layout(k=odd)  # aligned base, row stride 36 elements
+    with pytest.raises(ValueError, match="k: the tensor-core"):
+        fa._check(sep, odd, sep, lens)
+    assert fa._check(odd.float(), odd.float(), odd.float(), lens)[4] == "cuda-core"
+
+
+def test_counters_of_the_tensor_core_route():
+    """``tc_launches`` exist beside ``launches`` and stay put on the CPU."""
+    before = fa.flash_forward.tc_launches, fa.flash_backward.tc_launches
+    q, k, v, g, g_lse, lens = bf16_inputs(32, 16, seed=10)
+    out, lse = fa.flash_forward(q, k, v, lens, True, 32 ** -0.5)
+    fa.flash_backward(q, k, v, lens, lse, out, g, True, 32 ** -0.5, g_lse)
+    assert before == (fa.flash_forward.tc_launches, fa.flash_backward.tc_launches)
+    assert all(isinstance(x, int) for x in before)
 
 
 # ----------------------------------------------------------------------------

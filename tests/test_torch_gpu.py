@@ -11,7 +11,10 @@ Tolerances, float32 on both sides, summed in different orders: K1 1e-3 on
 logits over up to 20 dependent positions, greedy tokens identical; K2 1e-5
 on the context and lse (values O(1)); K3 1e-4 relative to dqkv's largest
 magnitude, and finite at 1e19 cotangents; K4 and K5 as K2 and K3, on
-strided [B, T, H, hd] views and with an lse cotangent.
+strided [B, T, H, hd] views and with an lse cotangent. bfloat16 at head
+dimension 32 or 64 takes K4 and K5's tensor-core kernels, which round P and
+dS to bf16 before their second products: out 3e-2, lse 1e-3, gradients 2e-2
+relative to their largest magnitude (``chip_smoke.py``'s tolerances).
 """
 
 import numpy as np
@@ -189,6 +192,69 @@ def test_flash_autograd_launches_the_kernels(cuda):
         assert t.grad.dtype == torch.bfloat16 and bool(torch.isfinite(t.grad.float()).all())
     with pytest.raises(ValueError, match="int32"):
         fa.flash_forward(q, k, v, lens.long(), True, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [70, 300])
+@pytest.mark.parametrize("hd,causal", [(32, True), (32, False), (64, True), (64, False)])
+def test_tensor_core_flash_kernels_match_plain_versions(cuda, hd, causal, T):
+    """bfloat16 at a T that no tile divides: the tensor-core kernels against
+    the plain versions, with an lse cotangent, at 1e19 cotangents, and twice
+    for the same bits; only the tensor-core counters and ``launches`` move."""
+    q, k, v, g, lens, g_lse = (x.bfloat16() if x.dtype == torch.float32 and x.dim() == 4 else x
+                               for x in flash_inputs(cuda, T, hd, seed=T + hd))
+    scale = hd ** -0.5
+    assert fa.kernel_route(q.dtype, hd) == "tensor-core"
+    before = (fa.flash_forward.launches, fa.flash_forward.tc_launches,
+              fa.flash_backward.launches, fa.flash_backward.tc_launches)
+    out, lse = fa.flash_forward(q, k, v, lens, causal, scale)
+    grads = None
+    for _ in range(2):
+        again = grads
+        # the plain forward's residuals below, so only the backward differs
+        pout, plse = fa.flash_forward_reference(q, k, v, lens, causal, scale)
+        grads = fa.flash_backward(q, k, v, lens, plse, pout, g, causal, scale, g_lse)
+    huge = fa.flash_backward(q, k, v, lens, plse, pout, torch.full_like(g, 1e19), causal, scale)
+    plain_runs = fa.flash_backward_reference.cuda_runs
+    pgrads = fa.flash_backward_reference(q, k, v, lens, plse, pout, g, causal, scale, g_lse)
+    torch.cuda.synchronize()
+    assert (fa.flash_forward.launches, fa.flash_forward.tc_launches,
+            fa.flash_backward.launches, fa.flash_backward.tc_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 3, before[3] + 3)
+    assert fa.flash_backward_reference.cuda_runs == plain_runs + 1  # the one call above
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert float((out.float() - pout.float()).abs().max()) <= 3e-2
+    valid = plse > -1e29
+    assert torch.equal(lse > -1e29, valid)
+    assert float((lse - plse)[valid].abs().max()) <= 1e-3
+    assert bool((out[lens == 0] == 0).all())
+    for d, pd, d2 in zip(grads, pgrads, again):
+        assert d.dtype == torch.bfloat16 and torch.equal(d, d2)
+        assert float((d.float() - pd.float()).abs().max()) <= 2e-2 * float(pd.float().abs().max())
+    assert all(bool(torch.isfinite(d.float()).all()) for d in huge)
+
+
+@pytest.mark.gpu
+def test_flash_routes_by_dtype_and_head_dim(cuda):
+    """float32, and bfloat16 at head dimension 16, stay on the CUDA-core
+    kernels; a bfloat16 tensor whose rows do not start on 16 bytes raises."""
+    for dtype, hd, tc in ((torch.float32, 64, 0), (torch.bfloat16, 16, 0), (torch.bfloat16, 64, 1)):
+        q, k, v, g, lens, _ = flash_inputs(cuda, 40, hd, seed=2)
+        q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
+        before = (fa.flash_forward.launches, fa.flash_forward.tc_launches,
+                  fa.flash_backward.launches, fa.flash_backward.tc_launches,
+                  fa.flash_forward_reference.cuda_runs, fa.flash_backward_reference.cuda_runs)
+        out, lse = fa.flash_forward(q, k, v, lens, False, hd ** -0.5)
+        fa.flash_backward(q, k, v, lens, lse, out, g, False, hd ** -0.5)
+        torch.cuda.synchronize()
+        assert (fa.flash_forward.launches, fa.flash_forward.tc_launches,
+                fa.flash_backward.launches, fa.flash_backward.tc_launches,
+                fa.flash_forward_reference.cuda_runs, fa.flash_backward_reference.cuda_runs) == (
+            before[0] + 1, before[1] + tc, before[2] + 1, before[3] + tc, before[4], before[5])
+    wide = torch.zeros(4, 40, 2, 68, dtype=torch.bfloat16, device=cuda)
+    shifted = wide[..., 4:].transpose(1, 2)  # rows start 8 bytes into a 16-byte piece
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_forward(shifted, shifted, shifted, lens, False, 0.125)
 
 
 @pytest.mark.gpu
