@@ -5,10 +5,11 @@
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of musicstyletransfer_torch/ops/csrc with nvcc, one
-   process per source, all at once: K1 (fused_decode.cu), K2/K3
-   (attention_core.cu), K4/K5 (flash_attention_tc.cu: bfloat16 at head
-   dimension 32 or 64, on the tensor cores; flash_attention.cu: float32 and
-   the other head dimensions, on the CUDA cores).
+   process per source, all at once: K1 (fused_decode.cu), K2/K3 and K4/K5 in
+   bfloat16 at head dimension 32 or 64 on the tensor cores
+   (flash_attention_tc.cu), K2/K3 in float32 and at the other head
+   dimensions (attention_core.cu), K4/K5 there (flash_attention.cu), both on
+   the CUDA cores.
 3. Holds K1 against its plain PyTorch version on the card, at the canonical
    decoder shape (D=128, H=8, V=293, B=64, T=130) with seeded weights, in
    float32 and bfloat16: forced-mode logits, greedy tokens and scores, the
@@ -18,9 +19,11 @@
    and at the long decoder (D=256, 2 layers, 8 heads, post-LN, per_step)
    over T=4094.
 4. Holds K2 and K3 against their plain versions at the wide training shapes
-   (B=8, H=16; encoder T=513, hd=64; decoder T=514, hd=32, causal), in
-   float32 and bfloat16, with ragged key lengths (one row 1, one row 0), and
-   K3 at 1e19 cotangents, where every value must be finite.
+   (B=8, H=16; encoder T=513, hd=64; decoder T=514, hd=32, causal), with
+   ragged key lengths (one row 1, one row 0), and at two short lengths that
+   no tile divides (T=333, hd=32; T=200, hd=64, causal; key lengths
+   [T, T/2, 1, 0]), in float32 (CUDA-core kernels) and bfloat16 (tensor-core
+   kernels), and K3 at 1e19 cotangents, where every value must be finite.
 5. Holds K4 and K5 against their plain versions at the long training shapes
    (H=8; encoder T=2047, hd=64; decoder T=2048, hd=32, causal; the key
    lengths of the corpus's first L=2046 batch plus a row of 1 and a row of
@@ -41,7 +44,8 @@
    logged step must equal the uninterrupted run's; cli.sample on the
    resumed checkpoint, whose MIDI parses back. Loss and gradient norm stay
    finite, no update is skipped, K3 runs on every attention layer of every
-   step, and no plain version runs on the card.
+   step, every K2 and K3 launch on the tensor-core kernels, and no plain
+   version runs on the card.
 8. Long training path: cli.main with scripts/train-vae-long.sh's flags
    (L=2046, batch 4, post-LN, per_step, --ring-attention --tp 1) for two
    epochs (24 steps) with a checkpoint after each, then cli.sample on the
@@ -52,9 +56,10 @@
 9. Times (CUDA events, beside the card's name and power limit): the serving
    transfer, K1 against its plain loop, p50 MIDI->MIDI latency; K2/K3 at
    both wide shapes and K4/K5 at both long shapes and at T=8192 beside their
-   bounds, their plain versions and torch's scaled_dot_product_attention; the wide
-   and the long training step, their target tokens per second and the
-   attention kernels' share of them (torch.profiler).
+   bounds, their plain versions and torch's scaled_dot_product_attention,
+   and their wrappers' host time a call; the wide and the long training
+   step, their target tokens per second and the attention kernels' share of
+   them (torch.profiler).
 
 Exits non-zero on any failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -94,8 +99,11 @@ B, T, L = 64, 130, 64  # decode rows (32 sources x 2 classes), max_len, source l
 TOL_LOGITS = {torch.float32: 1e-3, torch.bfloat16: 0.15}
 TOL_SCORE_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
-# The wide recipe's attention shapes: (name, T, head_dim, causal), B=8, H=16.
+# The wide recipe's attention shapes: (name, T, head_dim, causal), B=8, H=16;
+# and two short lengths that no tile of the tensor-core kernels divides, with
+# key lengths [T, T/2, 1, 0].
 CORE_SHAPES = (("encoder", 513, 64, False), ("decoder", 514, 32, True))
+CORE_SHORT = (("short", 333, 32, False), ("short", 200, 64, True))
 CORE_B, CORE_H = 8, 16
 # K2/K3 against their plain versions on the card:
 # - float32: the same float32 products summed in other orders (the kernel's
@@ -104,8 +112,8 @@ CORE_B, CORE_H = 8, 16
 #   but the kernel rounds p against its running maximum, the plain version
 #   against the row's final one, so single probabilities round apart: a
 #   few bf16 ulps on the context; lse is float32 in both.
-# dqkv is compared relative to its largest magnitude. The tensor-core K5
-# adds rounding points of its own: P (for dv) and dS (for dq, dk) are rounded
+# dqkv is compared relative to its largest magnitude. The tensor-core K3 and
+# K5 add rounding points of their own: P (for dv) and dS (for dq, dk) are rounded
 # to bf16 before the second products, 2^-9 relative a term, summed over up to
 # 2048 terms of mixed sign: well inside the 2e-2 of the largest gradient
 # (measured 3e-3 to 8e-3); S is scaled after the product and dk at the end,
@@ -324,27 +332,35 @@ def check_decoder(fd, dtype: torch.dtype, label: str, dec, latent: int, steps: i
     return err
 
 
-def core_inputs(T: int, hd: int, dtype: torch.dtype, seed: int):
-    """qkv [8, T, 16*3*hd], ragged key_lens (one row 1, one row 0) and a
-    cotangent, seeded with numpy."""
+def core_inputs(T: int, hd: int, dtype: torch.dtype, seed: int, lens=None):
+    """qkv [B, T, 16*3*hd], key_lens (by default B=8 ragged ones, a row of 1
+    and a row of 0) and a cotangent, seeded with numpy."""
+    if lens is None:
+        lens = [T, T - 1, 300, 129, 64, 17, 1, 0]
     g = np.random.default_rng(seed)
-    qkv = torch.as_tensor(g.normal(size=(CORE_B, T, CORE_H * 3 * hd)),
+    qkv = torch.as_tensor(g.normal(size=(len(lens), T, CORE_H * 3 * hd)),
                           dtype=torch.float32).to(dtype).cuda()
-    lens = torch.tensor([T, T - 1, 300, 129, 64, 17, 1, 0], dtype=torch.int32).cuda()
-    dout = torch.as_tensor(g.normal(size=(CORE_B, T, CORE_H * hd)),
+    dout = torch.as_tensor(g.normal(size=(len(lens), T, CORE_H * hd)),
                            dtype=torch.float32).to(dtype).cuda()
-    return qkv, lens, dout
+    return qkv, torch.tensor(lens, dtype=torch.int32).cuda(), dout
 
 
 def check_core(ac) -> dict:
-    """K2 and K3 against their plain versions at both wide shapes; returns
-    the largest absolute errors {"K2": ..., "K3": ...}."""
+    """K2 and K3 against their plain versions at both wide shapes and at the
+    two short lengths; returns the largest absolute errors {"K2": ...,
+    "K3": ...}."""
     worst = {"K2": 0.0, "K3": 0.0}
-    for name, T, hd, causal in CORE_SHAPES:
+    cases = [(name, T, hd, causal, None) for name, T, hd, causal in CORE_SHAPES]
+    cases += [(name, T, hd, causal, [T, T // 2, 1, 0]) for name, T, hd, causal in CORE_SHORT]
+    for name, T, hd, causal, key_lens in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dn = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
-            qkv, lens, dout = core_inputs(T, hd, dtype, seed=T + hd)
+            qkv, lens, dout = core_inputs(T, hd, dtype, seed=T + hd, lens=key_lens)
             scale = 1.0 / math.sqrt(hd)
+            route = ac.core_route(dtype, hd)
+            check(route == ("tensor-core" if dtype == torch.bfloat16 else "cuda-core"),
+                  f"K2/K3 {name} T={T} {dn}: routed to the {route} kernels")
+            before = counts()
             ctx, lse = ac.core_forward(qkv, lens, CORE_H, causal, scale)
             pctx, plse = ac.core_forward_reference(qkv, lens, CORE_H, causal, scale)
             torch.cuda.synchronize()
@@ -353,7 +369,7 @@ def check_core(ac) -> dict:
             check(bool(torch.equal(lse <= -1e29, masked)), f"K2 {name} {dn}: lse sentinel rows differ")
             lse_err = float((lse - plse)[~masked].abs().max())
             check(bool(torch.isfinite(ctx.float()).all()), f"K2 {name} {dn}: non-finite ctx")
-            check(bool((ctx[CORE_B - 1] == 0).all()), f"K2 {name} {dn}: key_lens=0 row not zeros")
+            check(bool((ctx[lens == 0] == 0).all()), f"K2 {name} {dn}: key_lens=0 row not zeros")
             check(ctx_err <= TOL_CTX[dtype], f"K2 {name} {dn}: ctx max|err| {ctx_err} > {TOL_CTX[dtype]}")
             check(lse_err <= TOL_LSE[dtype], f"K2 {name} {dn}: lse max|err| {lse_err} > {TOL_LSE[dtype]}")
             worst["K2"] = max(worst["K2"], ctx_err)
@@ -371,9 +387,15 @@ def check_core(ac) -> dict:
                 if label.startswith("dO ~"):
                     worst["K3"] = max(worst["K3"], err)
                 line.append(f"{label}: max|err| {err:.3g}, rel {rel:.3g}")
-            log(f"[{dn}] K2 {name} T={T} hd={hd} causal={causal}: ctx max|err| {ctx_err:.3g} "
-                f"(tol {TOL_CTX[dtype]}), lse {lse_err:.3g} (tol {TOL_LSE[dtype]}); K3 "
-                + "; ".join(line) + f" (rel tol {TOL_DQKV_REL[dtype]}, all finite)")
+            after = counts()
+            moved = {k: after[k] - before[k] for k in ("K2", "K2 tc", "K3", "K3 tc")}
+            on_tc = int(route == "tensor-core")
+            check(moved == {"K2": 1, "K2 tc": on_tc, "K3": 2, "K3 tc": 2 * on_tc},
+                  f"K2/K3 {name} T={T} {dn}: launches {moved} on the {route} route")
+            log(f"[{dn}] K2 {name} T={T} hd={hd} causal={causal} key_lens={lens.tolist()}: ctx "
+                f"max|err| {ctx_err:.3g} (tol {TOL_CTX[dtype]}), lse {lse_err:.3g} (tol "
+                f"{TOL_LSE[dtype]}); K3 " + "; ".join(line)
+                + f" (rel tol {TOL_DQKV_REL[dtype]}, all finite; {route} kernels)")
     return worst
 
 
@@ -491,7 +513,7 @@ PLAIN = ("K1 plain", "K2 plain", "K3 plain", "XLA-backward twin", "K4 plain", "K
 
 
 def counts(reset: bool = False) -> dict:
-    """Launch counts of K1-K5 (K4 and K5 also on their tensor-core kernels
+    """Launch counts of K1-K5 (K2-K5 also on their tensor-core kernels
     alone) and runs of their plain versions on CUDA."""
     from musicstyletransfer_torch.ops import attention_core as ac
     from musicstyletransfer_torch.ops import flash_attention as fa
@@ -500,6 +522,8 @@ def counts(reset: bool = False) -> dict:
     names = {"K1": (fd.fused_decode, "launches"), "K2": (ac.core_forward, "launches"),
              "K3": (ac.core_backward, "launches"), "K4": (fa.flash_forward, "launches"),
              "K5": (fa.flash_backward, "launches"),
+             "K2 tc": (ac.core_forward, "tc_launches"),
+             "K3 tc": (ac.core_backward, "tc_launches"),
              "K4 tc": (fa.flash_forward, "tc_launches"),
              "K5 tc": (fa.flash_backward, "tc_launches"),
              "K1 plain": (fd.fused_decode_reference, "cuda_runs"),
@@ -563,6 +587,8 @@ def train_path(ac, fd, tmp: str) -> dict:
     check_train_log(lines_u, "wide run")
     check(c["K3"] == layers * steps, f"K3 launched {c['K3']} times, expected {layers} x {steps}")
     check(c["K2"] >= c["K3"], f"K2 launched {c['K2']} times, fewer than K3")
+    check(c["K2 tc"] == c["K2"] and c["K3 tc"] == c["K3"],
+          f"the wide path left the tensor-core kernels: {c}")
     check(c["K1"] > 0, "the generation-health probe did not launch K1")
     for k in PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the training path")
@@ -576,7 +602,8 @@ def train_path(ac, fd, tmp: str) -> dict:
     c = counts()
     lines_r = train_lines(os.path.join(r + "-log", "scalars.jsonl"))
     check_train_log(lines_r, "resumed run")
-    check(c["K3"] == layers * per_epoch, f"resumed: K3 launched {c['K3']} times")
+    check(c["K3"] == layers * per_epoch and c["K3 tc"] == c["K3"] and c["K2 tc"] == c["K2"],
+          f"resumed: launches {c}")
     first = next(x for x in lines_r if "grad_norm" in x)
     same = next(x for x in lines_u if "grad_norm" in x and x["step"] == first["step"])
     diffs = {k: abs(first[k] - same[k]) / max(abs(same[k]), 1e-12)
@@ -599,7 +626,7 @@ def train_path(ac, fd, tmp: str) -> dict:
     names, notes = parse_midi_dir(out)
     expected = 3 * 8 * MelodyDataset(8, 512, loader.melodies).num_batches()
     check(len(names) == expected, f"cli.sample wrote {len(names)} files, expected {expected}")
-    check(c["K1"] > 0 and c["K2"] > 0, f"cli.sample launches {c}")
+    check(c["K1"] > 0 and c["K2"] > 0 and c["K2 tc"] == c["K2"], f"cli.sample launches {c}")
     for k in PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in cli.sample")
     log(f"sample path: cli.sample on the resumed checkpoint, max_len 1026: {len(names)} MIDI "
@@ -693,8 +720,10 @@ def bound(flops: float, nbytes: float, dtype: torch.dtype):
 
 def measure_core(ac, batch) -> dict:
     """K2 and K3 per launch at both wide shapes (bf16, the main path's key
-    lengths from a corpus batch, random values), beside their bounds, their
-    plain versions and scaled_dot_product_attention on the same q, k, v."""
+    lengths from a corpus batch, random values), the card held back while
+    the host enqueues, beside their bounds, their plain versions and
+    scaled_dot_product_attention on the same q, k, v, and the host time of
+    a wrapper call."""
     import torch.nn.functional as F
 
     out = {}
@@ -706,13 +735,20 @@ def measure_core(ac, batch) -> dict:
         fwd = lambda: ac.core_forward(qkv, lens, CORE_H, causal, scale)  # noqa: E731
         ctx, lse = fwd()
         bwd = lambda: ac.core_backward(qkv, lens, lse, ctx, dout, CORE_H, causal, scale)  # noqa: E731
-        k2 = [time_cuda(fwd, 20), time_cuda(fwd, 20)]
-        k3 = [time_cuda(bwd, 20), time_cuda(bwd, 20)]
+        k2 = [time_cuda(fwd, 40, queued=True), time_cuda(fwd, 40, queued=True)]
+        k3 = [time_cuda(bwd, 40, queued=True), time_cuda(bwd, 40, queued=True)]
+        host = []  # us of host time a wrapper call, the card left to run behind
+        for fn in (fwd, bwd):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            host.append((time.perf_counter() - t0) / 100 * 1e6)
+            torch.cuda.synchronize()
         p2 = time_cuda(lambda: ac.core_forward_reference(qkv, lens, CORE_H, causal, scale), 3)
         p3 = time_cuda(lambda: ac.core_backward_reference(qkv, lens, lse, ctx, dout, CORE_H,
                                                           causal, scale), 3)
-        q, k, v = (x.permute(0, 2, 1, 3).contiguous().requires_grad_()
-                   for x in ac._split(qkv, CORE_H))
+        q, k, v = (x.contiguous().requires_grad_() for x in ac.head_views(qkv, CORE_H))
         mask = ac._mask(lens, T, causal)  # [B, 1, T, T], True = attend
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)  # noqa: E731
         lib2 = time_cuda(sdpa, 20)
@@ -723,10 +759,12 @@ def measure_core(ac, batch) -> dict:
         b2, by2 = bound(4 * hd * pairs, fbytes, torch.bfloat16)
         b3, by3 = bound(10 * hd * pairs, bbytes, torch.bfloat16)
         out[name] = {"K2": (min(k2), p2, lib2, b2, by2), "K3": (min(k3), p3, lib3, b3, by3)}
-        log(f"{name} T={T} hd={hd} causal={causal} key_lens={lens.tolist()} bf16: "
+        log(f"{name} T={T} hd={hd} causal={causal} key_lens={lens.tolist()} bf16 "
+            f"({ac.core_route(qkv.dtype, hd)} kernels): {pairs} unmasked pairs; "
             f"K2 {k2[0]:.4f} / {k2[1]:.4f} ms (bound {b2:.4f} ms, {by2}; plain {p2:.3f} ms; "
             f"SDPA {lib2:.4f} ms), K3 {k3[0]:.4f} / {k3[1]:.4f} ms (bound {b3:.4f} ms, {by3}; "
-            f"plain {p3:.3f} ms; SDPA backward {lib3:.4f} ms)")
+            f"plain {p3:.3f} ms; SDPA backward {lib3:.4f} ms); the wrappers' host time "
+            f"{host[0]:.1f} / {host[1]:.1f} us a call")
     return out
 
 
@@ -790,7 +828,7 @@ def measure_flash(fa, ac, batch) -> dict:
 def measure_training(batch, label: str, script: str, kernels: dict) -> dict:
     """ms per training step of a recipe (the CLI's model and optimizer),
     target tokens per second, and the share of the step's device time of
-    each kernel in ``kernels`` ({id: substring of its symbols})."""
+    each kernel in ``kernels`` ({id: substrings of its kernels' symbols})."""
     from torch.profiler import ProfilerActivity, profile
 
     from types import SimpleNamespace
@@ -845,7 +883,8 @@ def measure_training(batch, label: str, script: str, kernels: dict) -> dict:
               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
     check(events, "torch.profiler recorded no device events")
     total = sum(dev(e) for e in events) / 1e3  # ms over 5 steps
-    ms_by = {k: sum(dev(e) for e in events if sym in e.key) / 1e3 for k, sym in kernels.items()}
+    ms_by = {k: sum(dev(e) for e in events if any(sym in e.key for sym in syms)) / 1e3
+             for k, syms in kernels.items()}
     res = {"ms": min(ms), "host_ms": host_ms, "tokens_per_s": tokens / (min(ms) / 1e3),
            "shares": {k: v / max(total, 1e-9) for k, v in ms_by.items()},
            "busy": total / max(prof_wall, 1e-9)}
@@ -1116,10 +1155,11 @@ def main() -> int:
     wide_batch = next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
     core = measure_core(ac, wide_batch)
     step = measure_training(wide_batch, "wide", "train-vae-wide.sh",
-                            {"K2": "core_fwd_kernel", "K3": "core_bwd_"})
+                            {"K2": ("core_fwd_kernel_tc",),
+                             "K3": ("core_bwd_dq_kernel_tc", "core_bwd_dkdv_kernel_tc")})
     flash = measure_flash(fa, ac, long_batch)
     long_step = measure_training(long_batch, "long", "train-vae-long.sh",
-                                 {"K4": "flash_fwd_kernel", "K5": "flash_bwd_"})
+                                 {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",)})
     log(f"timings above on: {card}")
 
     enc = core["encoder"]
@@ -1139,7 +1179,7 @@ def main() -> int:
         ms, plain_ms, lib_ms, bound_ms, bound_by = enc[kid]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "musicstyletransfer_torch/ops/csrc/attention_core.cu",
+            "source": "musicstyletransfer_torch/ops/csrc/flash_attention_tc.cu",
             "replaces": replaces, "launches": train_counts[kid],
             "max_abs_err": core_err[kid], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,

@@ -2,13 +2,24 @@
 
 Replaces ``musicstyletransfer_tpu/ops/attention_core.py``: K2 is
 ``_core_forward`` (Pallas kernel ``_core_fwd_kernel``), K3 is
-``_core_backward`` (``_core_bwd_kernel``). The kernels are
-``csrc/attention_core.cu``; ``core_forward_reference`` and
-``core_backward_reference`` below are their plain PyTorch versions.
+``_core_backward`` (``_core_bwd_kernel``). ``core_forward_reference`` and
+``core_backward_reference`` below are the kernels' plain PyTorch versions.
 ``core_forward`` / ``core_backward`` launch the kernels for CUDA tensors and
 take the plain versions only for CPU tensors; they never fall back from one
 to the other. ``attention_core`` binds the two through one
 ``torch.autograd.Function``.
+
+Two sources hold the kernels, and the wrappers choose between them by dtype
+and head dimension alone, before the launch (``core_route``): bfloat16 at
+head dimension 32 or 64 (every core launch of the wide recipe) goes to the
+core's entry points of ``csrc/flash_attention_tc.cu``, which run the
+tensor-core flash kernels' device code on the core's layout, read as
+strided [B, H, T, hd] heads; float32, and the other head dimensions, go to
+``csrc/attention_core.cu`` (CUDA-core float32 FMA). The tensor-core route
+needs 16-byte aligned rows, which a contiguous qkv at head dimension 32 or
+64 has when its base address is 16-byte aligned; the wrapper raises on
+anything else and never falls back. ``launches`` counts every launch of a
+wrapper, ``tc_launches`` those of the tensor-core route.
 
 The layout is the JAX package's: ``qkv`` [B, T, H*3*hd] with column group
 h = [q_h | k_h | v_h] (``interleave_qkv_weights`` permutes the projection's
@@ -20,7 +31,9 @@ sentinel -1e30.
 
 Rounding points, as in the Pallas kernels: q * sm_scale rounded to the qkv
 dtype; scores in float32; p rounded to the v dtype before P.V; o / max(l,
-1e-30); the backward all in float32, P recomputed from lse.
+1e-30); the backward all in float32, P recomputed from lse. The tensor-core
+backward keeps float32 sums, softmax and scale but rounds P and dS to bf16
+before its second products, as K5's does (``flash_attention``).
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ _NEG_INF = -1e30
 # dispatch keeps the same window (models/transformer.py).
 MAX_CORE_SEQ_LEN = 1024
 _HEAD_DIMS = (8, 16, 32, 64, 128)
+_TC_HEAD_DIMS = (32, 64)  # head dimensions of the tensor-core kernels (bfloat16 only)
 
 
 def interleave_qkv_weights(wq, bq, wk, bk, wv, bv, num_heads: int, head_dim: int):
@@ -62,6 +76,13 @@ def _split(qkv: torch.Tensor, num_heads: int):
     B, T, W = qkv.shape
     x = qkv.reshape(B, T, num_heads, 3, W // (3 * num_heads))
     return x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]  # [B, T, H, hd] each
+
+
+def head_views(qkv: torch.Tensor, num_heads: int):
+    """q, k, v as strided [B, H, T, hd] views of ``qkv`` (no copy): the
+    layout in which the tensor-core route reads them. The same views of a
+    dqkv buffer are where it writes dq, dk and dv."""
+    return tuple(x.transpose(1, 2) for x in _split(qkv, num_heads))
 
 
 def _mask(key_lens: torch.Tensor, T: int, causal: bool) -> torch.Tensor:
@@ -150,7 +171,7 @@ core_xla_backward.cuda_runs = 0
 
 
 class _Args(ctypes.Structure):
-    """Mirror of ``MstCoreArgs`` in csrc/attention_core.cu."""
+    """Mirror of ``MstCoreArgs`` in csrc/attention_core_args.cuh."""
 
     _fields_ = [
         ("qkv", ctypes.c_void_p), ("key_lens", ctypes.c_void_p),
@@ -163,18 +184,44 @@ class _Args(ctypes.Structure):
     ]
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("attention_core")
-    if lib.mst_core_forward.argtypes is None:
-        for fn in (lib.mst_core_forward, lib.mst_core_backward):
-            fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.mst_core_error_string.argtypes = [ctypes.c_int]
-        lib.mst_core_error_string.restype = ctypes.c_char_p
-    return lib
+# route -> (source in csrc/, prefix of its C entry points)
+_SOURCES = {"cuda-core": ("attention_core", "mst_core"),
+            "tensor-core": ("flash_attention_tc", "mst_core_tc")}
 
 
-def _check(qkv: torch.Tensor, key_lens: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int]:
+def core_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels take a CUDA input of this dtype and head dimension:
+    "tensor-core" (the core's entry points of ``csrc/flash_attention_tc.cu``)
+    or "cuda-core" (``csrc/attention_core.cu``). The flash wrappers follow
+    the same table (``flash_attention.kernel_route``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"inputs must be float32 or bfloat16, got {dtype}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim} not supported by the kernel (one of {_HEAD_DIMS})")
+    return "tensor-core" if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS else "cuda-core"
+
+
+_entry_points = {}  # (route, direction) -> (C entry point, its error string function)
+
+
+def _entry_point(route: str, direction: str):
+    """The C entry point of ``route`` for ``direction`` ("forward" or
+    "backward"), its library built and bound at first use."""
+    fns = _entry_points.get((route, direction))
+    if fns is None:
+        source, prefix = _SOURCES[route]
+        lib = _build.load(source)
+        fn, err = getattr(lib, f"{prefix}_{direction}"), getattr(lib, f"{prefix}_error_string")
+        fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        fns = _entry_points[(route, direction)] = (fn, err)
+    return fns
+
+
+def _check(qkv: torch.Tensor, key_lens: torch.Tensor, num_heads: int) -> Tuple[int, int, int, int, str]:
+    """(B, T, H, hd, route) of a valid kernel input; raises on anything else."""
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"qkv must be float32 or bfloat16, got {qkv.dtype}")
     if qkv.dim() != 3 or not qkv.is_contiguous():
@@ -184,21 +231,32 @@ def _check(qkv: torch.Tensor, key_lens: torch.Tensor, num_heads: int) -> Tuple[i
     if num_heads < 1 or W % (3 * num_heads):
         raise ValueError(f"qkv width {W} is not a multiple of 3*num_heads={3 * num_heads}")
     hd = W // (3 * num_heads)
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not supported by the kernel (one of {_HEAD_DIMS})")
+    route = core_route(qkv.dtype, hd)
     if (key_lens.dtype != torch.int32 or key_lens.shape != (B,)
             or key_lens.device != qkv.device):
         raise ValueError(f"key_lens must be an int32 [B={B}] tensor on {qkv.device}")
-    return B, T, num_heads, hd
+    if route == "tensor-core":
+        check_tc_rows(qkv=qkv)
+    return B, T, num_heads, hd, route
 
 
-def _launch(fn_name: str, args: _Args, device: torch.device) -> None:
-    lib = _library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn_name)(ctypes.byref(args), stream)
+def check_tc_rows(**tensors: torch.Tensor) -> None:
+    """The tensor-core route moves 16-byte pieces of rows. A contiguous qkv,
+    context or cotangent at head dimension 32 or 64 has row strides and
+    column offsets that are multiples of 8 elements, so its rows are
+    16-byte aligned when its base address is: raise unless it is."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16 != 0:
+            raise ValueError(f"{name}: the tensor-core route needs a 16-byte aligned base "
+                             f"address, got offset {x.data_ptr() % 16}")
+
+
+def _launch(route: str, direction: str, args: _Args, device: torch.device) -> None:
+    fn, err_string = _entry_point(route, direction)
+    err = fn(ctypes.byref(args), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           + lib.mst_core_error_string(err).decode())
+        raise RuntimeError(f"{_SOURCES[route][1]}_{direction} launch failed: "
+                           + err_string(err).decode())
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,11 +269,12 @@ def _scales(dtype: torch.dtype, sm_scale: float) -> Tuple[float, float]:
 
 def core_forward(qkv: torch.Tensor, key_lens: torch.Tensor, num_heads: int,
                  causal: bool, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: (ctx [B, T, H*hd], lse [B, H, T, 1]); one kernel launch for a CUDA
-    ``qkv``, ``core_forward_reference`` for a CPU one."""
+    """K2: (ctx [B, T, H*hd], lse [B, H, T, 1]); one kernel launch (of the
+    source ``core_route`` names) for a CUDA ``qkv``,
+    ``core_forward_reference`` for a CPU one."""
     if not qkv.is_cuda:
         return core_forward_reference(qkv, key_lens, num_heads, causal, sm_scale)
-    B, T, H, hd = _check(qkv, key_lens, num_heads)
+    B, T, H, hd, route = _check(qkv, key_lens, num_heads)
     out = torch.empty(B, T, H * hd, dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty(B, H, T, 1, dtype=torch.float32, device=qkv.device)
     fwd_scale, bwd_scale = _scales(qkv.dtype, sm_scale)
@@ -223,24 +282,28 @@ def core_forward(qkv: torch.Tensor, key_lens: torch.Tensor, num_heads: int,
                  lse=lse.data_ptr(), B=B, T=T, H=H, HD=hd, causal=int(causal),
                  is_bf16=int(qkv.dtype == torch.bfloat16), fwd_scale=fwd_scale,
                  bwd_scale=bwd_scale)
-    _launch("mst_core_forward", args, qkv.device)
+    _launch(route, "forward", args, qkv.device)
     core_forward.launches += 1
+    core_forward.tc_launches += route == "tensor-core"
     return out, lse
 
 
 core_forward.launches = 0
+core_forward.tc_launches = 0
 
 
 def core_backward(qkv: torch.Tensor, key_lens: torch.Tensor, lse: torch.Tensor,
                   out: torch.Tensor, g: torch.Tensor, num_heads: int, causal: bool,
                   sm_scale: float) -> torch.Tensor:
-    """K3: dqkv in the qkv layout and dtype; one call (two kernels) for a CUDA
+    """K3: dqkv in the qkv layout and dtype; one call (two kernels: dQ with
+    delta, then dK/dV, of the source ``core_route`` names) for a CUDA
     ``qkv``, ``core_backward_reference`` for a CPU one."""
     if not qkv.is_cuda:
         return core_backward_reference(qkv, key_lens, lse, out, g, num_heads, causal,
                                        sm_scale)
-    B, T, H, hd = _check(qkv, key_lens, num_heads)
-    g = g.to(qkv.dtype).contiguous()
+    B, T, H, hd, route = _check(qkv, key_lens, num_heads)
+    if g.dtype != qkv.dtype or not g.is_contiguous():  # a call into torch costs host time
+        g = g.to(qkv.dtype).contiguous()
     for name, x, shape, dt in (("out", out, (B, T, H * hd), qkv.dtype),
                                ("g", g, (B, T, H * hd), qkv.dtype),
                                ("lse", lse, (B, H, T, 1), torch.float32)):
@@ -248,6 +311,8 @@ def core_backward(qkv: torch.Tensor, key_lens: torch.Tensor, lse: torch.Tensor,
                 or x.device != qkv.device):
             raise ValueError(f"{name} must be a contiguous {list(shape)} {dt} tensor "
                              f"on {qkv.device}, got {tuple(x.shape)} {x.dtype}")
+    if route == "tensor-core":
+        check_tc_rows(out=out, g=g)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty(B, H, T, dtype=torch.float32, device=qkv.device)
     fwd_scale, bwd_scale = _scales(qkv.dtype, sm_scale)
@@ -256,12 +321,14 @@ def core_backward(qkv: torch.Tensor, key_lens: torch.Tensor, lse: torch.Tensor,
                  dqkv=dqkv.data_ptr(), B=B, T=T, H=H, HD=hd, causal=int(causal),
                  is_bf16=int(qkv.dtype == torch.bfloat16), fwd_scale=fwd_scale,
                  bwd_scale=bwd_scale)
-    _launch("mst_core_backward", args, qkv.device)
+    _launch(route, "backward", args, qkv.device)
     core_backward.launches += 1
+    core_backward.tc_launches += route == "tensor-core"
     return dqkv
 
 
 core_backward.launches = 0
+core_backward.tc_launches = 0
 
 
 class AttentionCore(torch.autograd.Function):

@@ -24,8 +24,11 @@
 //   padded apart so the TPR threads read different banks.
 // - Arithmetic is CUDA-core float32 FMA. The backward must be float32
 //   throughout, and the forward's scores are float32 sums of exact products
-//   of the inputs, so this matches the reference's rounding; tensor cores
-//   (mma.sync, wgmma) and TMA are later work.
+//   of the inputs, so this matches the reference's rounding. bfloat16 at
+//   HD 32 or 64, every core launch of the wide recipe, runs on the tensor
+//   cores instead (the core's entry points of flash_attention_tc.cu, chosen
+//   by attention_core.core_route); this file keeps float32 and the other
+//   head dimensions.
 //
 // What bounds it: at the wide training shapes (B=8, H=16, T=513 with HD=64
 // non-causal, T=514 with HD=32 causal, bf16) an encoder call moves 34 MB
@@ -50,21 +53,7 @@
 #include <math.h>
 #include <stdint.h>
 
-extern "C" {
-// Mirrored by _Args in attention_core.py; keep the two in the same order.
-struct MstCoreArgs {
-  const void* qkv;      // [B, T, H*3*HD] T
-  const int* key_lens;  // [B] int32 valid (prefix) key counts
-  void* out;            // [B, T, H*HD] T: K2 writes it, K3 reads it
-  float* lse;           // [B, H, T] float32: K2 writes it, K3 reads it
-  const void* dout;     // [B, T, H*HD] T cotangent of out (K3)
-  float* delta;         // [B, H, T] float32 scratch (K3)
-  void* dqkv;           // [B, T, H*3*HD] T (K3)
-  int B, T, H, HD, causal, is_bf16;
-  float fwd_scale;  // sm_scale rounded to T
-  float bwd_scale;  // sm_scale in float32
-};
-}
+#include "attention_core_args.cuh"
 
 namespace {
 

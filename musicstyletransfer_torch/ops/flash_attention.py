@@ -57,10 +57,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention_core import _HEAD_DIMS, _NEG_INF, _mask, _scales
+from .attention_core import _NEG_INF, _mask, _scales, core_route
 
 _SENTINEL = -1e29  # lse at or below it: a row that sees no key
-_TC_HEAD_DIMS = (32, 64)  # head dimensions of the tensor-core kernels (bfloat16 only)
 
 
 # ----------------------------------------------------------------------------
@@ -146,12 +145,9 @@ _SOURCES = {"cuda-core": ("flash_attention", "mst_flash"),
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernels take CUDA inputs of this dtype and head dimension:
     "tensor-core" (``csrc/flash_attention_tc.cu``) or "cuda-core"
-    (``csrc/flash_attention.cu``)."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"q must be float32 or bfloat16, got {dtype}")
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} not supported by the kernel (one of {_HEAD_DIMS})")
-    return "tensor-core" if dtype == torch.bfloat16 and head_dim in _TC_HEAD_DIMS else "cuda-core"
+    (``csrc/flash_attention.cu``); the attention core's table
+    (``attention_core.core_route``)."""
+    return core_route(dtype, head_dim)
 
 
 def check_tc_layout(**tensors: torch.Tensor) -> None:

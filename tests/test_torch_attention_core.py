@@ -1,11 +1,17 @@
 """PyTorch port, K2 / K3: the attention core's plain versions against the JAX
 package's Pallas kernels (interpret mode) and its XLA backward, the
-autograd binding, and the model-level dispatch (CPU, float32).
+autograd binding, the choice of kernels (``core_route``), the core's layout
+read as the strided heads of the tensor-core flash kernels, and the
+model-level dispatch (CPU).
 
 Tolerances: float32 on both sides, the same rounding points, sums in other
 orders: 1e-5 absolute on the context and lse (values O(1)), 1e-4 relative
 (to the largest magnitude) on dqkv. Inputs come from numpy seeds; B=2,
-T <= 40, H in {2, 4}, hd in {8, 16}, ragged key lengths including 0.
+T <= 40, H in {2, 4}, hd in {8, 16}, ragged key lengths including 0; the
+tensor-core route at hd 32 and 64, T <= 150, key lengths 1 and 0 among them.
+Its bf16 arithmetic runs only on a card: here it is emulated in plain
+PyTorch (``test_torch_flash_attention``'s emulations, on the core's views)
+and held to the plain versions within ``chip_smoke.py``'s bf16 tolerances.
 """
 
 import jax.numpy as jnp
@@ -13,10 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from musicstyletransfer_tpu.ops import attention_core as jac
 from musicstyletransfer_torch.models.config import TransformerConfig
 from musicstyletransfer_torch.models.transformer import MultiHeadSelfAttention, TransformerStack
 from musicstyletransfer_torch.ops import attention_core as ac
+from musicstyletransfer_torch.ops import flash_attention as fa
+from test_torch_flash_attention import tc_backward_emulation, tc_forward_emulation
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -160,6 +169,152 @@ def test_kernel_input_checks(bad, match):
     q, l = bad(torch.from_numpy(qkv), torch.from_numpy(lens))
     with pytest.raises(ValueError, match=match):
         ac._check(q, l, 2)
+
+
+# ----------------------------------------------------------------------------
+# The choice of kernels, and the core's layout as the tensor-core route reads it
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 32, "tensor-core"), (torch.bfloat16, 64, "tensor-core"),
+    (torch.bfloat16, 8, "cuda-core"), (torch.bfloat16, 16, "cuda-core"),
+    (torch.bfloat16, 128, "cuda-core"),
+    (torch.float32, 32, "cuda-core"), (torch.float32, 64, "cuda-core"),
+])
+def test_core_route(dtype, hd, route):
+    """The wrappers choose the kernels by dtype and head dimension alone,
+    and the flash wrappers by the same table."""
+    assert ac.core_route(dtype, hd) == route == fa.kernel_route(dtype, hd)
+    qkv = torch.zeros(2, 16, 2 * 3 * hd, dtype=dtype)
+    assert ac._check(qkv, torch.zeros(2, dtype=torch.int32), 2)[4] == route
+    assert ac._SOURCES[route] == {"tensor-core": ("flash_attention_tc", "mst_core_tc"),
+                                  "cuda-core": ("attention_core", "mst_core")}[route]
+
+
+def test_core_route_rejects_other_types():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ac.core_route(torch.float16, 64)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        ac.core_route(torch.bfloat16, 48)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_core_views_pass_the_tensor_core_layout_check(hd):
+    """At the model's widths (H=16) the views of qkv, and of a dqkv and a
+    context buffer, are [B, H, T, hd] views without a copy whose rows the
+    tensor-core kernels take; a qkv whose base is 8 bytes off raises."""
+    B, T, H = 2, 24, 16
+    qkv = torch.zeros(B, T, H * 3 * hd, dtype=torch.bfloat16)
+    q, k, v = ac.head_views(qkv, H)
+    assert q.shape == k.shape == v.shape == (B, H, T, hd)
+    assert [x.data_ptr() - qkv.data_ptr() for x in (q, k, v)] == [0, 2 * hd, 4 * hd]
+    assert q.stride() == (T * H * 3 * hd, 3 * hd, H * 3 * hd, 1)
+    ctx = torch.zeros(B, T, H * hd, dtype=torch.bfloat16).reshape(B, T, H, hd).transpose(1, 2)
+    fa.check_tc_layout(q=q, k=k, v=v, ctx=ctx, **dict(zip(("dq", "dk", "dv"), ac.head_views(
+        torch.empty_like(qkv), H))))
+    ac.check_tc_rows(qkv=qkv)
+    assert ac._check(qkv, torch.zeros(B, dtype=torch.int32), H)[4] == "tensor-core"
+    off = torch.zeros(B * T * H * 3 * hd + 4, dtype=torch.bfloat16)[4:].view(B, T, H * 3 * hd)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.check_tc_layout(q=ac.head_views(off, H)[0])
+    with pytest.raises(ValueError, match="qkv: the tensor-core route needs a 16-byte aligned"):
+        ac._check(off, torch.zeros(B, dtype=torch.int32), H)
+    assert ac._check(off.float(), torch.zeros(B, dtype=torch.int32), H)[4] == "cuda-core"
+
+
+def core_through_flash_references(qkv, lens, H, causal, scale, g):
+    """The core's function computed by the flash plain versions on the
+    strided views of ``qkv``: (ctx [B, T, H*hd], lse [B, H, T, 1], dqkv
+    reassembled from dq, dk and dv written into the views of one buffer)."""
+    B, T, _ = qkv.shape
+    q, k, v = ac.head_views(qkv, H)
+    out, lse = fa.flash_forward_reference(q, k, v, lens, causal, scale)
+    ctx = out.transpose(1, 2).reshape(B, T, -1)
+    g_view = g.reshape(B, T, H, -1).transpose(1, 2)
+    dqkv = torch.empty_like(qkv)
+    for d, view in zip(fa.flash_backward_reference(q, k, v, lens, lse, out, g_view, causal, scale),
+                       ac.head_views(dqkv, H)):
+        view.copy_(d)
+    return ctx, lse[..., None], dqkv
+
+
+@pytest.mark.parametrize("lens_of", [lambda T: [T, 1], lambda T: [T // 2, 0]])
+@pytest.mark.parametrize("hd,causal,T", [(32, False, 150), (32, True, 97), (64, False, 130),
+                                         (64, True, 150)])
+def test_flash_references_on_the_core_views_compute_the_core(hd, causal, T, lens_of):
+    """The tensor-core route's reading of the core (strided heads of qkv,
+    ctx as [B, T, H, hd], dqkv as three strided outputs) computes K2/K3's
+    function: the flash plain versions on the views against the core's plain
+    versions and the JAX package's Pallas kernels, float32."""
+    H = 2
+    qkv, _, g = inputs(H, hd, T, seed=T + hd)
+    lens = np.array(lens_of(T), np.int32)
+    scale = 1.0 / np.sqrt(hd)
+    x, kl, gt = torch.from_numpy(qkv), torch.from_numpy(lens), torch.from_numpy(g)
+    ctx, lse, dqkv = core_through_flash_references(x, kl, H, causal, scale, gt)
+    pctx, plse = ac.core_forward_reference(x, kl, H, causal, scale)
+    torch.testing.assert_close(ctx, pctx, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, plse, rtol=1e-6, atol=1e-5)
+    assert rel_err(dqkv, ac.core_backward_reference(x, kl, plse, pctx, gt, H, causal, scale)) <= 1e-4
+    jq, jl = jnp.asarray(qkv), jnp.asarray(lens)
+    jctx, jlse = jac._core_forward(jq, jl, H, causal, scale, True)
+    jd = jac._core_backward(jq, jl, jlse, jctx, jnp.asarray(g), H, causal, scale, True)
+    np.testing.assert_allclose(ctx.numpy(), np.asarray(jctx), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=1e-6, atol=1e-5)
+    assert rel_err(dqkv, jd) <= 1e-4
+    for b in np.flatnonzero(lens == 0):  # a row with no key: zeros, the sentinel, no gradient
+        assert (ctx[b] == 0).all() and (lse[b] <= -1e29).all() and (dqkv[b] == 0).all()
+
+
+BF16_TOL_CTX = chip_smoke.TOL_CTX[torch.bfloat16]
+BF16_TOL_LSE = chip_smoke.TOL_LSE[torch.bfloat16]
+BF16_TOL_DQKV = chip_smoke.TOL_DQKV_REL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("hd,causal", [(32, True), (32, False), (64, True), (64, False)])
+def test_tensor_core_arithmetic_through_the_core_layout(hd, causal):
+    """The tensor-core kernels' bf16 arithmetic (emulated) on the core's
+    views, reassembled into ctx, lse and dqkv, against the core's plain
+    versions within chip_smoke's bf16 tolerances, and finite at 1e19
+    cotangents; key lengths [T, T/2, 1, 0], T=150."""
+    H, T = 2, 150
+    rng = np.random.default_rng(hd + causal)
+    qkv = torch.from_numpy(rng.normal(size=(4, T, H * 3 * hd)).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.normal(size=(4, T, H * hd)).astype(np.float32)).bfloat16()
+    lens = torch.tensor([T, T // 2, 1, 0], dtype=torch.int32)
+    scale = 1.0 / np.sqrt(hd)
+    q, k, v = ac.head_views(qkv, H)
+    out, lse = tc_forward_emulation(q, k, v, lens, causal, scale, 128)
+    ctx = out.transpose(1, 2).reshape(4, T, -1)
+    pctx, plse = ac.core_forward_reference(qkv, lens, H, causal, scale)
+    live = plse > -1e29
+    assert torch.equal(lse[..., None] > -1e29, live) and (ctx[3] == 0).all()
+    assert float((ctx.float() - pctx.float()).abs().max()) <= BF16_TOL_CTX
+    assert float((lse[..., None] - plse)[live].abs().max()) <= BF16_TOL_LSE
+    for cot in (g, torch.full_like(g, 1e19)):
+        dqkv = torch.empty_like(qkv)
+        grads = tc_backward_emulation(q, k, v, lens, plse[..., 0],
+                                      pctx.reshape(4, T, H, hd).transpose(1, 2),
+                                      cot.reshape(4, T, H, hd).transpose(1, 2), causal, scale)
+        for d, view in zip(grads, ac.head_views(dqkv, H)):
+            view.copy_(d)
+        want = ac.core_backward_reference(qkv, lens, plse, pctx, cot, H, causal, scale)
+        assert dqkv.dtype == torch.bfloat16 and bool(torch.isfinite(dqkv.float()).all())
+        assert rel_err(dqkv.float(), want.float()) <= BF16_TOL_DQKV
+        assert (dqkv[3] == 0).all()
+
+
+def test_tensor_core_counters_stay_put_on_the_cpu():
+    """``tc_launches`` exist beside ``launches`` and do not move on the CPU,
+    where bfloat16 at head dimension 32 takes the plain versions."""
+    before = (ac.core_forward.launches, ac.core_forward.tc_launches,
+              ac.core_backward.launches, ac.core_backward.tc_launches)
+    assert all(isinstance(n, int) for n in before)
+    qkv, lens, g = inputs(2, 32, 20, seed=11)
+    x = torch.from_numpy(qkv).bfloat16().requires_grad_()
+    (ac.attention_core(x, torch.from_numpy(lens), 2, True).float() * torch.from_numpy(g)).sum().backward()
+    assert before == (ac.core_forward.launches, ac.core_forward.tc_launches,
+                      ac.core_backward.launches, ac.core_backward.tc_launches)
 
 
 class TestDispatch:

@@ -12,9 +12,10 @@ logits over up to 20 dependent positions, greedy tokens identical; K2 1e-5
 on the context and lse (values O(1)); K3 1e-4 relative to dqkv's largest
 magnitude, and finite at 1e19 cotangents; K4 and K5 as K2 and K3, on
 strided [B, T, H, hd] views and with an lse cotangent. bfloat16 at head
-dimension 32 or 64 takes K4 and K5's tensor-core kernels, which round P and
-dS to bf16 before their second products: out 3e-2, lse 1e-3, gradients 2e-2
-relative to their largest magnitude (``chip_smoke.py``'s tolerances).
+dimension 32 or 64 takes the tensor-core kernels (K2 and K3 through the
+core's entry points of the same source), which round P and dS to bf16
+before their second products: out 3e-2, lse 1e-3, gradients 2e-2 relative
+to their largest magnitude (``chip_smoke.py``'s tolerances).
 """
 
 import numpy as np
@@ -138,6 +139,74 @@ def test_attention_core_autograd_launches_the_kernels(cuda):
     assert x.grad.dtype == torch.bfloat16 and bool(torch.isfinite(x.grad.float()).all())
     with pytest.raises(ValueError, match="int32"):
         ac.core_forward(qkv, lens.long(), 2, True, 0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,hd,causal,H,lens", [
+    (513, 64, False, 16, [78, 183, 331, 513, 30, 513, 513, 513]),  # the wide encoder
+    (514, 32, True, 16, [79, 184, 332, 514, 31, 514, 514, 514]),  # the wide decoder
+    (333, 32, False, 2, [333, 166, 1, 0]),
+    (200, 64, True, 2, [200, 100, 1, 0]),
+])
+def test_tensor_core_attention_core_matches_plain_versions(cuda, T, hd, causal, H, lens):
+    """bfloat16 K2/K3 on the tensor-core route, through autograd, against
+    the plain versions on the kernel's own residuals; finite at a 1e19
+    cotangent; the same bits twice; only the tensor-core counters and
+    ``launches`` move."""
+    rng = np.random.default_rng(T + hd)
+    B = len(lens)
+    qkv = torch.as_tensor(rng.normal(size=(B, T, H * 3 * hd)), dtype=torch.float32,
+                          device=cuda).bfloat16()
+    g = torch.as_tensor(rng.normal(size=(B, T, H * hd)), dtype=torch.float32,
+                        device=cuda).bfloat16()
+    key_lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    scale = ac.default_scale(qkv, H)
+    assert ac.core_route(qkv.dtype, hd) == "tensor-core"
+    counters = lambda: (ac.core_forward.launches, ac.core_forward.tc_launches,  # noqa: E731
+                        ac.core_backward.launches, ac.core_backward.tc_launches,
+                        ac.core_forward_reference.cuda_runs, ac.core_backward_reference.cuda_runs)
+    before = counters()
+    x = qkv.clone().requires_grad_()
+    out = ac.attention_core(x, key_lens, H, causal)
+    out.backward(g)
+    ctx, lse = ac.core_forward(qkv, key_lens, H, causal, scale)
+    again = ac.core_backward(qkv, key_lens, lse, ctx, g, H, causal, scale)
+    huge = ac.core_backward(qkv, key_lens, lse, ctx, torch.full_like(g, 1e19), H, causal, scale)
+    torch.cuda.synchronize()
+    assert counters() == (before[0] + 2, before[1] + 2, before[2] + 3, before[3] + 3,
+                          before[4], before[5])
+    pctx, plse = ac.core_forward_reference(qkv, key_lens, H, causal, scale)
+    pd = ac.core_backward_reference(qkv, key_lens, lse, ctx, g, H, causal, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), ctx) and torch.equal(x.grad, again)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert float((ctx.float() - pctx.float()).abs().max()) <= 3e-2
+    valid = plse > -1e29
+    assert torch.equal(lse > -1e29, valid)
+    assert float((lse - plse)[valid].abs().max()) <= 1e-3
+    assert bool((ctx[key_lens == 0] == 0).all())
+    assert float((x.grad.float() - pd.float()).abs().max()) <= 2e-2 * float(pd.float().abs().max())
+    assert bool(torch.isfinite(huge.float()).all())
+
+
+@pytest.mark.gpu
+def test_attention_core_routes_by_dtype_and_head_dim(cuda):
+    """float32, and bfloat16 at head dimension 16, stay on the CUDA-core
+    kernels; a bfloat16 qkv whose base is 8 bytes off raises."""
+    for dtype, hd, tc in ((torch.float32, 64, 0), (torch.bfloat16, 16, 0), (torch.bfloat16, 32, 1)):
+        qkv, lens, g = core_inputs(cuda, 40, hd, seed=3)
+        qkv, g = qkv.to(dtype), g.to(dtype)
+        before = (ac.core_forward.launches, ac.core_forward.tc_launches,
+                  ac.core_backward.launches, ac.core_backward.tc_launches)
+        ctx, lse = ac.core_forward(qkv, lens, 2, False, hd ** -0.5)
+        ac.core_backward(qkv, lens, lse, ctx, g, 2, False, hd ** -0.5)
+        torch.cuda.synchronize()
+        assert (ac.core_forward.launches, ac.core_forward.tc_launches,
+                ac.core_backward.launches, ac.core_backward.tc_launches) == (
+            before[0] + 1, before[1] + tc, before[2] + 1, before[3] + tc)
+    off = torch.zeros(3 * 40 * 2 * 3 * 32 + 4, dtype=torch.bfloat16, device=cuda)[4:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ac.core_forward(off.view(3, 40, 2 * 3 * 32), lens, 2, False, 0.125)
 
 
 def flash_inputs(device, T, hd, seed=0):
