@@ -17,7 +17,10 @@
    rows, and a pre-LN + per-step-conditioned two-layer decoder; then at the
    wide decoder (D=512, 2 layers, 16 heads, pre-LN) over T=1026 positions
    and at the long decoder (D=256, 2 layers, 8 heads, post-LN, per_step)
-   over T=4094.
+   over T=4094, where it also times K1 at 8 and at 16 rows (the training
+   paths' generation-health probe and cli.sample decode 16) beside its
+   bound. K1 decodes rows in groups on thread-block clusters; every line
+   names the plan (rows a group, blocks a cluster) it ran.
 4. Holds K2 and K3 against their plain versions at the wide training shapes
    (B=8, H=16; encoder T=513, hd=64; decoder T=514, hd=32, causal), with
    ragged key lengths (one row 1, one row 0), and at two short lengths that
@@ -288,7 +291,9 @@ def check_decoder(fd, dtype: torch.dtype, label: str, dec, latent: int, steps: i
                   conditioning: str = "initial", reps: int = 3) -> float:
     """K1 at a recipe's decoder ``dec`` over T=``steps`` positions on 8 rows:
     forced logits against the plain loop, and every greedy token the plain
-    argmax on its prefix; returns the forced logits' max abs error."""
+    argmax on its prefix; then K1's time at 8 rows and at 16 (the rows of
+    the generation-health probe and of cli.sample: 8 sources x 2 classes)
+    beside its bound. Returns the forced logits' max abs error."""
     from musicstyletransfer_torch.models import (
         DecoderConfig, EncoderConfig, ModelConfig, StyleVAE, TransformerConfig)
 
@@ -325,10 +330,20 @@ def check_decoder(fd, dtype: torch.dtype, label: str, dec, latent: int, steps: i
           f"{label} K1 {name} greedy: a token {gap} below the plain argmax")
     ms = time_cuda(lambda: fd.fused_decode(model, x0, steps, 0, mode="greedy", classes=classes),
                    reps)
+    z16 = torch.as_tensor(g.normal(size=(16, latent)), dtype=torch.float32).cuda()
+    c16 = torch.as_tensor(g.integers(0, 2, 16)).cuda()
+    with torch.inference_mode():
+        x16 = model.decode_init(z16, c16).contiguous()
+    ms16 = time_cuda(lambda: fd.fused_decode(model, x16, steps, 0, mode="greedy", classes=c16),
+                     reps)
+    seqs16, _ = fd.fused_decode(model, x16, steps, 0, mode="greedy", classes=c16)
+    bound16, by16 = k1_bound(model, x16, seqs16, steps)
     log(f"[{name}] {label} decoder D={dec.model_size} x{dec.num_layers} layers, "
         f"{dec.num_heads} heads, {dec.norm_scheme}-LN, {conditioning}, T={steps}, {rows} rows: "
         f"forced max|err| {err:.3g} (tol {TOL_LOGITS[dtype]}), greedy max argmax gap {gap:.3g}; "
-        f"K1 greedy {ms:.3f} ms a launch")
+        f"K1 greedy {ms:.3f} ms a launch (plan {fd.plan_for(model, rows, steps)}); 16 rows "
+        f"{ms16:.3f} ms a launch (bound {bound16:.5f} ms, {by16}; plan "
+        f"{fd.plan_for(model, 16, steps)})")
     return err
 
 
@@ -1067,7 +1082,8 @@ def measure(model, dataset, fd, decode):
     bound_ms, bound_by = k1_bound(model, x0, seqs, T)
     fd.fused_decode.launches = launches  # timing launches are not the main path's
     log(f"K1 fused_decode B={x0.shape[0]} T={T} bf16 sample: {ms:.4f} / {ms2:.4f} ms "
-        f"(bound {bound_ms:.5f} ms, {bound_by}); plain loop {plain_ms:.3f} / {plain_ms2:.3f} ms")
+        f"(bound {bound_ms:.5f} ms, {bound_by}; plan {fd.plan_for(model, x0.shape[0], T)}); "
+        f"plain loop {plain_ms:.3f} / {plain_ms2:.3f} ms")
 
     # p50 MIDI -> MIDI latency: one file, both classes, through the kernel.
     files = sorted(glob.glob(os.path.join(REPO, "work", "data", "guitar_bass", "*", "*.mid")))

@@ -2,8 +2,10 @@
 (counterpart of ``musicstyletransfer_tpu/inference/sampler.py``).
 
 Same output names as the reference (``out-{i}.original.mid`` and
-``out-{i}.class-{c}.mid``). The model is read from ``<model>/torch/``,
-written by ``scripts/export-torch-weights.py``.
+``out-{i}.class-{c}.mid``). The configuration is read from
+``<model>/torch/config.json``; the parameters from the port's own checkpoint
+``params.N.pt`` where the folder holds one (written by ``cli.main``), else
+from the export ``<model>/torch/params.npz`` (``scripts/export-torch-weights.py``).
 """
 
 from __future__ import annotations
@@ -20,18 +22,32 @@ from ..midi.codec import MelodyWriter, melody_from_ids
 from ..convert import load_npz, params_from_jax
 from ..models.config import load_config
 from ..models.vae import StyleVAE
+from ..training.checkpoint import checkpoint_indices, restore_checkpoint
 from .decode import sample_sequences, style_transfer_all_classes
 
 
 def load_inference_model(model_folder: str, checkpoint: Optional[int],
                          device: torch.device = torch.device("cpu")) -> StyleVAE:
-    """``<model_folder>/torch/{config.json,params.npz}`` -> StyleVAE on
-    ``device``, in eval mode. ``checkpoint`` -1 takes the exported one, an
-    index must match it, and None keeps freshly initialized weights."""
+    """The model of ``<model_folder>/torch/config.json`` on ``device``, in
+    eval mode, with checkpoint ``checkpoint``'s parameters (-1: the latest;
+    None keeps freshly initialized weights).
+
+    A folder that ``cli.main`` trained holds ``params.N.pt``: its flat
+    float32 ``"params"`` (the optimizer's buffer, in the order of
+    ``model.parameters()``) are loaded. A folder with only the export
+    ``torch/params.npz`` serves the exported checkpoint alone."""
     export = os.path.join(model_folder, "torch")
     config, exported = load_config(os.path.join(export, "config.json"))
     model = StyleVAE(config)
-    if checkpoint is not None:
+    if checkpoint is None:
+        return model.to(device).eval()
+    indices = checkpoint_indices(model_folder)
+    if indices:
+        index = indices[-1] if checkpoint == -1 else checkpoint
+        if index not in indices:
+            raise ValueError(f"{model_folder} holds checkpoints {indices}, not {checkpoint}")
+        load_flat_params(model, restore_checkpoint(model_folder, index)["params"])
+    else:
         if checkpoint not in (-1, exported):
             raise ValueError(
                 f"{export} holds checkpoint {exported}, not {checkpoint}; run "
@@ -39,6 +55,20 @@ def load_inference_model(model_folder: str, checkpoint: Optional[int],
             )
         model.load_state_dict(params_from_jax(load_npz(os.path.join(export, "params.npz"))))
     return model.to(device).eval()
+
+
+def load_flat_params(model: StyleVAE, flat: torch.Tensor) -> None:
+    """Copy a checkpoint's flat float32 parameters into ``model``, in the
+    order of ``model.parameters()`` (the trainer's optimizer layout)."""
+    params = list(model.parameters())
+    total = sum(p.numel() for p in params)
+    if flat.dim() != 1 or flat.numel() != total:
+        raise ValueError(f"{flat.numel()} parameters in the checkpoint, {total} in the model")
+    offset = 0
+    with torch.no_grad():
+        for p in params:
+            p.copy_(flat[offset:offset + p.numel()].view_as(p))
+            offset += p.numel()
 
 
 def get_sampler(type: str, model_folder: Optional[str], checkpoint: Optional[int], args,

@@ -216,6 +216,7 @@ class _Args(ctypes.Structure):
         ("is_bf16", ctypes.c_int),
         ("top_p", ctypes.c_float), ("temperature", ctypes.c_float),
         ("scale", ctypes.c_float), ("head_scale", ctypes.c_float),
+        ("rows", ctypes.c_int), ("cluster", ctypes.c_int),
     ]
 
 
@@ -229,16 +230,118 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+# ----------------------------------------------------------------------------
+# The plan: rows a group, blocks a cluster (a pure function of the shapes)
+
+_WARPS = 8  # kThreads / 32 of csrc/fused_decode.cu
+_MAX_ROWS, _LD_PAD, _MAX_VOCAB = 16, 8, 320
+_SMEM_LIMIT = 232448 - 1024  # a block's shared memory, less the static part
+NUM_SMS = 132  # H100 SXM
+# Estimated rates for the cost model of ``plan`` (to be refined by
+# measurement, PERF.md): the bytes one SM streams from L2/HBM a second while
+# every SM does so, and the card's memory rate.
+_SM_BYTES_PER_S, _CARD_BYTES_PER_S = 50e9, 3.35e12
+
+
+def _split_of(n_tiles: int, K: int) -> int:
+    return 1 if n_tiles >= _WARPS else min(_WARPS // n_tiles, K // 32)
+
+
+def smem_bytes(rows: int, cluster: int, D: int, H: int, FF: int, V: int, esize: int) -> int:
+    """Dynamic shared memory of a block (``smem_layout`` in the source)."""
+    hd, hc = D // H, H // cluster
+    nb = {"qkv": 3 * hc * hd, "o": D // cluster, "ff1": FF // cluster,
+          "head": ((V + cluster - 1) // cluster + 7) // 8 * 8}
+    part = max(_split_of(n // 8, k) * rows * n
+               for n, k in ((nb["qkv"], D), (nb["o"], D), (nb["ff1"], D), (nb["o"], FF),
+                            (nb["head"], D)))
+    act = rows * (D + _LD_PAD) * esize
+    sizes = [act, act, act, rows * (FF + _LD_PAD) * esize, rows * nb["qkv"] * 4,
+             rows * V * 4, part * 4, rows * V * 4, _WARPS * 2 * 4, _WARPS * hd * 4,
+             _MAX_ROWS * 4, _MAX_ROWS * 4, _MAX_ROWS * 4]
+    return sum((n + 15) // 16 * 16 for n in sizes)
+
+
+def plan(B: int, D: int, H: int, FF: int, V: int, NL: int, T: int, esize: int,
+         max_cluster: int = 8) -> Dict[str, object]:
+    """How the kernel decodes B rows: groups of ``rows`` rows (the last one
+    ragged), each on a cluster of ``cluster`` blocks.
+
+    The cluster is the largest size up to ``max_cluster`` (8: the portable
+    limit) that divides the heads and leaves every block whole 8-column
+    tiles. Rows a group trade weight reads (each group streams the whole
+    decoder each position) against the cache reads a block makes alone (its
+    rows x its heads), with as many clusters as the card runs at once: the
+    estimate of a position's time is the larger of a block's bytes at one
+    SM's rate and all blocks' bytes at the card's, times the waves of
+    clusters; the least estimate wins, a larger group on ties. Weights are
+    streamed from L2 at every position ("streamed")."""
+    hd = D // H
+    cluster = next(c for c in range(max_cluster, 0, -1)
+                   if H % c == 0 and D % (8 * c) == 0 and FF % (8 * c) == 0)
+    weights = NL * (4 * D * D + 2 * D * FF) * esize + D * V * 4
+    keys = (T + 1) / 2  # mean keys a position attends to
+    best = None
+    for r in range(1, min(_MAX_ROWS, B) + 1):
+        groups = -(-B // r)
+        rows = -(-B // groups)  # the same groups, balanced
+        if smem_bytes(rows, cluster, D, H, FF, V, esize) > _SMEM_LIMIT:
+            continue
+        cache_row = NL * H * keys * hd * esize * 3  # K read twice, V once
+        block = weights / cluster + rows * cache_row / cluster
+        card = groups * (weights + rows * cache_row)
+        waves = -(-groups * cluster // NUM_SMS)
+        est = waves * max(block / _SM_BYTES_PER_S, card / _CARD_BYTES_PER_S)
+        if best is None or est <= best[0]:
+            best = (est, rows, groups)
+    if best is None:
+        raise ValueError(f"no group of rows fits a block's shared memory at D={D}, FF={FF}")
+    _, rows, groups = best
+    return {"rows": rows, "cluster": cluster, "groups": groups, "blocks": groups * cluster,
+            "smem": smem_bytes(rows, cluster, D, H, FF, V, esize), "weights": "streamed"}
+
+
+def plan_for(model, B: int, T: int) -> Dict[str, object]:
+    """``plan`` at ``model``'s decoder shapes."""
+    tc = model.decoder.config.transformer_config
+    return plan(B, tc.model_size, tc.num_heads, tc.model_size * tc.ffn_multiplier,
+                model.decoder.config.output_dim, tc.num_layers, T,
+                torch.finfo(model.compute_dtype).bits // 8)
+
+
+# ----------------------------------------------------------------------------
+# The weights in the kernel's layout
+
+# Within every 32-wide piece of a bf16 weight row, lane q of an mma fragment
+# finds (k = 2q, 2q+1, 2q+8, 2q+9) of the first k step and the same + 16 of
+# the second at positions 8q .. 8q + 7: MMA_ORDER[p] is the k at position p.
+MMA_ORDER = [16 * (e // 4) + 8 * ((e // 2) % 2) + 2 * q + e % 2
+             for q in range(4) for e in range(8)]
+
+
+def _mma_pack(w: torch.Tensor) -> torch.Tensor:
+    N, K = w.shape
+    return w.reshape(N, K // 32, 32)[:, :, MMA_ORDER].reshape(N, K)
+
+
+def _mma_unpack(w: torch.Tensor) -> torch.Tensor:
+    N, K = w.shape
+    out = torch.empty_like(w).reshape(N, K // 32, 32)
+    out[:, :, MMA_ORDER] = w.reshape(N, K // 32, 32)
+    return out.reshape(N, K)
+
+
 def pack_weights(model) -> Dict[str, torch.Tensor]:
     """The decoder's weights in the kernel's layout, on the model's device.
 
-    ``wt`` (compute dtype), per layer: Wqkv [D, 3D], Wo [D, D], W1 [D, FF],
-    W2 [FF, D] (flax's [in, out] layout, so neighbouring threads read
-    neighbouring output columns), then bqkv, bo, b1, b2. ``wf`` (float32):
-    per layer ln1 scale/bias, ln2 scale/bias; then the final LayerNorm's
-    scale/bias (ones/zeros under post-LN); then the head [D, V] and its
-    bias. Built once per model and reused while the parameters are
-    unchanged (keyed by their storage and version counters)."""
+    ``wt`` (compute dtype), per layer: Wqkv [3D, D] (the rows of w_q, w_k,
+    w_v), Wo [D, D], W1 [FF, D], W2 [D, FF] (PyTorch's [out, in]: a row per
+    output, its inputs contiguous; in bf16 each 32-wide piece of a row in
+    ``MMA_ORDER``), then bqkv, bo, b1, b2. ``wf`` (float32): per layer ln1
+    scale/bias, ln2 scale/bias; then the final LayerNorm's scale/bias
+    (ones/zeros under post-LN); then the head [V, D] and its bias. Built
+    once per model and reused while the parameters are unchanged (keyed by
+    their storage and version counters); ``unpack_weights`` inverts it."""
     dec = model.decoder
     params = list(dec.parameters())
     key = tuple((p.device, p.data_ptr(), p._version) for p in params)
@@ -246,15 +349,17 @@ def pack_weights(model) -> Dict[str, torch.Tensor]:
     if cached is not None and cached["key"] == key:
         return cached
     dt = model.compute_dtype
+    order = _mma_pack if dt == torch.bfloat16 else (lambda w: w)
     stack = dec.decoder
     D = stack.config.model_size
     wt, wf = [], []
     with torch.no_grad():
         for layer in stack.layers:
             att, ff = layer.attention, layer.ff
-            wqkv = torch.cat([att.w_q.weight, att.w_k.weight, att.w_v.weight]).t()
-            wt += [wqkv, att.w_o.weight.t(), ff.ff1.weight.t(), ff.ff2.weight.t(),
-                   torch.cat([att.w_q.bias, att.w_k.bias, att.w_v.bias]),
+            wqkv = torch.cat([att.w_q.weight, att.w_k.weight, att.w_v.weight])
+            wt += [order(w.to(dt)) for w in (wqkv, att.w_o.weight, ff.ff1.weight,
+                                             ff.ff2.weight)]
+            wt += [torch.cat([att.w_q.bias, att.w_k.bias, att.w_v.bias]),
                    att.w_o.bias, ff.ff1.bias, ff.ff2.bias]
             wf += [layer.ln1.weight, layer.ln1.bias, layer.ln2.weight,
                    layer.ln2.bias]
@@ -262,10 +367,10 @@ def pack_weights(model) -> Dict[str, torch.Tensor]:
             wf += [stack.final_ln.weight, stack.final_ln.bias]
         else:
             wf += [torch.ones_like(wf[0]), torch.zeros_like(wf[0])]
-        wf += [dec.output_layer.weight.t(), dec.output_layer.bias]
+        wf += [dec.output_layer.weight, dec.output_layer.bias]
         pack = {
             "key": key,
-            "wt": torch.cat([w.reshape(-1) for w in wt]).to(dt).contiguous(),
+            "wt": torch.cat([w.reshape(-1).to(dt) for w in wt]).contiguous(),
             "wf": torch.cat([w.reshape(-1) for w in wf]).float().contiguous(),
             "emb": dec.token_emb.weight.to(dt).contiguous(),
             "pos": stack.pos_table.contiguous(),
@@ -274,6 +379,37 @@ def pack_weights(model) -> Dict[str, torch.Tensor]:
         }
     model._fused_decode_pack = pack
     return pack
+
+
+def unpack_weights(pack: Dict[str, torch.Tensor], D: int, FF: int, NL: int, V: int
+                   ) -> Dict[str, torch.Tensor]:
+    """The plain inverse of ``pack_weights``: ``layers.{l}.{wqkv,wo,w1,w2}``
+    as [out, in] matrices, ``layers.{l}.{bqkv,bo,b1,b2,ln1s,ln1b,ln2s,ln2b}``,
+    ``final_lns``, ``final_lnb``, ``head`` [V, D] and ``head_b``."""
+    wt, wf = pack["wt"], pack["wf"]
+    unorder = _mma_unpack if wt.dtype == torch.bfloat16 else (lambda w: w)
+    out, i, j = {}, 0, 0
+
+    def take(src, at, n):
+        return src[at:at + n], at + n
+
+    for l in range(NL):
+        for name, (rows, cols) in (("wqkv", (3 * D, D)), ("wo", (D, D)), ("w1", (FF, D)),
+                                   ("w2", (D, FF))):
+            w, i = take(wt, i, rows * cols)
+            out[f"layers.{l}.{name}"] = unorder(w.reshape(rows, cols))
+        for name, n in (("bqkv", 3 * D), ("bo", D), ("b1", FF), ("b2", D)):
+            out[f"layers.{l}.{name}"], i = take(wt, i, n)
+        for name in ("ln1s", "ln1b", "ln2s", "ln2b"):
+            out[f"layers.{l}.{name}"], j = take(wf, j, D)
+    out["final_lns"], j = take(wf, j, D)
+    out["final_lnb"], j = take(wf, j, D)
+    head, j = take(wf, j, V * D)
+    out["head"] = head.reshape(V, D)
+    out["head_b"], j = take(wf, j, V)
+    if i != wt.numel() or j != wf.numel():
+        raise ValueError("the pack does not hold these shapes")
+    return out
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -297,7 +433,8 @@ def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
 
     Returns (seqs [B, max_len] int32 with SOS at 0 and PAD after EOS,
     scores [B] float32), plus logits [B, max_len, V] float32 in
-    ``"forced"`` mode (row 0 zeros).
+    ``"forced"`` mode (row 0 zeros). The kernel decodes the rows in the
+    groups and clusters of ``plan``.
     """
     if not x0.is_cuda:
         return fused_decode_reference(model, x0, max_len, seed, temperature,
@@ -333,9 +470,14 @@ def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
                  f"per_step conditioning needs classes [B] on {dev}")
         step_bias = dec.step_bias(classes).contiguous()
 
+    NL, FF, H = tc.num_layers, D * tc.ffn_multiplier, tc.num_heads
+    _require(D % H == 0 and D // H in (8, 16, 32, 64),
+             f"head dimension {D / H} is not one of 8, 16, 32, 64")
+    _require(D % 32 == 0 and FF % 32 == 0, f"model size {D} and FF {FF} must be multiples of 32")
+    _require(V <= _MAX_VOCAB, f"vocabulary {V} above the kernel's {_MAX_VOCAB}")
+    p = plan(B, D, H, FF, V, NL, T, x0.element_size())
     pack = pack_weights(model)
-    NL, FF = tc.num_layers, D * tc.ffn_multiplier
-    cache = torch.empty(NL * 2 * B * T * D, dtype=dt, device=dev)
+    cache = torch.empty(NL * 2 * B * T * D, dtype=dt, device=dev)  # [NL, 2, B, H, T, D/H]
     seqs = torch.full((B, T), PAD_ID, dtype=torch.int32, device=dev)
     scores = torch.zeros(B, dtype=torch.float32, device=dev)
     logits = (torch.zeros(B, T, V, dtype=torch.float32, device=dev)
@@ -355,6 +497,7 @@ def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
         top_k=int(top_k), is_bf16=int(dt == torch.bfloat16),
         top_p=float(top_p), temperature=float(temperature),
         scale=pack["scale"], head_scale=pack["head_scale"],
+        rows=p["rows"], cluster=p["cluster"],
     )
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream

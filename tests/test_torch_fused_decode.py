@@ -313,3 +313,82 @@ class TestWrapper:
         assert p.parent == _build.BUILD_DIR and p.name.startswith("fused_decode-")
         assert p == _build.library_path("fused_decode")
 
+
+
+# The recipes' decoders: (model size, heads, FF, layers, max_len).
+DECODERS = {"canonical": (128, 8, 512, 1, 130), "wide": (512, 16, 2048, 2, 1026),
+            "long": (256, 8, 1024, 2, 4094)}
+
+
+class TestPlan:
+    """``plan``: how the CUDA kernel groups rows into clusters (no kernel is
+    built)."""
+
+    @pytest.mark.parametrize("esize", [2, 4])
+    @pytest.mark.parametrize("B", [1, 3, 17, 64, 256])
+    @pytest.mark.parametrize("decoder", sorted(DECODERS))
+    def test_every_row_covered_once(self, decoder, B, esize):
+        D, H, FF, NL, T = DECODERS[decoder]
+        p = fd.plan(B, D, H, FF, 293, NL, T, esize)
+        rows, C, G = p["rows"], p["cluster"], p["groups"]
+        assert 1 <= rows <= 16 and G == -(-B // rows) and p["blocks"] == G * C
+        covered = [r for g in range(G) for r in range(g * rows, min((g + 1) * rows, B))]
+        assert covered == list(range(B))  # each row once, the last group ragged, none empty
+        assert (G - 1) * rows < B
+        assert H % C == 0 and D % (8 * C) == 0 and FF % (8 * C) == 0 and C <= 8
+        assert p["smem"] == fd.smem_bytes(rows, C, D, H, FF, 293, esize) <= 232448 - 1024
+        assert p["weights"] == "streamed"
+
+    @pytest.mark.parametrize("decoder,B,want", [
+        ("canonical", 64, (8, 8, 8)), ("wide", 16, (2, 8, 8)), ("long", 16, (2, 8, 8))])
+    def test_the_recipes_plans(self, decoder, B, want):
+        D, H, FF, NL, T = DECODERS[decoder]
+        p = fd.plan(B, D, H, FF, 293, NL, T, 2)
+        assert (p["rows"], p["cluster"], p["groups"]) == want
+
+    def test_float32_wide_group_fits_shared_memory(self):
+        assert fd.smem_bytes(16, 8, 512, 16, 2048, 293, 4) > 232448 - 1024
+        assert fd.plan(16, 512, 16, 2048, 293, 2, 32, 4)["smem"] <= 232448 - 1024
+
+
+class TestPack:
+    """``pack_weights``' layout and its plain inverse ``unpack_weights``."""
+
+    def test_mma_order(self):
+        assert sorted(fd.MMA_ORDER) == list(range(32))
+        for q in range(4):  # lane q's B fragments of both k steps, contiguous
+            assert fd.MMA_ORDER[8 * q:8 * q + 8] == [2 * q + o for o in (0, 1, 8, 9, 16, 17,
+                                                                          24, 25)]
+        w = torch.arange(6 * 64, dtype=torch.float32).reshape(6, 64)
+        assert torch.equal(fd._mma_unpack(fd._mma_pack(w)), w)
+        assert not torch.equal(fd._mma_pack(w), w)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("norm_scheme,conditioning", [("post", "initial"),
+                                                          ("pre", "per_step")])
+    def test_unpack_gives_back_the_weights(self, dtype, norm_scheme, conditioning):
+        cfg = make_config(d=64, layers=2, heads=4, norm_scheme=norm_scheme,
+                          class_conditioning=conditioning, dtype=dtype)
+        torch.manual_seed(0)
+        model = StyleVAE(tconfig.ModelConfig.from_dict(dataclasses.asdict(cfg)))
+        dt = model.compute_dtype
+        got = fd.unpack_weights(fd.pack_weights(model), 64, 256, 2, 293)
+        stack = model.decoder.decoder
+        for l, layer in enumerate(stack.layers):
+            att, ff = layer.attention, layer.ff
+            want = {"wqkv": torch.cat([att.w_q.weight, att.w_k.weight, att.w_v.weight]),
+                    "wo": att.w_o.weight, "w1": ff.ff1.weight, "w2": ff.ff2.weight,
+                    "bqkv": torch.cat([att.w_q.bias, att.w_k.bias, att.w_v.bias]),
+                    "bo": att.w_o.bias, "b1": ff.ff1.bias, "b2": ff.ff2.bias}
+            for name, w in want.items():
+                assert torch.equal(got[f"layers.{l}.{name}"], w.detach().to(dt)), name
+            for name, w in (("ln1s", layer.ln1.weight), ("ln1b", layer.ln1.bias),
+                            ("ln2s", layer.ln2.weight), ("ln2b", layer.ln2.bias)):
+                assert torch.equal(got[f"layers.{l}.{name}"], w.detach().float()), name
+        if norm_scheme == "pre":
+            assert torch.equal(got["final_lns"], stack.final_ln.weight.detach().float())
+            assert torch.equal(got["final_lnb"], stack.final_ln.bias.detach().float())
+        else:
+            assert bool((got["final_lns"] == 1).all() and (got["final_lnb"] == 0).all())
+        assert torch.equal(got["head"], model.decoder.output_layer.weight.detach().float())
+        assert torch.equal(got["head_b"], model.decoder.output_layer.bias.detach().float())

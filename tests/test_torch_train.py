@@ -337,6 +337,54 @@ def test_cli_trains_resumes_and_samples(tiny_corpus, tmp_path):
         assert (toks >= 3).all() and (toks < 293).all(), name
 
 
+def test_cli_sample_reads_the_ports_own_checkpoints(tiny_corpus, tmp_path):
+    """cli.sample --checkpoint N on a folder that cli.main trained loads
+    params.N.pt: greedy tokens and the written MIDI equal those of a model
+    given checkpoint N's flat parameters; -1 takes the latest; a missing N
+    raises."""
+    from musicstyletransfer_torch.data import Loader, MelodyDataset
+    from musicstyletransfer_torch.inference import decode
+    from musicstyletransfer_torch.inference.sampler import (Sampling, load_flat_params,
+                                                             load_inference_model)
+    from musicstyletransfer_torch.models.config import load_config
+
+    u = str(tmp_path / "run")
+    cli_main.main(train_argv(tiny_corpus, u, u + "-log", 2))
+    flat = {n: torch.load(os.path.join(u, f"params.{n}.pt"), weights_only=False)["params"]
+            for n in (1, 2)}
+    assert not torch.equal(flat[1], flat[2])
+    config, exported = load_config(os.path.join(u, "torch", "config.json"))
+    assert exported == 2
+    want = StyleVAE(config)
+    load_flat_params(want, flat[1])
+    want.eval()
+
+    got = load_inference_model(u, 1)
+    for a, b in zip(got.parameters(), want.parameters()):
+        assert torch.equal(a, b)
+    latest = load_inference_model(u, -1)
+    assert torch.equal(torch.cat([p.reshape(-1) for p in latest.parameters()]), flat[2])
+    with pytest.raises(ValueError, match=r"holds checkpoints \[1, 2\], not 5"):
+        load_inference_model(u, 5)
+
+    batch = next(iter(MelodyDataset(3, 8, Loader(tiny_corpus, 8).melodies)))
+    args = [torch.as_tensor(np.asarray(x), dtype=torch.long)
+            for x in (batch.tokens, batch.seq_lens, batch.classes)]
+    seqs = [decode.sample_sequences(m, *args, 16, 0, greedy=True)[0] for m in (got, want)]
+    assert torch.equal(seqs[0], seqs[1])
+
+    out = tmp_path / "samples"
+    cli_sample.main(["--cpu", "--model-output", u, "--checkpoint", "1", "--data", tiny_corpus,
+                     "--out-samples", str(out), "--batch-size", "3", "--max-seq-len", "8"])
+    ref = tmp_path / "reference"
+    Sampling(None, None, model=want).process_dataset(
+        MelodyDataset(3, 8, Loader(tiny_corpus, 8).melodies), str(ref))
+    names = sorted(os.listdir(out))
+    assert names == sorted(os.listdir(ref)) and names
+    for name in names:
+        assert (out / name).read_bytes() == (ref / name).read_bytes(), name
+
+
 @pytest.mark.parametrize("flag", [["--toy"], ["--tp", "2"], ["--grad-accum-steps", "2"],
                                   ["--profile-dir", "x"], ["--log-param-grad-norms"]])
 def test_cli_refuses_unported(flag, tmp_path):
