@@ -17,10 +17,11 @@
    rows, and a pre-LN + per-step-conditioned two-layer decoder; then at the
    wide decoder (D=512, 2 layers, 16 heads, pre-LN) over T=1026 positions
    and at the long decoder (D=256, 2 layers, 8 heads, post-LN, per_step)
-   over T=4094, where it also times K1 at 8 and at 16 rows (the training
-   paths' generation-health probe and cli.sample decode 16) beside its
-   bound. K1 decodes rows in groups on thread-block clusters; every line
-   names the plan (rows a group, blocks a cluster) it ran.
+   over T=4094, each on 8 and on 16 rows (the training paths'
+   generation-health probe and cli.sample decode 16), checked and timed
+   beside its bound. K1 decodes rows in groups on thread-block clusters;
+   every line names the plan (rows a group, blocks a cluster, weights
+   resident or streamed) it checked and ran.
 4. Holds K2 and K3 against their plain versions at the wide training shapes
    (B=8, H=16; encoder T=513, hd=64; decoder T=514, hd=32, causal), with
    ragged key lengths (one row 1, one row 0), and at two short lengths that
@@ -289,16 +290,16 @@ def check_kernel(dtype: torch.dtype, fd, decode) -> float:
 
 def check_decoder(fd, dtype: torch.dtype, label: str, dec, latent: int, steps: int,
                   conditioning: str = "initial", reps: int = 3) -> float:
-    """K1 at a recipe's decoder ``dec`` over T=``steps`` positions on 8 rows:
-    forced logits against the plain loop, and every greedy token the plain
-    argmax on its prefix; then K1's time at 8 rows and at 16 (the rows of
-    the generation-health probe and of cli.sample: 8 sources x 2 classes)
-    beside its bound. Returns the forced logits' max abs error."""
+    """K1 at a recipe's decoder ``dec`` over T=``steps`` positions, on 8 rows
+    and on 16 (the rows of the generation-health probe and of cli.sample: 8
+    sources x 2 classes; the plan groups them differently): forced logits
+    against the plain loop, and every greedy token the plain argmax on its
+    prefix; then K1's time beside its bound, with the plan that was checked
+    and timed. Returns the forced logits' largest abs error."""
     from musicstyletransfer_torch.models import (
         DecoderConfig, EncoderConfig, ModelConfig, StyleVAE, TransformerConfig)
 
     name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
-    rows = 8
     cfg = ModelConfig(
         encoder_config=EncoderConfig(transformer_config=TransformerConfig(model_size=64),
                                      latent_dim=latent),
@@ -307,44 +308,39 @@ def check_decoder(fd, dtype: torch.dtype, label: str, dec, latent: int, steps: i
     torch.manual_seed(0)
     model = StyleVAE(cfg).cuda().eval()
     g = np.random.default_rng(5)
-    z = torch.as_tensor(g.normal(size=(rows, latent)), dtype=torch.float32).cuda()
-    classes = torch.as_tensor(g.integers(0, 2, rows)).cuda()
-    with torch.inference_mode():
-        x0 = model.decode_init(z, classes).contiguous()
-    forced = torch.as_tensor(g.integers(3, 293, (rows, steps)), dtype=torch.int32).cuda()
-    _, _, kl = fd.fused_decode(model, x0, steps, 0, mode="forced", forced_tokens=forced,
-                               classes=classes)
-    _, _, pl = fd.fused_decode_reference(model, x0, steps, 0, mode="forced",
-                                         forced_tokens=forced, classes=classes)
-    kseq, _ = fd.fused_decode(model, x0, steps, 0, mode="greedy", classes=classes)
-    _, _, gl = fd.fused_decode_reference(model, x0, steps, 0, mode="forced", forced_tokens=kseq,
-                                         classes=classes)
-    torch.cuda.synchronize()
-    err = float((kl - pl).abs().max())
-    check(bool(torch.isfinite(kl).all()), f"{label} K1 {name}: non-finite logits")
-    check(err <= TOL_LOGITS[dtype],
-          f"{label} K1 {name} forced max|err| {err} > {TOL_LOGITS[dtype]}")
-    chosen = gl.gather(2, kseq.long()[:, :, None])[:, :, 0]
-    gap = float((gl.max(-1).values - chosen)[live_mask(kseq)].max())
-    check(gap <= TOL_LOGITS[dtype],
-          f"{label} K1 {name} greedy: a token {gap} below the plain argmax")
-    ms = time_cuda(lambda: fd.fused_decode(model, x0, steps, 0, mode="greedy", classes=classes),
-                   reps)
-    z16 = torch.as_tensor(g.normal(size=(16, latent)), dtype=torch.float32).cuda()
-    c16 = torch.as_tensor(g.integers(0, 2, 16)).cuda()
-    with torch.inference_mode():
-        x16 = model.decode_init(z16, c16).contiguous()
-    ms16 = time_cuda(lambda: fd.fused_decode(model, x16, steps, 0, mode="greedy", classes=c16),
-                     reps)
-    seqs16, _ = fd.fused_decode(model, x16, steps, 0, mode="greedy", classes=c16)
-    bound16, by16 = k1_bound(model, x16, seqs16, steps)
-    log(f"[{name}] {label} decoder D={dec.model_size} x{dec.num_layers} layers, "
-        f"{dec.num_heads} heads, {dec.norm_scheme}-LN, {conditioning}, T={steps}, {rows} rows: "
-        f"forced max|err| {err:.3g} (tol {TOL_LOGITS[dtype]}), greedy max argmax gap {gap:.3g}; "
-        f"K1 greedy {ms:.3f} ms a launch (plan {fd.plan_for(model, rows, steps)}); 16 rows "
-        f"{ms16:.3f} ms a launch (bound {bound16:.5f} ms, {by16}; plan "
-        f"{fd.plan_for(model, 16, steps)})")
-    return err
+    worst = 0.0
+    for rows in (8, 16):
+        z = torch.as_tensor(g.normal(size=(rows, latent)), dtype=torch.float32).cuda()
+        classes = torch.as_tensor(g.integers(0, 2, rows)).cuda()
+        with torch.inference_mode():
+            x0 = model.decode_init(z, classes).contiguous()
+        forced = torch.as_tensor(g.integers(3, 293, (rows, steps)), dtype=torch.int32).cuda()
+        _, _, kl = fd.fused_decode(model, x0, steps, 0, mode="forced", forced_tokens=forced,
+                                   classes=classes)
+        _, _, pl = fd.fused_decode_reference(model, x0, steps, 0, mode="forced",
+                                             forced_tokens=forced, classes=classes)
+        kseq, _ = fd.fused_decode(model, x0, steps, 0, mode="greedy", classes=classes)
+        _, _, gl = fd.fused_decode_reference(model, x0, steps, 0, mode="forced",
+                                             forced_tokens=kseq, classes=classes)
+        torch.cuda.synchronize()
+        err = float((kl - pl).abs().max())
+        worst = max(worst, err)
+        check(bool(torch.isfinite(kl).all()), f"{label} K1 {name} {rows} rows: non-finite logits")
+        check(err <= TOL_LOGITS[dtype],
+              f"{label} K1 {name} {rows} rows forced max|err| {err} > {TOL_LOGITS[dtype]}")
+        chosen = gl.gather(2, kseq.long()[:, :, None])[:, :, 0]
+        gap = float((gl.max(-1).values - chosen)[live_mask(kseq)].max())
+        check(gap <= TOL_LOGITS[dtype],
+              f"{label} K1 {name} {rows} rows greedy: a token {gap} below the plain argmax")
+        ms = time_cuda(lambda: fd.fused_decode(model, x0, steps, 0, mode="greedy",
+                                               classes=classes), reps)
+        bound_ms, by = k1_bound(model, x0, kseq, steps)
+        log(f"[{name}] {label} decoder D={dec.model_size} x{dec.num_layers} layers, "
+            f"{dec.num_heads} heads, {dec.norm_scheme}-LN, {conditioning}, T={steps}, {rows} "
+            f"rows (plan {fd.plan_for(model, rows, steps)}): forced max|err| {err:.3g} (tol "
+            f"{TOL_LOGITS[dtype]}), greedy max argmax gap {gap:.3g}; K1 greedy {ms:.3f} ms a "
+            f"launch (bound {bound_ms:.5f} ms, {by})")
+    return worst
 
 
 def core_inputs(T: int, hd: int, dtype: torch.dtype, seed: int, lens=None):

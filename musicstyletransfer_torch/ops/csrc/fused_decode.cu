@@ -27,12 +27,15 @@
 //   position; a buffer written remotely in a phase is never read in that
 //   phase, so one barrier a phase suffices.
 // - Groups fill the card: the grid is G = ceil(B/R) clusters; R and C come
-//   from plan() in fused_decode.py (a pure function of the shapes).
-// - Weights are streamed from L2 each position (the whole decoder is 0.54 MB
-//   at the canonical shape, 3.4 MB long, 13.2 MB wide: all stay in the 50 MB
-//   L2), 16 bytes a lane, several loads in flight a warp. In bf16 the pack
-//   orders each 32-wide piece of a weight row so that one 16-byte load holds
-//   a lane's B fragments of two mma k-steps (fused_decode.py mma_order).
+//   from plan() in fused_decode.py (a pure function of the shapes and of the
+//   clusters the card runs at once, mst_fused_decode_clusters).
+// - A block's weight slices stay resident in shared memory for the whole
+//   launch where they fit beside the group's buffers (the canonical decoder:
+//   0.54 MB / 8 blocks); otherwise they are streamed from L2 each position
+//   (3.4 MB long, 13.2 MB wide: all stay in the 50 MB L2), 16 bytes a lane,
+//   several loads in flight a warp. plan() chooses. In bf16 the pack orders
+//   each 32-wide piece of a weight row so that one 16-byte load holds a
+//   lane's B fragments of two mma k-steps (fused_decode.py MMA_ORDER).
 // - Attention reads the K/V cache ([NL, 2, B, H, T, hd]: one head's keys
 //   contiguous) with 16-byte loads along the head dimension, neighbouring
 //   lanes on neighbouring keys; two passes over the keys (max and sum, then
@@ -87,7 +90,8 @@ struct MstFusedDecodeArgs {
   int B, T, D, H, FF, V, NL;
   int mode, pre_ln, per_step, top_k, is_bf16;
   float top_p, temperature, scale, head_scale;
-  int rows, cluster;      // the plan: rows a group, blocks a cluster
+  int rows, cluster;      // the plan: rows a group, blocks a cluster (<= 8)
+  int resident;           // the plan: weight slices resident in shared memory
 };
 }
 
@@ -97,6 +101,11 @@ namespace {
 // body, and at 512 threads (128 registers) it spilled kilobytes a thread.
 constexpr int kThreads = 256, kWarps = kThreads / 32;
 constexpr int kMaxRows = 16;    // the mma's M
+constexpr int kMaxCluster = 8;  // the portable cluster size
+// A resident slice's rows are padded by 64 bytes: the 4 lanes of a column
+// read 64 contiguous bytes, and the next column's lanes the 64 bytes on the
+// other half of the banks.
+constexpr int kSlicePad = 64;
 constexpr int kMaxVLane = 10;   // vocab entries a lane holds: V <= 320
 constexpr int kPad = 0, kSos = 1, kEos = 2;
 constexpr int kGreedy = 1, kForced = 2;  // mode 0 samples
@@ -243,11 +252,20 @@ __host__ __device__ inline int split_of(int n_tiles, int K) {
 }
 
 struct Dims {
-  int R, D, FF, V, HD, Hc, C, esize;
+  int R, D, FF, V, HD, Hc, C, esize, NL, resident;
   __host__ __device__ int nb_qkv() const { return 3 * Hc * HD; }
   __host__ __device__ int nb_o() const { return D / C; }
   __host__ __device__ int nb_ff1() const { return FF / C; }
   __host__ __device__ int nb_head() const { return ((V + C - 1) / C + 7) / 8 * 8; }
+  // A resident slice keeps a weight row per output column, padded.
+  __host__ __device__ int wpad() const { return kSlicePad / esize; }
+  __host__ __device__ size_t slice_layer() const {  // elements of T a layer
+    return (size_t)(nb_qkv() + nb_o() + nb_ff1()) * (D + wpad()) + (size_t)nb_o() * (FF + wpad());
+  }
+  __host__ __device__ size_t slice_bytes() const {
+    if (!resident) return 0;
+    return (size_t)NL * slice_layer() * esize + (size_t)nb_head() * (D + kSlicePad / 4) * 4;
+  }
   __host__ __device__ int part_floats() const {
     const int nb[5] = {nb_qkv(), nb_o(), nb_ff1(), nb_o(), nb_head()};
     const int k[5] = {D, D, D, FF, D};
@@ -260,7 +278,8 @@ struct Dims {
   }
 };
 
-enum Buf { kX, kA, kCtx, kHid, kQkv, kLg, kPart, kNoise, kMl, kCpart, kTok, kDone, kScore, kNBuf };
+enum Buf { kX, kA, kCtx, kHid, kQkv, kLg, kPart, kNoise, kMl, kCpart, kTok, kDone, kScore, kW,
+           kNBuf };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
@@ -271,7 +290,7 @@ __host__ __device__ inline size_t smem_layout(const Dims& d, size_t* off) {
       act, act, act, (size_t)d.R * (d.FF + kLdPad) * d.esize,
       (size_t)d.R * d.nb_qkv() * 4, (size_t)d.R * d.V * 4, (size_t)d.part_floats() * 4,
       (size_t)d.R * d.V * 4, (size_t)kWarps * 2 * 4, (size_t)kWarps * d.HD * 4,
-      kMaxRows * 4, kMaxRows * 4, kMaxRows * 4};
+      kMaxRows * 4, kMaxRows * 4, kMaxRows * 4, d.slice_bytes()};
   size_t o = 0;
   for (int i = 0; i < kNBuf; ++i) {
     if (off) off[i] = o;
@@ -292,16 +311,29 @@ struct Smem {
   float *cpart;              // [warps][HD] partial context of a key range
   int *tok, *done;
   float *score;
+  T *w;                      // resident slices: per layer qkv, o, ff1, ff2
+  float *whead;              // resident slice of the head
 };
 
 // ---------------------------------------------------------------------------
 // Products. part[s][r][j] = sum over split s's k range of A[r][k] * W[row(j)][k]
 // for the block's Nb columns j and the group's rows r < R; float32,
-// unrounded. W holds a weight row per output (K contiguous); a column whose
-// row is >= nvalid reads zeros. Warps take (8-column tile, k range) items.
+// unrounded. W holds a weight row per output (K contiguous, rows ldw
+// apart), in global memory or (kSmem) a resident slice in shared memory; a
+// column whose row is >= nvalid reads zeros. Warps take (8-column tile, k
+// range) items.
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// 16 bytes of a resident slice (volatile: never hoisted above the copy)
+__device__ __forceinline__ uint4 lds128(const void* p) {
+  uint4 v;
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a));
+  return v;
 }
 
 __device__ __forceinline__ void mma_k16(float (&acc)[4], const __nv_bfloat16* lo,
@@ -320,9 +352,9 @@ __device__ __forceinline__ void mma_k16(float (&acc)[4], const __nv_bfloat16* lo
 // the group's rows (zeros from R on); each 32-wide piece of a weight row is
 // stored in mma order (fused_decode.py mma_order), so lane (g, q) finds its
 // B fragments of both k steps in one 16-byte load at 8 * q.
-template <int kChunks, typename RowOf>
+template <int kChunks, bool kSmem, typename RowOf>
 __device__ void product_mma(const __nv_bfloat16* A, int lda, int R, int K,
-                            const __nv_bfloat16* W, int nvalid, int Nb, RowOf row_of,
+                            const __nv_bfloat16* W, int ldw, int nvalid, int Nb, RowOf row_of,
                             float* part) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int NT = Nb >> 3, split = split_of(NT, K), KC = K >> 5;
@@ -334,13 +366,14 @@ __device__ void product_mma(const __nv_bfloat16* A, int lda, int R, int K,
     const int c0 = s * KC / split, c1 = (s + 1) * KC / split;
     const int wr = row_of(nt * 8 + g);
     const bool valid = wr < nvalid;
-    const uint4* wp = reinterpret_cast<const uint4*>(W + (size_t)(valid ? wr : 0) * K) + q;
+    const uint4* wp = reinterpret_cast<const uint4*>(W + (size_t)(valid ? wr : 0) * ldw) + q;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     for (int c = c0; c < c1; c += kChunks) {  // kChunks 16-byte loads a lane in flight
       uint4 b[kChunks];
 #pragma unroll
       for (int u = 0; u < kChunks; ++u)
-        b[u] = (valid && c + u < c1) ? __ldg(wp + (size_t)(c + u) * 4) : make_uint4(0, 0, 0, 0);
+        b[u] = !(valid && c + u < c1) ? make_uint4(0, 0, 0, 0)
+               : kSmem ? lds128(wp + (size_t)(c + u) * 4) : __ldg(wp + (size_t)(c + u) * 4);
 #pragma unroll
       for (int u = 0; u < kChunks; ++u) {
         if (c + u < c1) {
@@ -359,8 +392,8 @@ __device__ void product_mma(const __nv_bfloat16* A, int lda, int R, int K,
 // lane (g, q) reads 4 consecutive weights of column g at 4 * q of a 16-wide
 // piece and adds them into all R rows; the four q lanes meet by shuffles.
 template <typename TA, typename RowOf>
-__device__ void product_fma(const TA* A, int lda, int R, int K, const float* W, int nvalid,
-                            int Nb, RowOf row_of, float* part) {
+__device__ void product_fma(const TA* A, int lda, int R, int K, const float* W, int ldw,
+                            int nvalid, int Nb, RowOf row_of, float* part) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int NT = Nb >> 3, split = split_of(NT, K), KC = K >> 5;
   for (int item = warp; item < NT * split; item += kWarps) {
@@ -368,7 +401,7 @@ __device__ void product_fma(const TA* A, int lda, int R, int K, const float* W, 
     const int k0 = (s * KC / split) * 32, k1 = ((s + 1) * KC / split) * 32;
     const int wr = row_of(nt * 8 + g);
     const bool valid = wr < nvalid;
-    const float* wp = W + (size_t)(valid ? wr : 0) * K + 4 * q;
+    const float* wp = W + (size_t)(valid ? wr : 0) * ldw + 4 * q;
     float acc[kMaxRows];
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
@@ -399,17 +432,21 @@ __device__ void product_fma(const TA* A, int lda, int R, int K, const float* W, 
 }
 
 template <typename T, typename RowOf>
-__device__ __forceinline__ void product(const T* A, int lda, int R, int K, const T* W,
-                                        int nvalid, int Nb, RowOf row_of, float* part) {
+__device__ __forceinline__ void product(const T* A, int lda, int R, int K, const T* W, int ldw,
+                                        bool smem, int nvalid, int Nb, RowOf row_of,
+                                        float* part) {
   if constexpr (sizeof(T) == 2) {
     // 8 weight loads a lane in flight where a warp's k range holds 8 pieces
-    // of 32 or more (the wide decoder's products), else 4 (the canonical one)
-    if ((K / 32) / split_of(Nb / 8, K) >= 8)
-      product_mma<8>(A, lda, R, K, W, nvalid, Nb, row_of, part);
+    // of 32 or more (the wide decoder's products), else 4 (the canonical
+    // one, and every resident slice)
+    if (smem)
+      product_mma<4, true>(A, lda, R, K, W, ldw, nvalid, Nb, row_of, part);
+    else if ((K / 32) / split_of(Nb / 8, K) >= 8)
+      product_mma<8, false>(A, lda, R, K, W, ldw, nvalid, Nb, row_of, part);
     else
-      product_mma<4>(A, lda, R, K, W, nvalid, Nb, row_of, part);
+      product_mma<4, false>(A, lda, R, K, W, ldw, nvalid, Nb, row_of, part);
   } else
-    product_fma(A, lda, R, K, W, nvalid, Nb, row_of, part);
+    product_fma(A, lda, R, K, W, ldw, nvalid, Nb, row_of, part);
 }
 
 // f(r, j, sum) for every (row, column) of the block's slice, the split
@@ -428,12 +465,16 @@ __device__ __forceinline__ void finish(const float* part, int R, int Nb, int spl
 // round(round(x @ W) + b), then ReLU, or the residual add round(resid + .)
 // where `resid` is given, written into `dst` ([R][ld]) of every block of the
 // cluster. A block reads only its own columns of `resid`, so `dst` may be
-// `resid`.
+// `resid`. `slice` is the block's resident slice of W (rows K + pad apart),
+// or null to read W's rows from global memory.
 template <typename T>
-__device__ void dense_cluster(const T* A, int lda, int R, int K, const T* W, const T* bias,
-                              int col0, int Nb, bool relu, const T* resid, T* dst, int ld,
-                              float* part, int C) {
-  product(A, lda, R, K, W, 1 << 30, Nb, [col0](int j) { return col0 + j; }, part);
+__device__ void dense_cluster(const T* A, int lda, int R, int K, const T* W, const T* slice,
+                              const T* bias, int col0, int Nb, bool relu, const T* resid, T* dst,
+                              int ld, float* part, int C) {
+  const int row0 = slice ? 0 : col0;
+  const int ldw = slice ? K + kSlicePad / (int)sizeof(T) : K;
+  product(A, lda, R, K, slice ? slice : W, ldw, slice != nullptr, 1 << 30, Nb,
+          [row0](int j) { return row0 + j; }, part);
   block_sync();
   cg::cluster_group cluster = cg::this_cluster();
   finish(part, R, Nb, split_of(Nb / 8, K), [&](int r, int j, float acc) {
@@ -622,6 +663,76 @@ __device__ __forceinline__ void weighted_values(const float* q, const T* K, cons
   warp_reduce_scatter<HD>(acc);
 }
 
+// The same for a head dimension known only at run time (HD = 0 below):
+// scalar loads, keys summed in the same order, and P.V in pieces of 32
+// dimensions with the probabilities recomputed for each piece.
+template <typename T>
+__device__ __forceinline__ float score_rt(const float* q, const T* k, int hd, float head_scale) {
+  float acc = 0.f;
+  for (int d = 0; d < hd; ++d) acc = fmaf(q[d], to_f(k[d]), acc);
+  return rnd<T>(rnd<T>(acc) / head_scale);
+}
+
+template <typename T>
+__device__ __forceinline__ float2 score_stats_rt(const float* q, const T* K, int k0, int k1,
+                                                 int hd, float head_scale) {
+  float m = -INFINITY, l = 0.f;
+  for (int tau = k0 + (threadIdx.x & 31); tau < k1; tau += 32)
+    online_add(m, l, score_rt<T>(q, K + (size_t)tau * hd, hd, head_scale));
+  const float mm = warp_max(m);
+  return make_float2(mm, warp_sum(m == -INFINITY ? 0.f : l * expf(m - mm)));
+}
+
+template <typename T, typename Sink>
+__device__ __forceinline__ void weighted_values_rt(const float* q, const T* K, const T* Vc, int k0,
+                                                   int k1, float M, float L, int hd,
+                                                   float head_scale, Sink sink) {
+  const int lane = threadIdx.x & 31;
+  for (int d0 = 0; d0 < hd; d0 += 32) {
+    const int nd = min(32, hd - d0);
+    float acc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+    for (int tau = k0 + lane; tau < k1; tau += 32) {
+      const float p = rnd<T>(expf(score_rt<T>(q, K + (size_t)tau * hd, hd, head_scale) - M) / L);
+      const T* v = Vc + (size_t)tau * hd + d0;
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if (j < nd) acc[j] = fmaf(p, to_f(v[j]), acc[j]);
+    }
+    warp_reduce_scatter<32>(acc);
+    if (lane < nd) sink(d0 + lane, acc[0]);
+  }
+}
+
+// A (row, head) item over keys [k0, k1): (max, sum of exp(s - max)) on
+// every lane, and sink(d, sum over the keys of p * V[.][d]) once for every
+// dimension d.
+template <typename T, int HD>
+__device__ __forceinline__ float2 item_stats(const float* q, const T* K, int k0, int k1, int hd,
+                                             float head_scale) {
+  if constexpr (HD > 0) return score_stats<T, HD>(q, K, k0, k1, head_scale);
+  else return score_stats_rt<T>(q, K, k0, k1, hd, head_scale);
+}
+
+template <typename T, int HD, typename Sink>
+__device__ __forceinline__ void item_values(const float* q, const T* K, const T* Vc, int k0,
+                                            int k1, float M, float L, int hd, float head_scale,
+                                            Sink sink) {
+  if constexpr (HD > 0) {
+    constexpr int h = HD >= 32 ? 5 : (HD == 16 ? 4 : 3), nf = HD >= 32 ? HD / 32 : 1;
+    const int lane = threadIdx.x & 31;
+    float acc[HD];
+    weighted_values<T, HD>(q, K, Vc, k0, k1, M, L, head_scale, acc);
+    if ((lane & ((1 << (5 - h)) - 1)) == 0) {
+#pragma unroll
+      for (int i = 0; i < nf; ++i) sink((lane >> (5 - h)) * nf + i, acc[i]);
+    }
+  } else {
+    weighted_values_rt<T>(q, K, Vc, k0, k1, M, L, hd, head_scale, sink);
+  }
+}
+
 // The attention of this block's (row, head) items at position t over the
 // cache rows written so far; the context goes (rounded to T) into ctx of
 // every block of the cluster. An item has a warp, or several on key ranges
@@ -629,36 +740,30 @@ __device__ __forceinline__ void weighted_values(const float* q, const T* K, cons
 template <typename T, int HD>
 __device__ void attend(const MstFusedDecodeArgs& a, const T* cache, size_t v_off, int l, int t,
                        int row0, int R, const Dims& dm, int rank, const Smem<T>& s) {
-  const int Hc = dm.Hc, nq = Hc * HD, ld = a.D + kLdPad, C = dm.C;
+  const int hd = HD > 0 ? HD : dm.HD;
+  const int Hc = dm.Hc, nq = Hc * hd, ld = a.D + kLdPad, C = dm.C;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int h = HD >= 32 ? 5 : (HD == 16 ? 4 : 3), nf = HD >= 32 ? HD / 32 : 1;
-  const int dim0 = (lane >> (5 - h)) * nf;
-  const bool writer = (lane & ((1 << (5 - h)) - 1)) == 0;
   cg::cluster_group cluster = cg::this_cluster();
   const int n = t + 1, items = R * Hc;
   int S = 1;
   if (items < kWarps) S = max(1, min(kWarps / items, (n + 31) / 32));
   auto head_base = [&](int r, int hl) {
-    return (((size_t)l * 2 * a.B + row0 + r) * a.H + rank * Hc + hl) * (size_t)a.T * HD;
+    return (((size_t)l * 2 * a.B + row0 + r) * a.H + rank * Hc + hl) * (size_t)a.T * hd;
   };
   auto write_ctx = [&](int r, int hl, int d, float v) {
     const T out = from_f<T>(v);
-    const size_t o = (size_t)r * ld + (rank * Hc + hl) * HD + d;
+    const size_t o = (size_t)r * ld + (rank * Hc + hl) * hd + d;
     for (int c = 0; c < C; ++c) cluster.map_shared_rank(s.ctx, c)[o] = out;
   };
-  float acc[HD];
   PH_BEGIN(t1);
   if (S == 1) {
     for (int it = warp; it < items; it += kWarps) {
       const int r = it / Hc, hl = it - r * Hc;
-      const float* q = s.qkv + (size_t)r * 3 * nq + hl * HD;
+      const float* q = s.qkv + (size_t)r * 3 * nq + hl * hd;
       const T* K = cache + head_base(r, hl);
-      const float2 ml = score_stats<T, HD>(q, K, 0, n, a.head_scale);
-      weighted_values<T, HD>(q, K, K + v_off, 0, n, ml.x, ml.y, a.head_scale, acc);
-      if (writer) {
-#pragma unroll
-        for (int i = 0; i < nf; ++i) write_ctx(r, hl, dim0 + i, rnd<T>(acc[i]));
-      }
+      const float2 ml = item_stats<T, HD>(q, K, 0, n, hd, a.head_scale);
+      item_values<T, HD>(q, K, K + v_off, 0, n, ml.x, ml.y, hd, a.head_scale,
+                         [&](int d, float v) { write_ctx(r, hl, d, rnd<T>(v)); });
     }
     PH_END(kPhPV, t1);
     return;
@@ -666,10 +771,10 @@ __device__ void attend(const MstFusedDecodeArgs& a, const T* cache, size_t v_off
   const int units = items * S, it = warp % items, sp = warp / items;
   const int r = it / Hc, hl = it - r * Hc;
   const int k0 = sp * n / S, k1 = (sp + 1) * n / S;
-  const float* q = s.qkv + (size_t)r * 3 * nq + hl * HD;
+  const float* q = s.qkv + (size_t)r * 3 * nq + hl * hd;
   const T* K = cache + head_base(r, hl);
   if (warp < units) {
-    const float2 ml = score_stats<T, HD>(q, K, k0, k1, a.head_scale);
+    const float2 ml = item_stats<T, HD>(q, K, k0, k1, hd, a.head_scale);
     if (lane == 0) { s.ml[2 * warp] = ml.x; s.ml[2 * warp + 1] = ml.y; }
   }
   block_sync();
@@ -683,17 +788,14 @@ __device__ void attend(const MstFusedDecodeArgs& a, const T* cache, size_t v_off
       if (mk != -INFINITY) Lsum += s.ml[2 * (k * items + it) + 1] * expf(mk - M);
     }
     PH_END(kPhSoftmax, t2);
-    weighted_values<T, HD>(q, K, K + v_off, k0, k1, M, Lsum, a.head_scale, acc);
-    if (writer) {
-#pragma unroll
-      for (int i = 0; i < nf; ++i) s.cpart[warp * HD + dim0 + i] = acc[i];
-    }
+    item_values<T, HD>(q, K, K + v_off, k0, k1, M, Lsum, hd, a.head_scale,
+                       [&](int d, float v) { s.cpart[warp * hd + d] = v; });
   }
   block_sync();
-  for (int i = threadIdx.x; i < items * HD; i += kThreads) {
-    const int j = i / HD, d = i - j * HD;
-    float sum = s.cpart[j * HD + d];
-    for (int k = 1; k < S; ++k) sum += s.cpart[(k * items + j) * HD + d];
+  for (int i = threadIdx.x; i < items * hd; i += kThreads) {
+    const int j = i / hd, d = i - j * hd;
+    float sum = s.cpart[j * hd + d];
+    for (int k = 1; k < S; ++k) sum += s.cpart[(k * items + j) * hd + d];
     write_ctx(j / Hc, j % Hc, d, rnd<T>(sum));
   }
   PH_END(kPhPV, t2);
@@ -701,22 +803,27 @@ __device__ void attend(const MstFusedDecodeArgs& a, const T* cache, size_t v_off
 
 // Self-attention of layer l at position t on this block's heads, for the
 // group's rows: q, k, v of those heads, the cache write, and the context,
-// written (rounded to T) into ctx of every block of the cluster.
+// written (rounded to T) into ctx of every block of the cluster. `slice` is
+// the block's resident rows of Wqkv, or null.
 template <typename T, int HD>
-__device__ void attention(const MstFusedDecodeArgs& a, const Layer<T>& L, const T* in, int l,
-                          int t, int row0, int R, const Dims& dm, int rank, const Smem<T>& s) {
-  const int D = a.D, Hc = dm.Hc, nq = Hc * HD, ld = D + kLdPad;
+__device__ void attention(const MstFusedDecodeArgs& a, const Layer<T>& L, const T* slice,
+                          const T* in, int l, int t, int row0, int R, const Dims& dm, int rank,
+                          const Smem<T>& s) {
+  const int hd = HD > 0 ? HD : dm.HD;
+  const int D = a.D, Hc = dm.Hc, nq = Hc * hd, ld = D + kLdPad;
   PH_BEGIN(t0);
   auto qkv_row = [=](int j) {
     const int p = j / nq;
     return p * D + rank * nq + (j - p * nq);
   };
-  product(in, ld, R, D, L.wqkv, 1 << 30, 3 * nq, qkv_row, s.part);
+  const bool res = slice != nullptr;
+  product(in, ld, R, D, res ? slice : L.wqkv, res ? D + dm.wpad() : D, res, 1 << 30, 3 * nq,
+          [=](int j) { return res ? j : qkv_row(j); }, s.part);
   block_sync();
   // q stays in shared memory; this position's keys and values of the block's
-  // heads go to the cache [NL, 2, B, H, T, HD]
+  // heads go to the cache [NL, 2, B, H, T, hd]
   T* cache = static_cast<T*>(a.cache);
-  const size_t head_len = (size_t)a.T * HD, v_off = (size_t)a.B * a.H * head_len;
+  const size_t head_len = (size_t)a.T * hd, v_off = (size_t)a.B * a.H * head_len;
   finish(s.part, R, 3 * nq, split_of(3 * nq / 8, D), [&](int r, int j, float acc) {
     const float v = rnd<T>(rnd<T>(acc) + to_f(L.bqkv[qkv_row(j)]));
     if (j < nq) {
@@ -724,12 +831,26 @@ __device__ void attention(const MstFusedDecodeArgs& a, const Layer<T>& L, const 
       return;
     }
     const int w = (j - nq) % nq;
-    cache[(((size_t)l * 2 * a.B + row0 + r) * a.H + rank * Hc + w / HD) * head_len +
-          (size_t)t * HD + w % HD + (j >= 2 * nq ? v_off : 0)] = from_f<T>(v);
+    cache[(((size_t)l * 2 * a.B + row0 + r) * a.H + rank * Hc + w / hd) * head_len +
+          (size_t)t * hd + w % hd + (j >= 2 * nq ? v_off : 0)] = from_f<T>(v);
   });
   block_sync();
   PH_END(kPhQkv, t0);
   attend<T, HD>(a, cache, v_off, l, t, row0, R, dm, rank, s);
+}
+
+// Copy the rows row_of(j), j < n, of W ([.][K] T, 16-byte pieces) into the
+// resident slice dst ([n][K + pad]); rows >= nvalid become zeros.
+template <typename T, typename RowOf>
+__device__ void copy_slice(const T* W, int K, int n, int nvalid, RowOf row_of, T* dst) {
+  constexpr int E = 16 / sizeof(T);
+  const int pieces = K / E, ldd = K + kSlicePad / (int)sizeof(T);
+  for (int i = threadIdx.x; i < n * pieces; i += kThreads) {
+    const int j = i / pieces, c = i - j * pieces, wr = row_of(j);
+    *reinterpret_cast<uint4*>(dst + (size_t)j * ldd + c * E) =
+        wr < nvalid ? __ldg(reinterpret_cast<const uint4*>(W + (size_t)wr * K) + c)
+                    : make_uint4(0, 0, 0, 0);
+  }
 }
 
 // x = round(round(scale * e) + pos[t]) for row b's token `tok` (e its
@@ -853,9 +974,10 @@ __device__ void choose_tokens(const MstFusedDecodeArgs& a, int row0, int R, int 
   }
 }
 
-// One kernel per head dimension: its registers are allocated for its own
-// attention alone (with all four in one kernel, the hd=64 code's pressure
-// made the hd=16/32 paths spill: 10-22% slower).
+// One kernel per head dimension (8, 16, 32, 64; HD = 0 takes any other at
+// run time): its registers are allocated for its own attention alone (with
+// all four in one kernel, the hd=64 code's pressure made the hd=16/32 paths
+// spill: 10-22% slower).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFusedDecodeArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -863,7 +985,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
   const int C = a.cluster, rank = (int)cluster.block_rank();
   const int row0 = (int)(blockIdx.x / C) * a.rows, R = min(a.rows, a.B - row0);
   const int D = a.D, FF = a.FF, V = a.V, ld = D + kLdPad, ldh = FF + kLdPad;
-  const Dims dm = {a.rows, D, FF, V, D / a.H, a.H / C, C, (int)sizeof(T)};
+  const Dims dm = {a.rows, D, FF, V, D / a.H, a.H / C, C, (int)sizeof(T), a.NL, a.resident};
   size_t off[kNBuf + 1];
   smem_layout(dm, off);
   Smem<T> s;
@@ -880,6 +1002,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
   s.tok = reinterpret_cast<int*>(smem + off[kTok]);
   s.done = reinterpret_cast<int*>(smem + off[kDone]);
   s.score = reinterpret_cast<float*>(smem + off[kScore]);
+  s.w = reinterpret_cast<T*>(smem + off[kW]);
+  s.whead = reinterpret_cast<float*>(smem + off[kW] + (size_t)a.NL * dm.slice_layer() * sizeof(T));
 
   const T* pos = static_cast<const T*>(a.pos);
   const T* x0 = static_cast<const T*>(a.x0);
@@ -887,6 +1011,32 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
   const float* head = fln + 2 * D;
   const float* head_b = head + (size_t)V * D;
   const int Vb = dm.nb_head(), col_o = rank * (D / C), col_ff = rank * (FF / C);
+  const int col_v = rank * Vb, nq = dm.nb_qkv() / 3, wp = dm.wpad();
+  // Resident slices of layer l: qkv, o, ff1, ff2 (null: streamed from L2)
+  auto slice = [&](int l, int which) -> T* {
+    if (!a.resident) return nullptr;
+    T* w = s.w + (size_t)l * dm.slice_layer();
+    const size_t n[3] = {(size_t)3 * nq * (D + wp), (size_t)(D / C) * (D + wp),
+                         (size_t)(FF / C) * (D + wp)};
+    for (int i = 0; i < which; ++i) w += n[i];
+    return w;
+  };
+  if (a.resident) {
+    for (int l = 0; l < a.NL; ++l) {
+      const Layer<T> L = layer_weights<T>(a, l);
+      copy_slice(L.wqkv, D, 3 * nq, 1 << 30, [=](int j) {
+        const int p = j / nq;
+        return p * D + rank * nq + (j - p * nq);
+      }, slice(l, 0));
+      copy_slice(L.wo, D, D / C, 1 << 30, [=](int j) { return col_o + j; },
+                 slice(l, 1));
+      copy_slice(L.w1, D, FF / C, 1 << 30, [=](int j) { return col_ff + j; },
+                 slice(l, 2));
+      copy_slice(L.w2, FF, D / C, 1 << 30, [=](int j) { return col_o + j; },
+                 slice(l, 3));
+    }
+    copy_slice(head, D, Vb, V, [=](int j) { return col_v + j; }, s.whead);
+  }
 
   if (threadIdx.x < kMaxRows) {
     s.tok[threadIdx.x] = kSos;
@@ -919,12 +1069,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
         PH_END(kPhLN, tl);
         in = s.a;
       }
-      attention<T, HD>(a, L, in, l, t, row0, R, dm, rank, s);
+      attention<T, HD>(a, L, slice(l, 0), in, l, t, row0, R, dm, rank, s);
       cluster_sync();
       PH_BEGIN(to);
       // the residual stream x (pre-LN) or LN1's input a (post-LN) = round(x + attention)
-      dense_cluster(s.ctx, ld, R, D, L.wo, L.bo, col_o, D / C, false, s.x, a.pre_ln ? s.x : s.a,
-                    ld, s.part, C);
+      dense_cluster(s.ctx, ld, R, D, L.wo, slice(l, 1), L.bo, col_o, D / C, false, s.x,
+                    a.pre_ln ? s.x : s.a, ld, s.part, C);
       cluster_sync();
       PH_END(kPhO, to);
       PH_BEGIN(tn);
@@ -933,13 +1083,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
       block_sync();
       PH_END(kPhLN, tn);
       PH_BEGIN(t1);
-      dense_cluster(a.pre_ln ? s.a : s.x, ld, R, D, L.w1, L.b1, col_ff, FF / C, true,
-                    static_cast<const T*>(nullptr), s.hid, ldh, s.part, C);
+      dense_cluster(a.pre_ln ? s.a : s.x, ld, R, D, L.w1, slice(l, 2), L.b1, col_ff, FF / C,
+                    true, static_cast<const T*>(nullptr), s.hid, ldh, s.part, C);
       cluster_sync();
       PH_END(kPhFF1, t1);
       PH_BEGIN(t2);
-      dense_cluster(s.hid, ldh, R, FF, L.w2, L.b2, col_o, D / C, false, s.x, a.pre_ln ? s.x : s.a,
-                    ld, s.part, C);
+      dense_cluster(s.hid, ldh, R, FF, L.w2, slice(l, 3), L.b2, col_o, D / C, false, s.x,
+                    a.pre_ln ? s.x : s.a, ld, s.part, C);
       cluster_sync();
       PH_END(kPhFF2, t2);
       if (!a.pre_ln) {
@@ -968,9 +1118,12 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
     }
 
     PH_BEGIN(th);
-    const int col_v = rank * Vb;
     const bool sample = a.mode != kForced && a.mode != kGreedy;
-    product_fma(h, ld, R, D, head, V, Vb, [col_v](int j) { return col_v + j; }, s.part);
+    if (a.resident)
+      product_fma(h, ld, R, D, s.whead, D + kSlicePad / 4, Vb, Vb, [](int j) { return j; },
+                  s.part);
+    else
+      product_fma(h, ld, R, D, head, D, V, Vb, [col_v](int j) { return col_v + j; }, s.part);
     block_sync();
     finish(s.part, R, Vb, split_of(Vb / 8, D), [&](int r, int j, float acc) {
       const int col = col_v + j;
@@ -1009,14 +1162,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
 
 template <typename T, int HD>
 cudaError_t launch(const MstFusedDecodeArgs& a, cudaStream_t stream) {
-  const Dims dm = {a.rows, a.D, a.FF, a.V, a.D / a.H, a.H / a.cluster, a.cluster, (int)sizeof(T)};
+  const Dims dm = {a.rows, a.D, a.FF, a.V, a.D / a.H, a.H / a.cluster, a.cluster, (int)sizeof(T),
+                   a.NL, a.resident};
   const size_t smem = smem_layout(dm, nullptr);
   if (smem > 232448) return cudaErrorInvalidValue;
   void (*kernel)(const MstFusedDecodeArgs) = fused_decode_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err == cudaSuccess && a.cluster > 8)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(((a.B + a.rows - 1) / a.rows) * a.cluster));
@@ -1030,8 +1182,8 @@ cudaError_t launch(const MstFusedDecodeArgs& a, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, a);
+  return launched != cudaSuccess ? launched : cudaGetLastError();
 }
 
 }  // namespace
@@ -1039,10 +1191,9 @@ cudaError_t launch(const MstFusedDecodeArgs& a, cudaStream_t stream) {
 extern "C" int mst_fused_decode(const MstFusedDecodeArgs* a, void* stream) {
   const int hd = a->H >= 1 ? a->D / a->H : 0, C = a->cluster;
   const bool ok = a->B >= 1 && a->T >= 1 && a->H >= 1 && a->D % a->H == 0 && a->NL >= 1 &&
-                  (hd == 8 || hd == 16 || hd == 32 || hd == 64) && a->D % 32 == 0 &&
-                  a->FF % 32 == 0 && a->V >= 1 && a->V <= 32 * kMaxVLane && a->rows >= 1 &&
-                  a->rows <= kMaxRows && C >= 1 && C <= 16 && a->H % C == 0 &&
-                  a->D % (8 * C) == 0 && a->FF % (8 * C) == 0;
+                  a->D % 32 == 0 && a->FF % 32 == 0 && a->V >= 1 && a->V <= 32 * kMaxVLane &&
+                  a->rows >= 1 && a->rows <= kMaxRows && C >= 1 && C <= kMaxCluster &&
+                  a->H % C == 0 && a->D % (8 * C) == 0 && a->FF % (8 * C) == 0;
   if (!ok) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->is_bf16) {
@@ -1050,15 +1201,34 @@ extern "C" int mst_fused_decode(const MstFusedDecodeArgs* a, void* stream) {
       case 8: return (int)launch<__nv_bfloat16, 8>(*a, s);
       case 16: return (int)launch<__nv_bfloat16, 16>(*a, s);
       case 32: return (int)launch<__nv_bfloat16, 32>(*a, s);
-      default: return (int)launch<__nv_bfloat16, 64>(*a, s);
+      case 64: return (int)launch<__nv_bfloat16, 64>(*a, s);
+      default: return (int)launch<__nv_bfloat16, 0>(*a, s);
     }
   }
   switch (hd) {
     case 8: return (int)launch<float, 8>(*a, s);
     case 16: return (int)launch<float, 16>(*a, s);
     case 32: return (int)launch<float, 32>(*a, s);
-    default: return (int)launch<float, 64>(*a, s);
+    case 64: return (int)launch<float, 64>(*a, s);
+    default: return (int)launch<float, 0>(*a, s);
   }
+}
+
+// The clusters of `cluster` blocks the card runs at once (one block an SM:
+// a block's 256 threads at up to 255 registers fill an SM's register file).
+extern "C" int mst_fused_decode_clusters(int cluster, int* out) {
+  if (cluster < 1 || cluster > kMaxCluster) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3(kThreads);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(out, fused_decode_kernel<__nv_bfloat16, 32>, &cfg);
 }
 
 extern "C" const char* mst_cuda_error_string(int err) {

@@ -216,7 +216,7 @@ class _Args(ctypes.Structure):
         ("is_bf16", ctypes.c_int),
         ("top_p", ctypes.c_float), ("temperature", ctypes.c_float),
         ("scale", ctypes.c_float), ("head_scale", ctypes.c_float),
-        ("rows", ctypes.c_int), ("cluster", ctypes.c_int),
+        ("rows", ctypes.c_int), ("cluster", ctypes.c_int), ("resident", ctypes.c_int),
     ]
 
 
@@ -227,57 +227,126 @@ def _library() -> ctypes.CDLL:
         lib.mst_fused_decode.restype = ctypes.c_int
         lib.mst_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mst_cuda_error_string.restype = ctypes.c_char_p
+        lib.mst_fused_decode_clusters.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.mst_fused_decode_clusters.restype = ctypes.c_int
     return lib
 
 
+_held: Dict[int, Dict[int, int]] = {}
+
+
+def clusters_held(device: torch.device) -> Dict[int, int]:
+    """{cluster size: the clusters of that size the card runs at once} for
+    every size up to ``MAX_CLUSTER``, asked of the card once per device
+    (``cudaOccupancyMaxActiveClusters`` for the kernel)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _held:
+        lib = _library()
+        held = {}
+        with torch.cuda.device(index):
+            for c in range(1, MAX_CLUSTER + 1):
+                n = ctypes.c_int(0)
+                err = lib.mst_fused_decode_clusters(c, ctypes.byref(n))
+                if err != 0:
+                    raise RuntimeError("cudaOccupancyMaxActiveClusters failed: "
+                                       + lib.mst_cuda_error_string(err).decode())
+                held[c] = n.value
+        _held[index] = held
+    return _held[index]
+
+
 # ----------------------------------------------------------------------------
-# The plan: rows a group, blocks a cluster (a pure function of the shapes)
+# The plan: rows a group, blocks a cluster, weights resident or streamed (a
+# pure function of the shapes and of the clusters the card runs at once)
 
 _WARPS = 8  # kThreads / 32 of csrc/fused_decode.cu
 _MAX_ROWS, _LD_PAD, _MAX_VOCAB = 16, 8, 320
+MAX_CLUSTER = 8  # kMaxCluster of the source: the portable cluster size
 _SMEM_LIMIT = 232448 - 1024  # a block's shared memory, less the static part
-NUM_SMS = 132  # H100 SXM
-# Estimated rates for the cost model of ``plan`` (to be refined by
-# measurement, PERF.md): the bytes one SM streams from L2/HBM a second while
-# every SM does so, and the card's memory rate.
-_SM_BYTES_PER_S, _CARD_BYTES_PER_S = 50e9, 3.35e12
+# ``clusters_held`` of an H100 80GB HBM3 (scripts/k1-variants.py prints the
+# card's): the default of ``plan`` where no card is asked.
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+# Rates of the cost model of ``plan``, fitted to the H100's times of every
+# plan at the three recipe decoders (scripts/k1-variants.py plans; PERF.md):
+# the bytes one SM streams from L2/HBM a second while every SM does so, the
+# card's memory rate, and the time of a position's chain of dependent phases.
+_SM_BYTES_PER_S, _CARD_BYTES_PER_S, _POSITION_S = 20e9, 3.35e12, 30e-6
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_shapes(D: int, H: int, FF: int, V: int) -> None:
+    """Raise ValueError for a decoder the kernel does not take: the heads
+    must divide the model size (any head dimension), the products' inputs
+    come in pieces of 32 (D and FF multiples of 32, as every model whose
+    model size is a multiple of 128, the JAX kernel's own condition), and a
+    warp holds the vocabulary in 10 registers a lane (V <= 320; the MIDI
+    vocabulary is 293)."""
+    _require(H >= 1 and D % H == 0, f"model size {D} is not a multiple of the {H} heads")
+    _require(D % 32 == 0 and FF % 32 == 0,
+             f"model size {D} and FF {FF} must be multiples of 32")
+    _require(1 <= V <= _MAX_VOCAB, f"vocabulary {V} outside the kernel's [1, {_MAX_VOCAB}]")
 
 
 def _split_of(n_tiles: int, K: int) -> int:
     return 1 if n_tiles >= _WARPS else min(_WARPS // n_tiles, K // 32)
 
 
-def smem_bytes(rows: int, cluster: int, D: int, H: int, FF: int, V: int, esize: int) -> int:
+def _nb_head(V: int, cluster: int) -> int:
+    return ((V + cluster - 1) // cluster + 7) // 8 * 8
+
+
+def slice_bytes(cluster: int, D: int, FF: int, V: int, NL: int, esize: int) -> int:
+    """A block's resident weight slices (``Dims::slice_bytes`` in the
+    source): its rows of every layer's products, each padded by 64 bytes
+    (``kSlicePad``), and its float32 rows of the head."""
+    pad = 64 // esize
+    layer = ((3 * D + D + FF) // cluster * (D + pad)) + D // cluster * (FF + pad)
+    return NL * layer * esize + _nb_head(V, cluster) * (D + 16) * 4
+
+
+def smem_bytes(rows: int, cluster: int, D: int, H: int, FF: int, V: int, esize: int,
+               NL: int = 1, resident: bool = False) -> int:
     """Dynamic shared memory of a block (``smem_layout`` in the source)."""
     hd, hc = D // H, H // cluster
     nb = {"qkv": 3 * hc * hd, "o": D // cluster, "ff1": FF // cluster,
-          "head": ((V + cluster - 1) // cluster + 7) // 8 * 8}
+          "head": _nb_head(V, cluster)}
     part = max(_split_of(n // 8, k) * rows * n
                for n, k in ((nb["qkv"], D), (nb["o"], D), (nb["ff1"], D), (nb["o"], FF),
                             (nb["head"], D)))
     act = rows * (D + _LD_PAD) * esize
     sizes = [act, act, act, rows * (FF + _LD_PAD) * esize, rows * nb["qkv"] * 4,
              rows * V * 4, part * 4, rows * V * 4, _WARPS * 2 * 4, _WARPS * hd * 4,
-             _MAX_ROWS * 4, _MAX_ROWS * 4, _MAX_ROWS * 4]
+             _MAX_ROWS * 4, _MAX_ROWS * 4, _MAX_ROWS * 4,
+             slice_bytes(cluster, D, FF, V, NL, esize) if resident else 0]
     return sum((n + 15) // 16 * 16 for n in sizes)
 
 
 def plan(B: int, D: int, H: int, FF: int, V: int, NL: int, T: int, esize: int,
-         max_cluster: int = 8) -> Dict[str, object]:
+         held: Optional[Dict[int, int]] = None) -> Dict[str, object]:
     """How the kernel decodes B rows: groups of ``rows`` rows (the last one
-    ragged), each on a cluster of ``cluster`` blocks.
+    ragged), each on a cluster of ``cluster`` blocks, with each block's
+    weight slices ``resident`` in its shared memory or streamed from L2 at
+    every position. Raises ValueError for shapes the kernel does not take
+    (``check_shapes``).
 
-    The cluster is the largest size up to ``max_cluster`` (8: the portable
-    limit) that divides the heads and leaves every block whole 8-column
-    tiles. Rows a group trade weight reads (each group streams the whole
-    decoder each position) against the cache reads a block makes alone (its
-    rows x its heads), with as many clusters as the card runs at once: the
-    estimate of a position's time is the larger of a block's bytes at one
-    SM's rate and all blocks' bytes at the card's, times the waves of
-    clusters; the least estimate wins, a larger group on ties. Weights are
-    streamed from L2 at every position ("streamed")."""
+    The cluster is the largest size up to ``MAX_CLUSTER`` that divides the
+    heads and leaves every block whole 8-column tiles. Weights are resident
+    wherever a block's slices fit beside the group's buffers. Rows a group
+    trade the bytes each group reads a position (the decoder's weights
+    unless resident, and its rows' KV cache) against the clusters the card
+    runs at once: the estimate of a position's time is the chain of its
+    phases plus the larger of a block's bytes at one SM's rate and all
+    blocks' bytes at the card's, times the waves of clusters (``held``: the
+    clusters of each size the card runs at once, by default an H100's);
+    the least estimate wins, a larger group on ties."""
+    check_shapes(D, H, FF, V)
     hd = D // H
-    cluster = next(c for c in range(max_cluster, 0, -1)
+    cluster = next(c for c in range(MAX_CLUSTER, 0, -1)
                    if H % c == 0 and D % (8 * c) == 0 and FF % (8 * c) == 0)
     weights = NL * (4 * D * D + 2 * D * FF) * esize + D * V * 4
     keys = (T + 1) / 2  # mean keys a position attends to
@@ -285,28 +354,33 @@ def plan(B: int, D: int, H: int, FF: int, V: int, NL: int, T: int, esize: int,
     for r in range(1, min(_MAX_ROWS, B) + 1):
         groups = -(-B // r)
         rows = -(-B // groups)  # the same groups, balanced
-        if smem_bytes(rows, cluster, D, H, FF, V, esize) > _SMEM_LIMIT:
+        resident = smem_bytes(rows, cluster, D, H, FF, V, esize, NL, True) <= _SMEM_LIMIT
+        if not resident and smem_bytes(rows, cluster, D, H, FF, V, esize, NL) > _SMEM_LIMIT:
             continue
+        streamed = 0 if resident else weights
         cache_row = NL * H * keys * hd * esize * 3  # K read twice, V once
-        block = weights / cluster + rows * cache_row / cluster
-        card = groups * (weights + rows * cache_row)
-        waves = -(-groups * cluster // NUM_SMS)
-        est = waves * max(block / _SM_BYTES_PER_S, card / _CARD_BYTES_PER_S)
+        block = streamed / cluster + rows * cache_row / cluster
+        card = groups * (streamed + rows * cache_row)
+        waves = -(-groups // (held or H100_CLUSTERS)[cluster])
+        est = waves * (_POSITION_S + max(block / _SM_BYTES_PER_S, card / _CARD_BYTES_PER_S))
         if best is None or est <= best[0]:
-            best = (est, rows, groups)
+            best = (est, rows, groups, resident)
     if best is None:
         raise ValueError(f"no group of rows fits a block's shared memory at D={D}, FF={FF}")
-    _, rows, groups = best
+    _, rows, groups, resident = best
     return {"rows": rows, "cluster": cluster, "groups": groups, "blocks": groups * cluster,
-            "smem": smem_bytes(rows, cluster, D, H, FF, V, esize), "weights": "streamed"}
+            "resident": resident,
+            "smem": smem_bytes(rows, cluster, D, H, FF, V, esize, NL, resident)}
 
 
 def plan_for(model, B: int, T: int) -> Dict[str, object]:
-    """``plan`` at ``model``'s decoder shapes."""
+    """``plan`` at ``model``'s decoder shapes, on its card where it has one:
+    the plan ``fused_decode`` launches."""
     tc = model.decoder.config.transformer_config
+    held = clusters_held(model.device) if model.device.type == "cuda" else None
     return plan(B, tc.model_size, tc.num_heads, tc.model_size * tc.ffn_multiplier,
                 model.decoder.config.output_dim, tc.num_layers, T,
-                torch.finfo(model.compute_dtype).bits // 8)
+                torch.finfo(model.compute_dtype).bits // 8, held)
 
 
 # ----------------------------------------------------------------------------
@@ -412,11 +486,6 @@ def unpack_weights(pack: Dict[str, torch.Tensor], D: int, FF: int, NL: int, V: i
     return out
 
 
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
 def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
                  temperature: float = 1.0, mode: str = "sample",
                  forced_tokens: Optional[torch.Tensor] = None,
@@ -434,7 +503,8 @@ def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
     Returns (seqs [B, max_len] int32 with SOS at 0 and PAD after EOS,
     scores [B] float32), plus logits [B, max_len, V] float32 in
     ``"forced"`` mode (row 0 zeros). The kernel decodes the rows in the
-    groups and clusters of ``plan``.
+    groups and clusters of ``plan``, which also raises for a decoder the
+    kernel does not take (``check_shapes``).
     """
     if not x0.is_cuda:
         return fused_decode_reference(model, x0, max_len, seed, temperature,
@@ -471,11 +541,7 @@ def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
         step_bias = dec.step_bias(classes).contiguous()
 
     NL, FF, H = tc.num_layers, D * tc.ffn_multiplier, tc.num_heads
-    _require(D % H == 0 and D // H in (8, 16, 32, 64),
-             f"head dimension {D / H} is not one of 8, 16, 32, 64")
-    _require(D % 32 == 0 and FF % 32 == 0, f"model size {D} and FF {FF} must be multiples of 32")
-    _require(V <= _MAX_VOCAB, f"vocabulary {V} above the kernel's {_MAX_VOCAB}")
-    p = plan(B, D, H, FF, V, NL, T, x0.element_size())
+    p = plan(B, D, H, FF, V, NL, T, x0.element_size(), clusters_held(dev))
     pack = pack_weights(model)
     cache = torch.empty(NL * 2 * B * T * D, dtype=dt, device=dev)  # [NL, 2, B, H, T, D/H]
     seqs = torch.full((B, T), PAD_ID, dtype=torch.int32, device=dev)
@@ -497,7 +563,7 @@ def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
         top_k=int(top_k), is_bf16=int(dt == torch.bfloat16),
         top_p=float(top_p), temperature=float(temperature),
         scale=pack["scale"], head_scale=pack["head_scale"],
-        rows=p["rows"], cluster=p["cluster"],
+        rows=p["rows"], cluster=p["cluster"], resident=int(p["resident"]),
     )
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,29 +1,36 @@
 #!/usr/bin/env python3
-"""Where K1's time goes, by phase: clock64() sums on the card.
+"""Where K1's time goes, by phase: clock64() sums on the card; and K1 on
+the serving path's own inputs.
 
     python3 scripts/k1-phases.py [TREE ...]
+    python3 scripts/k1-phases.py --serving [TREE ...]
 
 TREE is the root of a checkout of this repository (default: this one); give
-two to compare, e.g. a parent unpacked with ``git archive`` under build/.
-For each tree the script builds that tree's ``fused_decode.cu`` with timing
-probes into build/phases/ and runs that tree's ``fused_decode`` wrapper at
-three shapes: the canonical decoder (B=64, T=130, bf16, sample), the wide
-decoder (16 rows, D=512 x 2, 16 heads, pre-LN, T=1026, greedy) and the long
-decoder (16 rows, D=256 x 2, 8 heads, post-LN, per_step, T=4094, greedy),
-all with seeded weights. A source that defines the probes itself (the
-``MST_K1_PHASES`` macros) is compiled with them on; the one-block-per-row
-source (the design before rows in groups), which has none, gets them by
-text substitution first.
+several to compare, e.g. a parent unpacked with ``git archive`` under
+build/, in turns (parent, change, change, parent).
 
-Each phase's sum is taken by thread 0 of every block and summed over the
-blocks; printed as the mean per block, as a share of the block's whole run,
-and as ms of the launch (the share times the launch's CUDA-event time, one
-launch without probes timed beside it). Phase names: the products (qkv, o,
-ff1, ff2, head), attention (scores, softmax, P.V; the grouped kernel's
-first pass counts as scores and its second as P.V), LayerNorm, residual
-adds, embedding, token choice; "block barriers" and "cluster barriers" are
-the waits inside __syncthreads and the cluster barrier, already counted in
-the phase they end.
+By default, for each tree the script builds that tree's ``fused_decode.cu``
+with its timing probes on (``-DMST_K1_PHASES``) into build/phases/ and runs
+that tree's ``fused_decode`` wrapper at three shapes: the canonical decoder
+(B=64, T=130, bf16, sample), the wide decoder (16 rows, D=512 x 2, 16
+heads, pre-LN, T=1026, greedy) and the long decoder (16 rows, D=256 x 2, 8
+heads, post-LN, per_step, T=4094, greedy), all with seeded weights. Each
+phase's sum is taken by thread 0 of every block and summed over the blocks;
+printed as the mean per block, as a share of the block's whole run, and as
+ms of the launch (the share times the launch's CUDA-event time, one launch
+without probes timed beside it). Phase names: the products (qkv, o, ff1,
+ff2, head), attention (scores, softmax, P.V; the first pass over the keys
+counts as scores and the second as P.V), LayerNorm, token choice; "block
+barriers" and "cluster barriers" are the waits inside __syncthreads and the
+cluster barrier, already counted in the phase they end.
+
+With ``--serving``, each tree's own package loads the shipped
+models/guitar_bass export on the card, encodes the first batch of
+work/data/guitar_bass (32 sources, L=64) into both classes, and times that
+tree's ``fused_decode`` at B=64, T=130, bf16, sample mode, seed 5: the mean
+of 50 launches by CUDA events after one warm-up, twice.
+
+Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -32,7 +39,6 @@ import ctypes
 import hashlib
 import importlib
 import os
-import re
 import subprocess
 import sys
 import time
@@ -43,98 +49,24 @@ PHASES = ["qkv", "scores", "softmax", "P.V", "o", "LayerNorm", "ff1", "ff2", "re
           "head", "token choice", "embedding", "whole run", "block barriers",
           "cluster barriers", "spare"]
 
-PROBES = r"""
-__shared__ unsigned long long mst_ph[16];
-__device__ unsigned long long mst_ph_total[16];
-__device__ __forceinline__ void mst_sync() {
-  const unsigned long long t0 = clock64();
-  __syncthreads();
-  if (threadIdx.x == 0) mst_ph[13] += clock64() - t0;
-}
-#define PH(i, stmt) do { const unsigned long long _p0 = clock64(); stmt; \
-  if (threadIdx.x == 0) mst_ph[i] += clock64() - _p0; } while (0)
-"""
-
-READERS = r"""
-extern "C" int mst_phase_read(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, mst_ph_total, sizeof(mst_ph_total));
-}
-extern "C" int mst_phase_reset() {
-  static const unsigned long long zero[16] = {0};
-  return (int)cudaMemcpyToSymbol(mst_ph_total, zero, sizeof(zero));
-}
-"""
-
-
-def _sub(text: str, old: str, new: str, count: int = 1) -> str:
-    n = text.count(old)
-    if n != count:
-        raise SystemExit(f"probe patch: {old[:60]!r} found {n} times, expected {count}")
-    return text.replace(old, new)
-
-
-def patch_one_block_per_row(src: str) -> str:
-    """Timing probes for the one-block-per-row kernel (a block a batch row)."""
-    src = src.replace("__syncthreads()", "mst_sync()")
-    src = _sub(src, "namespace {\n", "namespace {\n" + PROBES) + READERS
-    src = _sub(src, "  dense<T>(in, L.wqkv, L.bqkv, D, 3 * D, s.qkv, s.scratch, false);",
-               "  PH(0, (dense<T>(in, L.wqkv, L.bqkv, D, 3 * D, s.qkv, s.scratch, false)));\n"
-               "  unsigned long long _ts = clock64();")
-    mark = "  if (threadIdx.x == 0) mst_ph[{i}] += clock64() - _ts; _ts = clock64();\n"
-    src = _sub(src, "a.head_scale);\n  }\n  mst_sync();\n",
-               "a.head_scale);\n  }\n  mst_sync();\n" + mark.format(i=1))
-    src = _sub(src, "rnd<T>(row[tau] / sum);\n  }\n  mst_sync();\n",
-               "rnd<T>(row[tau] / sum);\n  }\n  mst_sync();\n" + mark.format(i=2))
-    src = _sub(src, "  mst_sync();\n  dense<T>(s.ctx, L.wo, L.bo, D, D, s.y, s.scratch, false);",
-               "  mst_sync();\n" + mark.format(i=3)
-               + "  PH(4, (dense<T>(s.ctx, L.wo, L.bo, D, D, s.y, s.scratch, false)));")
-    for i, pat in ((5, r"layer_norm<T>\(.*\)"), (6, r"dense<T>\(s\.[ax], L\.w1.*\)"),
-                   (7, r"dense<T>\(s\.hid, L\.w2.*\)"), (8, r"residual<T>\(.*\)")):
-        src, n = re.subn(r"^(\s+)(" + pat + r");$", rf"\1PH({i}, (\2));", src, flags=re.M)
-        want = {5: 5, 6: 2, 7: 2, 8: 4}[i]
-        if n != want:
-            raise SystemExit(f"probe patch: phase {PHASES[i]} matched {n} lines, expected {want}")
-    src = _sub(src, "  const int D = a.D, T_ = a.T, V = a.V;\n",
-               "  const int D = a.D, T_ = a.T, V = a.V;\n"
-               "  if (threadIdx.x < 16) mst_ph[threadIdx.x] = 0;\n  __syncthreads();\n"
-               "  const unsigned long long _tk = clock64();\n")
-    src = _sub(src, "    const int tok = s_tok;\n",
-               "    unsigned long long _te = clock64();\n    const int tok = s_tok;\n")
-    src = _sub(src, "    mst_sync();\n    const float* h = run_stack<T>(a, b, t, s);\n"
-               "    gemv(h, fhead, D, V, s.lg, s.scratch);\n",
-               "    mst_sync();\n    if (tid == 0) mst_ph[11] += clock64() - _te;\n"
-               "    const float* h = run_stack<T>(a, b, t, s);\n    _te = clock64();\n"
-               "    gemv(h, fhead, D, V, s.lg, s.scratch);\n")
-    src = _sub(src, "    int nxt;\n",
-               "    if (tid == 0) mst_ph[9] += clock64() - _te;\n    _te = clock64();\n    int nxt;\n")
-    src = _sub(src, "    mst_sync();\n    if (s_done) break;\n",
-               "    mst_sync();\n    if (tid == 0) mst_ph[10] += clock64() - _te;\n"
-               "    if (s_done) break;\n")
-    src = _sub(src, "  if (tid == 0) static_cast<float*>(a.scores)[b] = score;\n",
-               "  if (tid == 0) {\n    static_cast<float*>(a.scores)[b] = score;\n"
-               "    mst_ph[12] = clock64() - _tk;\n"
-               "    for (int i = 0; i < 16; ++i) atomicAdd(&mst_ph_total[i], mst_ph[i]);\n  }\n")
-    return src
-
 
 def build(tree: str) -> ctypes.CDLL:
-    sys.path.insert(0, tree)
     from musicstyletransfer_torch.ops import _build
 
     with open(os.path.join(tree, "musicstyletransfer_torch", "ops", "csrc", "fused_decode.cu")) as f:
         src = f.read()
-    flags = list(_build.NVCC_FLAGS)
-    if "MST_K1_PHASES" in src:
-        flags.append("-DMST_K1_PHASES")
-    else:
-        src = patch_one_block_per_row(src)
+    if "MST_K1_PHASES" not in src:
+        raise SystemExit(f"{tree}: fused_decode.cu has no timing probes (MST_K1_PHASES)")
+    flags = [*_build.NVCC_FLAGS, "-DMST_K1_PHASES"]
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "build", "phases")
     os.makedirs(out_dir, exist_ok=True)
     tag = hashlib.sha256((src + " ".join(flags)).encode()).hexdigest()[:12]
     cu, so = os.path.join(out_dir, f"k1-{tag}.cu"), os.path.join(out_dir, f"k1-{tag}.so")
+    if os.path.exists(so):
+        return ctypes.CDLL(so)
     with open(cu, "w") as f:
         f.write(src)
-    # the patched copy includes headers of the tree's csrc/ by their names
+    # the copy includes headers of the tree's csrc/ by their names
     inc = ["-I", os.path.join(tree, "musicstyletransfer_torch", "ops", "csrc")]
     t0 = time.perf_counter()
     proc = subprocess.run([_build.find_nvcc(), *flags, *inc, "-o", so, cu],
@@ -145,18 +77,64 @@ def build(tree: str) -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
-def main(trees) -> None:
+def use_tree(tree: str) -> None:
+    """Import ``musicstyletransfer_torch`` from ``tree`` from now on."""
+    for mod in [m for m in sys.modules if m.startswith("musicstyletransfer_torch")]:
+        del sys.modules[mod]
+    for other in [p for p in sys.path
+                  if os.path.isdir(os.path.join(p, "musicstyletransfer_torch"))]:
+        sys.path.remove(other)
+    sys.path.insert(0, tree)
+
+
+def time_launches(fn, n: int) -> float:
     import torch
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
-    print(f"card: {card}", flush=True)
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def serving(trees) -> None:
+    import torch
+
+    repo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
     for tree in trees:
-        tree = os.path.abspath(tree)
-        for mod in [m for m in sys.modules if m.startswith("musicstyletransfer_torch")]:
-            del sys.modules[mod]
-        while tree in sys.path:
-            sys.path.remove(tree)
+        use_tree(tree)
+        data = importlib.import_module("musicstyletransfer_torch.data")
+        decode = importlib.import_module("musicstyletransfer_torch.inference.decode")
+        sampler = importlib.import_module("musicstyletransfer_torch.inference.sampler")
+        fd = importlib.import_module("musicstyletransfer_torch.ops.fused_decode")
+        loader = data.Loader(os.path.join(repo, "work", "data", "guitar_bass"), 64)
+        batch = next(iter(data.MelodyDataset(32, loader.max_sequence_length, loader.melodies)))
+        model = sampler.load_inference_model(os.path.join(repo, "models", "guitar_bass"), -1,
+                                             torch.device("cuda"))
+        tokens = torch.as_tensor(batch.tokens, dtype=torch.long).cuda()
+        seq_lens = torch.as_tensor(batch.seq_lens, dtype=torch.long).cuda()
+        with torch.inference_mode():
+            classes = torch.arange(2, device="cuda").repeat_interleave(tokens.shape[0])
+            z = decode._encode_deterministic(model, tokens.repeat(2, 1), seq_lens.repeat(2),
+                                             classes)
+            x0 = model.decode_init(z, classes).contiguous()
+        ms = [time_launches(lambda: fd.fused_decode(model, x0, 130, 5), 50) for _ in range(2)]
+        seqs, _ = fd.fused_decode(model, x0, 130, 5)
+        steps = int((seqs != 0).sum(1).max())
+        print(f"{tree}: K1 B=64 T=130 bf16 sample on the shipped model: {ms[0]:.4f} / "
+              f"{ms[1]:.4f} ms a launch (longest row {steps} tokens; plan "
+              f"{fd.plan_for(model, 64, 130)})", flush=True)
+
+
+def phases(trees) -> None:
+    import torch
+
+    for tree in trees:
+        use_tree(tree)
         timed_lib = build(tree)
         fd = importlib.import_module("musicstyletransfer_torch.ops.fused_decode")
         models = importlib.import_module("musicstyletransfer_torch.models")
@@ -188,14 +166,8 @@ def main(trees) -> None:
                 return fd.fused_decode(model, x0, steps, 5, mode=mode, classes=classes)
 
             fd._build._loaded["fused_decode"] = plain_lib
-            run()
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
+            ms = time_launches(run, 1)
             seqs, _ = run()
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end)
             fd._build._loaded["fused_decode"] = timed_lib
             timed_lib.mst_phase_reset()
             seqs2, _ = run()
@@ -203,8 +175,7 @@ def main(trees) -> None:
             fd._build._loaded["fused_decode"] = plain_lib
             sums = (ctypes.c_ulonglong * 16)()
             timed_lib.mst_phase_read(sums)
-            # the grouped kernel's blocks; one a row before it
-            nblocks = fd.plan_for(model, rows, steps)["blocks"] if hasattr(fd, "plan_for") else rows
+            nblocks = fd.plan_for(model, rows, steps)["blocks"]
             whole = sums[12] / nblocks
             same = bool(torch.equal(seqs, seqs2))
             print(f"{label}: {rows} rows, T={steps}, {mode}, bf16; launch {ms:.3f} ms without "
@@ -219,4 +190,10 @@ def main(trees) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or [os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")])
+    args = sys.argv[1:]
+    mode = serving if args[:1] == ["--serving"] else phases
+    trees = [os.path.abspath(t) for t in args[mode is serving:]]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"card: {card}", flush=True)
+    mode(trees or [os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))])

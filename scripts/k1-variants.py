@@ -9,7 +9,8 @@ Builds csrc/fused_decode.cu as the package does and launches it at the
 three recipe decoders with seeded bf16 weights (the canonical decoder, 64
 rows, T=130, sample; the wide decoder, 16 rows, T=1026, greedy; the long
 decoder, 16 rows, T=4094, greedy; every row runs to max_len) under every
-(rows a group, blocks a cluster) in a grid, the planned one marked. Prints
+(rows a group, blocks a cluster, weights resident or streamed) that fits a
+block's shared memory, the planned one marked. Prints
 each plan's ms a launch (CUDA events, the mean of ``REPS`` launches after
 one warm-up) and whether its tokens equal the planned launch's (groups and clusters change the order of some float32
 sums, so in bf16 a token may flip where two logits nearly tie).
@@ -136,47 +137,52 @@ def sources() -> None:
 
 
 def plans() -> None:
-    planned = fd.plan
+    planned, max_cluster = fd.plan, fd.MAX_CLUSTER
     for label, dec, latent, rows, steps, cond, mode in SHAPES:
         model, x0, classes = shape_model(dec, latent, rows, cond)
         chosen = fd.plan_for(model, rows, steps)
-        shape = (rows, dec["model_size"], dec["num_heads"], 4 * dec["model_size"], 293,
-                 dec["num_layers"], steps, 2)
+        D, H, NL = dec["model_size"], dec["num_heads"], dec["num_layers"]
+        shape = (rows, D, H, 4 * D, 293, NL, steps, 2)
 
         def run():
             return fd.fused_decode(model, x0, steps, 5, mode=mode, classes=classes)
 
-        fd.plan = planned
         want, _ = run()
-        print(f"== {label}: {rows} rows, T={steps}, {mode}, bf16; planned {chosen}", flush=True)
+        print(f"== {label}: {rows} rows, T={steps}, {mode}, bf16; planned {chosen}; clusters "
+              f"the card runs at once {fd.clusters_held(x0.device)}", flush=True)
         # one block a group only where the whole decoder is small
-        clusters = [c for c in ((1,) if label == "canonical" else ()) + (2, 4, 8, 16)
-                    if dec["num_heads"] % c == 0]
-        for c in clusters:
-            for r in (1, 2, 4, 8, 16):
-                if r > rows:
-                    continue
-                try:
-                    p = planned(*shape, max_cluster=c)
-                except ValueError:
-                    continue
-                if p["cluster"] != c:
-                    continue
-                p = {**p, "rows": r, "groups": -(-rows // r), "blocks": -(-rows // r) * c}
-                fd.plan = lambda *a, _p=p, **k: _p
-                try:
-                    ms = time_launch(run, REPS)
-                    got, _ = run()
-                    torch.cuda.synchronize()
-                except RuntimeError as exc:
-                    print(f"  rows {r:2d} cluster {c:2d}: {exc}", flush=True)
-                    continue
-                finally:
-                    fd.plan = planned
-                mark = " <- planned" if (r, c) == (chosen["rows"], chosen["cluster"]) else ""
-                print(f"  rows {r:2d} cluster {c:2d} groups {p['groups']:3d}: {ms:10.3f} ms a launch, "
-                      f"tokens as planned {float((got == want).all(1).float().mean()):.3f}{mark}",
-                      flush=True)
+        for c in ((1,) if label == "canonical" else ()) + (2, 4, 8):
+            fd.MAX_CLUSTER = c
+            try:
+                base = planned(*shape)
+            finally:
+                fd.MAX_CLUSTER = max_cluster
+            if base["cluster"] != c:
+                continue
+            for r in sorted({1, 2, 4, 8, 16, chosen["rows"]}):
+                for resident in (False, True):
+                    smem = fd.smem_bytes(r, c, D, H, 4 * D, 293, 2, NL, resident)
+                    if r > rows or smem > fd._SMEM_LIMIT:
+                        continue
+                    g = -(-rows // r)
+                    p = {**base, "rows": r, "groups": g, "blocks": g * c, "resident": resident,
+                         "smem": smem}
+                    fd.plan = lambda *a, _p=p, **k: _p
+                    try:
+                        ms = time_launch(run, REPS)
+                        got, _ = run()
+                        torch.cuda.synchronize()
+                    except RuntimeError as exc:
+                        print(f"  rows {r:2d} cluster {c} resident {resident:d}: {exc}", flush=True)
+                        continue
+                    finally:
+                        fd.plan = planned
+                    mark = " <- planned" if (r, c, resident) == (
+                        chosen["rows"], chosen["cluster"], chosen["resident"]) else ""
+                    same = float((got == want).all(1).float().mean())
+                    print(f"  rows {r:2d} cluster {c} resident {resident:d} groups {g:3d}: "
+                          f"{ms:10.3f} ms a launch, tokens as planned {same:.3f}{mark}",
+                          flush=True)
 
 
 if __name__ == "__main__":

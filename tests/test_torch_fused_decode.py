@@ -321,8 +321,8 @@ DECODERS = {"canonical": (128, 8, 512, 1, 130), "wide": (512, 16, 2048, 2, 1026)
 
 
 class TestPlan:
-    """``plan``: how the CUDA kernel groups rows into clusters (no kernel is
-    built)."""
+    """``plan``: how the CUDA kernel groups rows into clusters and whether
+    the weights stay resident (no kernel is built)."""
 
     @pytest.mark.parametrize("esize", [2, 4])
     @pytest.mark.parametrize("B", [1, 3, 17, 64, 256])
@@ -335,20 +335,44 @@ class TestPlan:
         covered = [r for g in range(G) for r in range(g * rows, min((g + 1) * rows, B))]
         assert covered == list(range(B))  # each row once, the last group ragged, none empty
         assert (G - 1) * rows < B
-        assert H % C == 0 and D % (8 * C) == 0 and FF % (8 * C) == 0 and C <= 8
-        assert p["smem"] == fd.smem_bytes(rows, C, D, H, FF, 293, esize) <= 232448 - 1024
-        assert p["weights"] == "streamed"
+        assert H % C == 0 and D % (8 * C) == 0 and FF % (8 * C) == 0 and C <= fd.MAX_CLUSTER
+        assert p["smem"] == fd.smem_bytes(rows, C, D, H, FF, 293, esize, NL, p["resident"])
+        assert p["smem"] <= 232448 - 1024
 
     @pytest.mark.parametrize("decoder,B,want", [
-        ("canonical", 64, (8, 8, 8)), ("wide", 16, (2, 8, 8)), ("long", 16, (2, 8, 8))])
+        ("canonical", 64, (5, 8, 13, True)), ("wide", 16, (2, 8, 8, False)),
+        ("long", 16, (2, 8, 8, False))])
     def test_the_recipes_plans(self, decoder, B, want):
         D, H, FF, NL, T = DECODERS[decoder]
         p = fd.plan(B, D, H, FF, 293, NL, T, 2)
-        assert (p["rows"], p["cluster"], p["groups"]) == want
+        assert (p["rows"], p["cluster"], p["groups"], p["resident"]) == want
+
+    def test_resident_only_where_the_slices_fit(self):
+        # the canonical decoder's slices: 0.54 MB over 8 blocks
+        assert fd.slice_bytes(8, 128, 512, 293, 1, 2) == 81408
+        # the long decoder's 3.4 MB over 8 blocks do not fit a block
+        assert fd.slice_bytes(8, 256, 1024, 293, 2, 2) > 232448
+        assert fd.smem_bytes(4, 8, 128, 8, 512, 293, 2, 1, True) == (
+            fd.smem_bytes(4, 8, 128, 8, 512, 293, 2, 1) + 81408)
 
     def test_float32_wide_group_fits_shared_memory(self):
         assert fd.smem_bytes(16, 8, 512, 16, 2048, 293, 4) > 232448 - 1024
         assert fd.plan(16, 512, 16, 2048, 293, 2, 32, 4)["smem"] <= 232448 - 1024
+
+    @pytest.mark.parametrize("D,H,C", [(512, 4, 4), (384, 16, 8), (96, 8, 4), (384, 32, 8)])
+    def test_any_head_dimension(self, D, H, C):
+        """Head dimensions 128, 24, 12 (and 12 with 32 heads) take the
+        kernel's run-time head dimension."""
+        p = fd.plan(16, D, H, 4 * D, 293, 2, 64, 2)
+        assert p["cluster"] == C and H % C == 0
+
+    @pytest.mark.parametrize("D,H,FF,V,match", [
+        (100, 4, 400, 293, "multiples of 32"), (128, 8, 400, 293, "multiples of 32"),
+        (128, 3, 512, 293, "not a multiple of the 3 heads"), (128, 8, 512, 321, "vocabulary 321"),
+        (128, 8, 512, 0, "vocabulary 0")])
+    def test_shapes_the_kernel_does_not_take(self, D, H, FF, V, match):
+        with pytest.raises(ValueError, match=match):
+            fd.plan(8, D, H, FF, V, 1, 16, 2)
 
 
 class TestPack:

@@ -115,7 +115,8 @@ def test_grouped_kernel_with_partly_empty_groups(cuda, B, rows, monkeypatch):
     forced = torch.as_tensor(rng.integers(3, 293, (B, 24)), dtype=torch.int32, device=cuda)
     if rows is not None:
         planned = fd.plan
-        monkeypatch.setattr(fd, "plan", lambda *a, **k: {**planned(*a, **k), "rows": rows})
+        monkeypatch.setattr(fd, "plan", lambda *a, **k: {**planned(*a, **k), "rows": rows,
+                                                         "resident": False})
     launches = fd.fused_decode.launches
     _, ks, kl = fd.fused_decode(model, x0, 24, 0, mode="forced", forced_tokens=forced,
                                 classes=classes)
@@ -183,6 +184,61 @@ def test_recipe_decoders_at_short_length(cuda, label, dtype):
     assert float((kl - pl).abs().max()) <= (1e-3 if dtype == "float32" else 0.15)
     if dtype == "float32":
         assert torch.equal(kseq, pseq)
+
+
+def check_against_plain(model, x0, classes, rng, T, dtype):
+    """Forced logits within 1e-3 (float32) or 0.15 (bf16) of the plain
+    version's; float32 greedy and same-seed sampled tokens identical."""
+    B = x0.shape[0]
+    forced = torch.as_tensor(rng.integers(3, 293, (B, T)), dtype=torch.int32, device=x0.device)
+    _, _, kl = fd.fused_decode(model, x0, T, 0, mode="forced", forced_tokens=forced,
+                               classes=classes)
+    kseq, _ = fd.fused_decode(model, x0, T, 0, mode="greedy", classes=classes)
+    sseq, _ = fd.fused_decode(model, x0, T, 3, top_k=40, classes=classes)
+    _, _, pl = fd.fused_decode_reference(model, x0, T, 0, mode="forced", forced_tokens=forced,
+                                         classes=classes)
+    pseq, _ = fd.fused_decode_reference(model, x0, T, 0, mode="greedy", classes=classes)
+    rseq, _ = fd.fused_decode_reference(model, x0, T, 3, top_k=40, classes=classes)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(kl).all())
+    assert float((kl - pl).abs().max()) <= (1e-3 if dtype == "float32" else 0.15)
+    if dtype == "float32":
+        assert torch.equal(kseq, pseq)
+        assert torch.equal(sseq, rseq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H", [(512, 4), (96, 4), (96, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_any_head_dimension(cuda, D, H, dtype):
+    """Head dimensions 128, 24 and 12 take the kernel's run-time head
+    dimension (scalar cache loads, P.V in pieces of 32 dimensions); 17 rows
+    over 40 positions reach attention split over key ranges too."""
+    dec = TransformerConfig(model_size=D, num_layers=2, num_heads=H, norm_scheme="pre")
+    model = decoder_model(dec, 32, "per_step", dtype, cuda)
+    x0, classes, rng = decode_init(model, 17, 32, cuda, seed=D + H)
+    check_against_plain(model, x0, classes, rng, 40, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resident_and_streamed_weights(cuda, dtype, resident, monkeypatch):
+    """The canonical decoder (D=128 x 1, 8 heads) with every block's weight
+    slices resident in shared memory, and streamed from L2, both against
+    the plain version; 17 rows in groups of 4."""
+    dec = TransformerConfig(model_size=128, num_layers=1, num_heads=8)
+    model = decoder_model(dec, 32, "initial", dtype, cuda)
+    x0, classes, rng = decode_init(model, 17, 32, cuda, seed=11)
+    planned = fd.plan
+
+    def plan(*a, **k):
+        p = {**planned(*a, **k), "rows": 4, "groups": 5, "blocks": 40, "resident": resident}
+        assert fd.smem_bytes(4, 8, 128, 8, 512, 293, a[7], 1, resident) <= fd._SMEM_LIMIT
+        return p
+
+    monkeypatch.setattr(fd, "plan", plan)
+    check_against_plain(model, x0, classes, rng, 30, dtype)
 
 
 @pytest.mark.gpu
