@@ -21,7 +21,10 @@
    generation-health probe and cli.sample decode 16), checked and timed
    beside its bound. K1 decodes rows in groups on thread-block clusters;
    every line names the plan (rows a group, blocks a cluster, weights
-   resident or streamed) it checked and ran.
+   resident or streamed) it checked and ran. Also at two decoders whose
+   widths K1 pads or whose vocabulary outgrows its registers (D=100, H=4,
+   FF=400, V=293; D=128, H=8, FF=512, V=400), float32 and bf16, each timed
+   once.
 4. Holds K2 and K3 against their plain versions at the wide training shapes
    (B=8, H=16; encoder T=513, hd=64; decoder T=514, hd=32, causal), with
    ragged key lengths (one row 1, one row 0), and at two short lengths that
@@ -38,12 +41,18 @@
    too, and K5 at 1e19 cotangents; bfloat16 goes through the tensor-core
    kernels and float32 through the CUDA-core ones, and a second run of K5
    gives the same bits.
-6. Serving path: the shipped models/guitar_bass export through
+6. CUDA graphs of N training steps (training/graph.py) against 2N eager
+   steps from one seeded state, at the canonical (N=8, and N=2 with
+   --remat), wide (N=4) and long (N=1) recipes: parameters, optimizer
+   state, step count, metric sums and generator bit for bit, and the same
+   launch counts (the counters count every replay's launches).
+   Serving path: the shipped models/guitar_bass export through
    Sampling.process_dataset on the first two batches of work/data/guitar_bass
    (batch 32, L=64); the MIDI parses back, the decode went through K1 only.
 7. Wide training path: musicstyletransfer_torch.cli.main with
    scripts/train-vae-wide.sh's flags (L=512, batch 8, bf16, pre-LN, the
-   attention core) for two epochs with a checkpoint after each; a copy of
+   attention core; each group of 4 steps one CUDA-graph replay) for two
+   epochs with a checkpoint after each; a copy of
    the run resumed from the first checkpoint for one epoch, whose first
    logged step must equal the uninterrupted run's; cli.sample on the
    resumed checkpoint, whose MIDI parses back. Loss and gradient norm stay
@@ -51,19 +60,26 @@
    step, every K2 and K3 launch on the tensor-core kernels, and no plain
    version runs on the card.
 8. Long training path: cli.main with scripts/train-vae-long.sh's flags
-   (L=2046, batch 4, post-LN, per_step, --ring-attention --tp 1) for two
-   epochs (24 steps) with a checkpoint after each, then cli.sample on the
+   (L=2046, batch 4, post-LN, per_step, --ring-attention --tp 1; each step
+   one graph replay) for two epochs (24 steps) with a checkpoint after
+   each, then cli.sample on the
    checkpoint at max_len 4094, whose MIDI parses back. K5 runs on every
    attention layer of every step, every K4 and K5 launch on the tensor-core
    kernels, K2/K3 never, no plain version on the card; loss and gradient
    norm finite, no update skipped.
+   Canonical path: cli.main with scripts/train-vae.sh's flags (B=32,
+   L=64, groups of 8 steps: one graph replay each, the epoch's remainder
+   a graph of its own) for two epochs; cli.evaluate --transfer-stats on
+   the folder it wrote; cli.sample with beam search and with sampling on
+   it (two files of the corpus).
 9. Times (CUDA events, beside the card's name and power limit): the serving
    transfer, K1 against its plain loop, p50 MIDI->MIDI latency; K2/K3 at
    both wide shapes and K4/K5 at both long shapes and at T=8192 beside their
    bounds, their plain versions and torch's scaled_dot_product_attention,
-   and their wrappers' host time a call; the wide and the long training
-   step, their target tokens per second and the attention kernels' share of
-   them (torch.profiler).
+   and their wrappers' host time a call; the canonical, wide and long
+   training steps, eager and as graph replays: ms a step, target tokens per
+   second, and from torch.profiler the kernels' ms a step, the device's busy
+   share, kernels and host ops a step and the attention kernels' share.
 
 Exits non-zero on any failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -139,6 +155,9 @@ FLASH_SHORT = (("short", 333, 32, False, [333, 129, 1, 0]),
 # A resumed run's first logged step against the uninterrupted run's: the same
 # batch, parameters, optimizer state and random numbers; bf16 tolerance.
 TOL_RESUME_REL = 1e-2
+# A CUDA graph of N steps against N eager steps from one state: the same
+# kernels on the same inputs in the same order, so bit for bit.
+TOL_GRAPH_REL = 0.0
 # Peak rates of one H100 SXM (NVIDIA's data sheet).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -172,7 +191,8 @@ def seeded_model(dtype: str, norm_scheme: str = "post",
 
 def decode_inputs(model, rows: int, seed: int):
     g = np.random.default_rng(seed)
-    z = torch.as_tensor(g.normal(size=(rows, 256)), dtype=torch.float32).cuda()
+    latent = model.config.decoder_config.latent_dim
+    z = torch.as_tensor(g.normal(size=(rows, latent)), dtype=torch.float32).cuda()
     classes = torch.as_tensor(g.integers(0, 2, rows)).cuda()
     with torch.inference_mode():
         x0 = model.decode_init(z, classes).contiguous()
@@ -286,6 +306,77 @@ def check_kernel(dtype: torch.dtype, fd, decode) -> float:
     log(f"[{name}] pre-LN + per_step, 2 layers: forced max|err| {perr:.3g}, "
         f"greedy {same:.3f} of rows identical")
     return err
+
+
+# Decoders whose widths K1 pads (model size 100 with heads of 25, FF 400) or
+# whose vocabulary outgrows the token choice's registers (400 > 320):
+# (label, model size, heads, FF multiplier, vocabulary).
+LIFTED = (("D=100/H=4/FF=400/V=293", 100, 4, 4, 293), ("D=128/H=8/FF=512/V=400", 128, 8, 4, 400))
+
+
+def check_lifted(fd, decode, dtype: torch.dtype) -> float:
+    """K1 against its plain version at the ``LIFTED`` decoders (64 rows,
+    T=130, seeded weights, pre-LN and per-step conditioning on the second):
+    forced logits within ``TOL_LOGITS``; greedy and same-seed sampled tokens
+    identical (both round at the same places; these seeds' logits keep every
+    choice clear of a bf16 tie); top-k/top-p samples inside the plain
+    support; each timed once (greedy). Returns the forced logits' largest
+    abs error."""
+    from musicstyletransfer_torch.models import (
+        DecoderConfig, EncoderConfig, ModelConfig, StyleVAE, TransformerConfig)
+
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    worst = 0.0
+    for i, (label, D, H, mult, V) in enumerate(LIFTED):
+        dec = TransformerConfig(model_size=D, num_heads=H, ffn_multiplier=mult, vocab_size=V,
+                                norm_scheme="pre" if i else "post")
+        cfg = ModelConfig(
+            encoder_config=EncoderConfig(transformer_config=TransformerConfig(model_size=64),
+                                         latent_dim=64, input_dim=V),
+            decoder_config=DecoderConfig(transformer_config=dec, latent_dim=64, output_dim=V,
+                                         class_conditioning="per_step" if i else "initial"),
+            dtype=name)
+        torch.manual_seed(0)
+        model = StyleVAE(cfg).cuda().eval()
+        g = np.random.default_rng(9)
+        z = torch.as_tensor(g.normal(size=(B, 64)), dtype=torch.float32).cuda()
+        classes = torch.as_tensor(g.integers(0, 2, B)).cuda()
+        with torch.inference_mode():
+            x0 = model.decode_init(z, classes).contiguous()
+        forced = torch.as_tensor(g.integers(3, V, (B, T)), dtype=torch.int32).cuda()
+        _, _, kl = fd.fused_decode(model, x0, T, 0, mode="forced", forced_tokens=forced,
+                                   classes=classes)
+        _, _, pl = fd.fused_decode_reference(model, x0, T, 0, mode="forced",
+                                             forced_tokens=forced, classes=classes)
+        kseq, _ = fd.fused_decode(model, x0, T, 0, mode="greedy", classes=classes)
+        pseq, _ = fd.fused_decode_reference(model, x0, T, 0, mode="greedy", classes=classes)
+        sseq, _ = fd.fused_decode(model, x0, T, 3, classes=classes)
+        spseq, _ = fd.fused_decode_reference(model, x0, T, 3, classes=classes)
+        temp, top_k, top_p = 0.9, 20, 0.9
+        fseq, _ = fd.fused_decode(model, x0, T, 7, temp, "sample", top_k=top_k, top_p=top_p,
+                                  classes=classes)
+        _, _, fl = fd.fused_decode(model, x0, T, 0, mode="forced", forced_tokens=fseq,
+                                   classes=classes)
+        torch.cuda.synchronize()
+        err = float((kl - pl).abs().max())
+        worst = max(worst, err)
+        check(bool(torch.isfinite(kl).all()), f"K1 {label} {name}: non-finite logits")
+        check(err <= TOL_LOGITS[dtype], f"K1 {label} {name} forced max|err| {err}")
+        greedy = float((kseq == pseq).all(dim=1).float().mean())
+        sampled = float((sseq == spseq).all(dim=1).float().mean())
+        check(greedy == 1.0 and sampled == 1.0,
+              f"K1 {label} {name}: greedy {greedy:.3f}, sampled {sampled:.3f} of rows "
+              "identical to the plain version's")
+        keep = decode._filter_logits(fl / temp, top_k, top_p) > -1e29
+        inside = keep.gather(2, fseq.long()[:, :, None])[:, :, 0][live_mask(fseq)]
+        check(bool(inside.all()), f"K1 {label} {name}: {int((~inside).sum())} top-k/top-p "
+              "tokens outside the plain support")
+        ms = time_cuda(lambda: fd.fused_decode(model, x0, T, 0, mode="greedy", classes=classes), 1)
+        log(f"[{name}] K1 at {label}, {dec.norm_scheme}-LN, {B} rows, T={T} (plan "
+            f"{fd.plan_for(model, B, T)}): forced max|err| {err:.3g} (tol {TOL_LOGITS[dtype]}); "
+            f"greedy {greedy:.3f} and same-seed sampled {sampled:.3f} of rows identical; "
+            f"{int(inside.numel())} top-k/top-p tokens in the support; greedy {ms:.3f} ms a launch")
+    return worst
 
 
 def check_decoder(fd, dtype: torch.dtype, label: str, dec, latent: int, steps: int,
@@ -503,9 +594,10 @@ def check_flash(fa, enc_lens) -> dict:
     return worst
 
 
-def recipe_argv(script: str, data: str, model_output: str, out_samples: str):
+def recipe_argv(script: str, data: str, model_output: str, out_samples: str,
+                required=("--use-flash-attention", "--max-seq-len", "--batch-size")):
     """scripts/<script>'s flags, shell defaults (${TP:-1}) taken, with its
-    paths replaced."""
+    paths replaced; each of ``required`` must be among them."""
     with open(os.path.join(REPO, "scripts", script)) as f:
         text = f.read()
     body = text.split("musicstyletransfer_tpu.cli.main", 1)[1].split('"$@"', 1)[0]
@@ -515,39 +607,19 @@ def recipe_argv(script: str, data: str, model_output: str, out_samples: str):
     for i, a in enumerate(argv[:-1]):
         if a in subs:
             argv[i + 1] = subs[a]
-    for flag in ("--use-flash-attention", "--max-seq-len", "--batch-size"):
+    for flag in required:
         check(flag in argv, f"{script} lost {flag}")
     return argv
 
 
-PLAIN = ("K1 plain", "K2 plain", "K3 plain", "XLA-backward twin", "K4 plain", "K5 plain")
-
-
 def counts(reset: bool = False) -> dict:
     """Launch counts of K1-K5 (K2-K5 also on their tensor-core kernels
-    alone) and runs of their plain versions on CUDA."""
-    from musicstyletransfer_torch.ops import attention_core as ac
-    from musicstyletransfer_torch.ops import flash_attention as fa
-    from musicstyletransfer_torch.ops import fused_decode as fd
+    alone) and runs of their plain versions on CUDA (``ops.counters``)."""
+    from musicstyletransfer_torch.ops import counters
 
-    names = {"K1": (fd.fused_decode, "launches"), "K2": (ac.core_forward, "launches"),
-             "K3": (ac.core_backward, "launches"), "K4": (fa.flash_forward, "launches"),
-             "K5": (fa.flash_backward, "launches"),
-             "K2 tc": (ac.core_forward, "tc_launches"),
-             "K3 tc": (ac.core_backward, "tc_launches"),
-             "K4 tc": (fa.flash_forward, "tc_launches"),
-             "K5 tc": (fa.flash_backward, "tc_launches"),
-             "K1 plain": (fd.fused_decode_reference, "cuda_runs"),
-             "K2 plain": (ac.core_forward_reference, "cuda_runs"),
-             "K3 plain": (ac.core_backward_reference, "cuda_runs"),
-             "XLA-backward twin": (ac.core_xla_backward, "cuda_runs"),
-             "K4 plain": (fa.flash_forward_reference, "cuda_runs"),
-             "K5 plain": (fa.flash_backward_reference, "cuda_runs")}
-    out = {}
-    for k, (fn, attr) in names.items():
-        out[k] = getattr(fn, attr)
-        if reset:
-            setattr(fn, attr, 0)
+    out = counters.read()
+    if reset:
+        counters.reset()
     return out
 
 
@@ -557,7 +629,9 @@ def train_lines(path: str):
     return lines
 
 
-def check_train_log(lines, label: str) -> None:
+def check_train_log(lines, label: str, guarded: bool = True) -> None:
+    """Finite losses and gradient norms at every logged step, and, where
+    the recipe has the non-finite guard (``guarded``), no skipped update."""
     train = [x for x in lines if "grad_norm" in x]
     check(train, f"{label}: no training metrics logged")
     for x in train:
@@ -565,7 +639,8 @@ def check_train_log(lines, label: str) -> None:
             check(isinstance(x[k], float) and math.isfinite(x[k]),
                   f"{label}: {k} at step {x['step']} is {x[k]}")
     skipped = [x["nonfinite_updates_skipped"] for x in lines if "nonfinite_updates_skipped" in x]
-    check(skipped and all(v == 0 for v in skipped), f"{label}: skipped updates {skipped}")
+    check(bool(skipped) == guarded and all(v == 0 for v in skipped),
+          f"{label}: skipped updates {skipped}")
 
 
 def train_path(ac, fd, tmp: str) -> dict:
@@ -573,6 +648,7 @@ def train_path(ac, fd, tmp: str) -> dict:
     from musicstyletransfer_torch.cli import main as cli_main
     from musicstyletransfer_torch.cli import sample as cli_sample
     from musicstyletransfer_torch.data import Loader, MelodyDataset, load_dataset
+    from musicstyletransfer_torch.ops import counters
 
     data = os.path.join(REPO, "work", "data", "guitar_bass")
     loader = Loader(data, 512)
@@ -601,7 +677,7 @@ def train_path(ac, fd, tmp: str) -> dict:
     check(c["K2 tc"] == c["K2"] and c["K3 tc"] == c["K3"],
           f"the wide path left the tensor-core kernels: {c}")
     check(c["K1"] > 0, "the generation-health probe did not launch K1")
-    for k in PLAIN:
+    for k in counters.PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the training path")
     main_counts = c
 
@@ -638,10 +714,98 @@ def train_path(ac, fd, tmp: str) -> dict:
     expected = 3 * 8 * MelodyDataset(8, 512, loader.melodies).num_batches()
     check(len(names) == expected, f"cli.sample wrote {len(names)} files, expected {expected}")
     check(c["K1"] > 0 and c["K2"] > 0 and c["K2 tc"] == c["K2"], f"cli.sample launches {c}")
-    for k in PLAIN:
+    for k in counters.PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in cli.sample")
     log(f"sample path: cli.sample on the resumed checkpoint, max_len 1026: {len(names)} MIDI "
         f"files written and parsed back ({notes} note events) in {wall:.1f} s; launches {c}")
+    return main_counts
+
+
+def canonical_path(tmp: str) -> dict:
+    """The canonical recipe (scripts/train-vae.sh: models/guitar_bass's
+    widths, batch 32, L=64, bf16 activations, groups of 8 steps) through
+    cli.main for two epochs, each group one CUDA-graph replay; then
+    cli.evaluate --transfer-stats on the folder it wrote, and cli.sample
+    with beam search and with sampling on it (two files of the corpus).
+    Returns the training run's launch counts."""
+    import contextlib
+    import io
+
+    from musicstyletransfer_torch.cli import evaluate as cli_evaluate
+    from musicstyletransfer_torch.cli import main as cli_main
+    from musicstyletransfer_torch.cli import sample as cli_sample
+    from musicstyletransfer_torch.data import Loader, load_dataset
+    from musicstyletransfer_torch.ops import counters
+    from musicstyletransfer_torch.training.graph import GraphedSteps
+
+    data = os.path.join(REPO, "work", "data", "guitar_bass")
+    per_epoch = load_dataset(Loader(data, L), 32, 0.0)[0].num_batches()
+    model = os.path.join(tmp, "canonical")
+    argv = recipe_argv("train-vae.sh", data, model, os.path.join(tmp, "out-canonical"),
+                       required=("--max-seq-len", "--batch-size", "--steps-per-dispatch")) + [
+        "--epochs", "2", "--checkpoint-frequency", str(per_epoch),
+        "--logdir", model + "-log", "--log-every", "8"]
+    check("--steps-per-dispatch" in argv and argv[argv.index("--steps-per-dispatch") + 1] == "8",
+          "train-vae.sh lost --steps-per-dispatch 8")
+    counters.reset()
+    replays, captures = GraphedSteps.replays, GraphedSteps.captures
+    t0 = time.perf_counter()
+    cli_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = counters.read()
+    groups = 2 * -(-per_epoch // 8)
+    replays, captures = GraphedSteps.replays - replays, GraphedSteps.captures - captures
+    log(f"canonical path: cli.main, train-vae.sh, {2 * per_epoch} steps in {wall:.1f} s as "
+        f"{replays} CUDA-graph replays ({captures} captures: groups of 8 and the epoch's "
+        f"remainder of {per_epoch % 8}); launches {c}")
+    check(replays == groups and captures == 1 + (per_epoch % 8 > 0),
+          f"expected {groups} replays, got {replays} ({captures} captures)")
+    lines = train_lines(os.path.join(model + "-log", "scalars.jsonl"))
+    check_train_log(lines, "canonical run", guarded=False)
+    with open(os.path.join(model, "train_state.json")) as f:
+        check(json.load(f)["n_batches"] == 2 * per_epoch, "canonical run: wrong batch count")
+    check(c["K1"] > 0, "the generation-health probe did not launch K1")
+    for k in counters.PLAIN:
+        check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the canonical training path")
+    main_counts = c
+
+    out = io.StringIO()
+    counters.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli_evaluate.main(["--model-output", model, "--data", data, "--transfer-stats"])
+    vals = json.loads(out.getvalue().strip().splitlines()[-1])
+    c = counters.read()
+    for k in ("ppl", "acc", "total_loss", "termination_rate", "pitch_js_to_own_source",
+              "octave_js_to_target_class"):
+        check(k in vals and math.isfinite(vals[k]), f"cli.evaluate: {k} missing or not finite")
+    check(vals["transfer_sequences"] == 2 * 4 * 32 and c["K1"] == 4 and c["K1 plain"] == 0,
+          f"cli.evaluate --transfer-stats: {vals['transfer_sequences']} sequences, launches {c}")
+    log(f"evaluate path: cli.evaluate --transfer-stats in {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(vals))
+
+    small = os.path.join(tmp, "two-files")
+    for cls, name in (("bass", "Until_It_Sleeps_2_Bass-Guitar.mid"),
+                      ("guitar", "Metal_Militia_Guitar-3.mid")):
+        os.makedirs(os.path.join(small, cls))
+        shutil.copy(os.path.join(data, cls, name), os.path.join(small, cls, name))
+    for kind in ("beam-search", "sampling"):
+        dst = os.path.join(tmp, f"samples-canonical-{kind}")
+        counters.reset()
+        t0 = time.perf_counter()
+        cli_sample.main(["--model-output", model, "--checkpoint", "-1", "--data", small,
+                         "--out-samples", dst, "--sampling-type", kind, "--batch-size", "32",
+                         "--max-seq-len", str(L)])
+        torch.cuda.synchronize()
+        c = counters.read()
+        names, notes = parse_midi_dir(dst)
+        check(names and len(names) % 3 == 0, f"cli.sample {kind} wrote {len(names)} files")
+        check((c["K1"] > 0) == (kind == "sampling") and c["K1 plain"] == 0,
+              f"cli.sample {kind}: launches {c}")
+        log(f"sample path ({kind}): cli.sample on the canonical checkpoint: {len(names)} MIDI "
+            f"files written and parsed back ({notes} note events) in "
+            f"{time.perf_counter() - t0:.1f} s; K1 launches {c['K1']}")
     return main_counts
 
 
@@ -652,6 +816,7 @@ def long_path(tmp: str) -> dict:
     from musicstyletransfer_torch.cli import main as cli_main
     from musicstyletransfer_torch.cli import sample as cli_sample
     from musicstyletransfer_torch.data import Loader, MelodyDataset, load_dataset
+    from musicstyletransfer_torch.ops import counters
 
     data = os.path.join(REPO, "work", "data", "guitar_bass")
     loader = Loader(data, LONG_L)
@@ -679,7 +844,7 @@ def long_path(tmp: str) -> dict:
           f"the long path left the tensor-core kernels: {c}")
     check(c["K2"] == 0 and c["K3"] == 0, f"the long path launched K2/K3: {c}")
     check(c["K1"] > 0, "the generation-health probe did not launch K1")
-    for k in PLAIN:
+    for k in counters.PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the long training path")
     main_counts = c
 
@@ -696,7 +861,7 @@ def long_path(tmp: str) -> dict:
     check(len(names) == expected, f"cli.sample wrote {len(names)} files, expected {expected}")
     check(c["K1"] > 0 and c["K4"] > 0 and c["K4 tc"] == c["K4"] and c["K2"] == 0,
           f"cli.sample launches {c}")
-    for k in PLAIN:
+    for k in counters.PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in cli.sample")
     log(f"long sample path: cli.sample on the long checkpoint, max_len {2 * (LONG_L + 1)}: "
         f"{len(names)} MIDI files written and parsed back ({notes} note events) in {wall:.1f} s; "
@@ -836,87 +1001,177 @@ def measure_flash(fa, ac, batch) -> dict:
     return out
 
 
-def measure_training(batch, label: str, script: str, kernels: dict) -> dict:
-    """ms per training step of a recipe (the CLI's model and optimizer),
-    target tokens per second, and the share of the step's device time of
-    each kernel in ``kernels`` ({id: substrings of its kernels' symbols})."""
-    from torch.profiler import ProfilerActivity, profile
-
+def recipe_setup(script: str, extra=(), seed: int = 0):
+    """scripts/<script>'s model (seeded weights, on the card), optimizer and
+    loss settings, as cli.main builds them: (args, model, optimizer, loss)."""
     from types import SimpleNamespace
 
     from musicstyletransfer_torch.cli.flags import build_parser
     from musicstyletransfer_torch.cli.main import create_model_config
-    from musicstyletransfer_torch.midi.vocab import NUM_EVENTS, PAD_ID
+    from musicstyletransfer_torch.midi.vocab import NUM_EVENTS
     from musicstyletransfer_torch.models.vae import StyleVAE, init_params
-    from musicstyletransfer_torch.training.optimizer import Adam, OptimizerConfig
-    from musicstyletransfer_torch.training.train_step import LossConfig, batch_tensors, train_step
+    from musicstyletransfer_torch.training.optimizer import Optimizer, OptimizerConfig
+    from musicstyletransfer_torch.training.train_step import LossConfig
 
-    args, _ = build_parser().parse_known_args(recipe_argv(script, "-", "-", "-"))
-
+    args, _ = build_parser().parse_known_args(
+        recipe_argv(script, "-", "-", "-", required=("--max-seq-len", "--batch-size"))
+        + list(extra))
     corpus = SimpleNamespace(num_classes=lambda: 2, num_tokens=lambda: NUM_EVENTS)
-    model = init_params(StyleVAE(create_model_config(args, corpus)), 0).cuda()
-    opt = Adam(list(model.parameters()), OptimizerConfig(
-        args.optimizer, args.optimizer_params, args.learning_rate))
+    model = init_params(StyleVAE(create_model_config(args, corpus)), seed).cuda()
+    opt = Optimizer(list(model.parameters()), OptimizerConfig(
+        args.optimizer, args.optimizer_params, args.learning_rate),
+        accumulate_steps=args.grad_accum_steps)
     loss_cfg = LossConfig(kl_weight=args.kl_loss, kl_anneal_steps=args.kl_anneal_steps,
                           free_bits=args.free_bits)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    tensors = batch_tensors(batch, "cuda")
-    state = {"step": 0, "acc": None}
+    return args, model, opt, loss_cfg
 
-    def step():
-        state["acc"] = train_step(model, opt, loss_cfg, state["step"], state["acc"],
-                                  *tensors, generator=gen)
-        state["step"] += 1
 
-    for _ in range(3):
-        step()
-    ms = [time_cuda(step, 10), time_cuda(step, 10)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        step()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 100
-    tokens = int((tensors[3] != PAD_ID).sum())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            step()
+def graph_vs_eager(script: str, batches, lengths, extra=()) -> dict:
+    """Groups of ``lengths`` steps of the recipe (batches taken in turn)
+    from one seeded state: as eager ``step_body`` calls, and as one replay
+    a group of CUDA graphs of those lengths held by one ``GraphedSteps``, as
+    the trainer runs them (the graph of a shorter group, an epoch's
+    remainder, shares the memory pool and replays out of capture order).
+    The parameters, the optimizer's state, the step count, the metric sums
+    and the generator's state must come out bit for bit the same
+    (TOL_GRAPH_REL where a reason is stated there), and the launch counters
+    must count each replay's launches as the eager steps' own. K1's weight
+    pack, made before the steps, must follow the trained weights (equal to
+    a pack made afresh), and K1's forced logits on the trained model agree
+    with the plain version's within TOL_LOGITS."""
+    from musicstyletransfer_torch.ops import counters
+    from musicstyletransfer_torch.ops import fused_decode as fd
+    from musicstyletransfer_torch.training.graph import GraphedSteps
+    from musicstyletransfer_torch.training.train_step import (TrainState, batch_tensors,
+                                                              metric_names, step_body)
+
+    runs = []
+    for graphed in (False, True):
+        args, model, opt, loss_cfg = recipe_setup(script, extra)
+        stale = fd.pack_weights(model)
+        state = TrainState(metric_names(model), "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        tensors = [batch_tensors(b, "cuda") for b in batches]
+        counters.reset()
+        graphs = GraphedSteps(model, opt, loss_cfg, state, gen, max(lengths)) if graphed else None
+        done = 0
+        for n in lengths:
+            group = [tensors[(done + i) % len(tensors)] for i in range(n)]
+            done += n
+            if graphed:
+                graphs.run(group)
+            else:
+                for t in group:
+                    step_body(model, opt, loss_cfg, state, *t, generator=gen)
         torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3
+        runs.append({"params": opt.flat.clone(), **{f"opt.{k}": v.clone()
+                                                    for k, v in opt.state.items()},
+                     "step": state.step.clone(), "sums": state.sums.clone(),
+                     "counts": state.counts.clone(),
+                     "generator": gen.get_state().to(torch.int64).cuda(),
+                     "launches": counters.read()})
+        pack = fd.pack_weights(model)
+        model._fused_decode_pack = None
+        fresh = fd.pack_weights(model)
+        check(pack is not stale and all(torch.equal(pack[k], fresh[k])
+                                        for k in ("wt", "wf", "emb", "pos")),
+              f"{script}: K1's weight pack did not follow the trained weights")
+        model.eval()
+        x0, classes = decode_inputs(model, 8, seed=11)
+        forced = torch.as_tensor(np.random.default_rng(12).integers(3, 293, (8, 24)),
+                                 dtype=torch.int32, device="cuda")
+        _, _, kl = fd.fused_decode(model, x0, 24, 0, mode="forced", forced_tokens=forced,
+                                   classes=classes)
+        _, _, pl = fd.fused_decode_reference(model, x0, 24, 0, mode="forced",
+                                             forced_tokens=forced, classes=classes)
+        k1_err = float((kl - pl).abs().max())
+        check(math.isfinite(k1_err) and k1_err <= TOL_LOGITS[model.compute_dtype],
+              f"{script}: K1 on the trained model, forced logits max|err| {k1_err}")
+    eager, graph = runs
+    check(eager["launches"] == graph["launches"],
+          f"{script}: launches eager {eager['launches']} vs graphed {graph['launches']}")
+    diffs = {}
+    for k, v in eager.items():
+        if k == "launches":
+            continue
+        w = graph[k]
+        diffs[k] = 0.0 if torch.equal(v, w) else float(
+            ((v.double() - w.double()).abs().max() / v.double().abs().max().clamp(min=1e-30)))
+    worst = max(diffs.values())
+    check(all(math.isfinite(d) for d in diffs.values()) and worst <= TOL_GRAPH_REL,
+          f"{script} graphs of {lengths} vs eager: {diffs}")
+    log(f"graph vs eager, {script} {' '.join(extra)} (B={args.batch_size}, L={args.max_seq_len}"
+        f", {args.dtype}), groups of {'+'.join(map(str, lengths))} steps: "
+        + ("bit for bit identical" if worst == 0.0 else f"max rel diff {worst:.3g} ({diffs})")
+        + f" (parameters, optimizer state, step, metric sums, generator); launches "
+        f"{ {k: v for k, v in graph['launches'].items() if v} } in both; K1's pack follows "
+        f"the trained weights, forced logits max|err| {k1_err:.3g} against the plain version")
+    return diffs
+
+
+def measure_training(batch, label: str, script: str, kernels: dict, n: int) -> dict:
+    """ms per training step of a recipe (the CLI's model and optimizer),
+    eager and as replays of a CUDA graph of ``n`` steps (the recipe's
+    steps per dispatch), target tokens per second, and from torch.profiler
+    the kernels' ms a step, the device's busy share, the kernels launched
+    and the host ops a step, and the share of each kernel in ``kernels``
+    ({id: substrings of its kernels' symbols})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from musicstyletransfer_torch.midi.vocab import PAD_ID
+    from musicstyletransfer_torch.training.graph import GraphedSteps
+    from musicstyletransfer_torch.training.train_step import (TrainState, batch_tensors,
+                                                              metric_names, step_body)
+
+    args, model, opt, loss_cfg = recipe_setup(script)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = TrainState(metric_names(model), "cuda")
+    tensors = batch_tensors(batch, "cuda")
+    tokens = int((tensors[3] != PAD_ID).sum())
+    graphs = GraphedSteps(model, opt, loss_cfg, state, gen, n)
+    modes = {"eager": (lambda: step_body(model, opt, loss_cfg, state, *tensors, generator=gen), 1),
+             "graphed": (lambda: graphs.run([tensors] * n), n)}
 
     def dev(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
-    # Device-side events only: a CPU op (an autograd Function around a
-    # ctypes launch, aten::mm) also carries its kernels' time as its own.
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-    check(events, "torch.profiler recorded no device events")
-    total = sum(dev(e) for e in events) / 1e3  # ms over 5 steps
-    ms_by = {k: sum(dev(e) for e in events if any(sym in e.key for sym in syms)) / 1e3
-             for k, syms in kernels.items()}
-    res = {"ms": min(ms), "host_ms": host_ms, "tokens_per_s": tokens / (min(ms) / 1e3),
-           "shares": {k: v / max(total, 1e-9) for k, v in ms_by.items()},
-           "busy": total / max(prof_wall, 1e-9)}
-    top = sorted(events, key=dev, reverse=True)[:8]
-    log(f"{label} training step (B={args.batch_size}, L={args.max_seq_len}, {args.dtype}, Adam "
-        f"+ clips): {ms[0]:.3f} / {ms[1]:.3f} ms (CUDA events, 10 steps each), {host_ms:.3f} ms "
-        f"host clock; {tokens} target tokens -> {res['tokens_per_s']:.0f} tokens/s; profiler "
-        f"(5 steps, {prof_wall:.1f} ms wall): device busy {res['busy']:.3f}, {total / 5:.3f} "
-        "ms/step of kernels, " + ", ".join(
-            f"{k} {v / 5:.3f} ms/step ({res['shares'][k]:.3f})" for k, v in ms_by.items()))
-    log("  top device time: " + "; ".join(f"{e.key[:70]} {dev(e) / 5e3:.3f} ms/step ({e.count // 5}/step)"
-                                         for e in top))
-    # Where the host spends the step (the profiler's own cost included): what
-    # holds the card back where busy is low.
-    host = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA]
-    host_total = sum(e.self_cpu_time_total for e in host) / 5e3
-    host_top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
-    log(f"  top host time ({host_total:.1f} ms/step of host ops, {sum(e.count for e in host) // 5} "
-        "ops/step): " + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 5e3:.2f} ms/step "
-                                  f"({e.count // 5}/step)" for e in host_top))
+    res = {"tokens": tokens}
+    for mode, (fn, steps) in modes.items():
+        for _ in range(3):
+            fn()
+        reps = max(1, 10 // steps)
+        ms = [time_cuda(fn, reps) / steps, time_cuda(fn, reps) / steps]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        done = reps * steps  # steps in the profile
+        # Device-side events only: a CPU op (an autograd Function around a
+        # ctypes launch, aten::mm) also carries its kernels' time as its own.
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        total = sum(dev(e) for e in events) / 1e3  # ms over the profiled steps
+        host = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA]
+        r = {"ms": min(ms), "tokens_per_s": tokens / (min(ms) / 1e3),
+             "kernel_ms": total / done, "busy": total / max(prof_wall, 1e-9),
+             "launches": sum(e.count for e in events) / done,
+             "host_ops": sum(e.count for e in host) / done,
+             "shares": {k: sum(dev(e) for e in events if any(sym in e.key for sym in syms))
+                        / 1e3 / max(total, 1e-9) for k, syms in kernels.items()}}
+        res[mode] = r
+        top = sorted(events, key=dev, reverse=True)[:6]
+        log(f"{label} training step, {mode}{f' (graphs of {n} steps)' if steps > 1 else ''} "
+            f"(B={args.batch_size}, L={args.max_seq_len}, {args.dtype}, {args.optimizer}): "
+            f"{ms[0]:.3f} / {ms[1]:.3f} ms a step (CUDA events, {reps * steps} steps each); "
+            f"{tokens} target tokens -> {r['tokens_per_s']:.0f} tokens/s; profiler ({done} "
+            f"steps, {prof_wall:.1f} ms wall): {r['kernel_ms']:.3f} ms of kernels a step, device "
+            f"busy {r['busy']:.3f}, {r['launches']:.0f} kernels and {r['host_ops']:.0f} host ops "
+            "a step" + "".join(f", {k} {v:.3f} of the kernel time" for k, v in r["shares"].items()))
+        log("  top device time: " + "; ".join(f"{e.key[:60]} {dev(e) / done / 1e3:.3f} ms/step"
+                                             for e in top))
     return res
 
 
@@ -1147,7 +1402,8 @@ def main() -> int:
 
     wide_dec = TransformerConfig(model_size=512, num_layers=2, num_heads=16, norm_scheme="pre")
     long_dec = TransformerConfig(model_size=256, num_layers=2, num_heads=8)
-    k1_errs = [err32, err16]
+    k1_errs = [err32, err16] + [check_lifted(fd, decode, dt)
+                                for dt in (torch.float32, torch.bfloat16)]
     for dt in (torch.float32, torch.bfloat16):
         k1_errs.append(check_decoder(fd, dt, "wide", wide_dec, 1024, 1026))
         k1_errs.append(check_decoder(fd, dt, "long", long_dec, 512, 2 * (LONG_L + 1),
@@ -1157,21 +1413,31 @@ def main() -> int:
     long_batch = next(iter(MelodyDataset(LONG_B, LONG_L, Loader(corpus, LONG_L).melodies)))
     flash_err = check_flash(fa, long_batch.seq_lens)
 
+    wide_batch = next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
+    canonical_batches = list(MelodyDataset(32, L, Loader(corpus, L).melodies))[:8]
+    graph_vs_eager("train-vae.sh", canonical_batches, (8, 3, 8))  # a group, a remainder, a group
+    graph_vs_eager("train-vae.sh", canonical_batches, (2, 2), extra=("--remat",))
+    graph_vs_eager("train-vae-wide.sh", [wide_batch], (4, 4))
+    graph_vs_eager("train-vae-long.sh", [long_batch], (1, 1))
+
     counts(reset=True)
     model, dataset, launches = main_path(fd, device)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = train_path(ac, fd, tmp)
         long_counts = long_path(tmp)
+        canonical_path(tmp)
 
     numbers = measure(model, dataset, fd, decode)
-    wide_batch = next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
     core = measure_core(ac, wide_batch)
-    step = measure_training(wide_batch, "wide", "train-vae-wide.sh",
-                            {"K2": ("core_fwd_kernel_tc",),
-                             "K3": ("core_bwd_dq_kernel_tc", "core_bwd_dkdv_kernel_tc")})
+    steps = {"canonical": measure_training(canonical_batches[0], "canonical", "train-vae.sh",
+                                           {}, 8),
+             "wide": measure_training(wide_batch, "wide", "train-vae-wide.sh",
+                                      {"K2": ("core_fwd_kernel_tc",),
+                                       "K3": ("core_bwd_dq_kernel_tc",
+                                              "core_bwd_dkdv_kernel_tc")}, 4)}
     flash = measure_flash(fa, ac, long_batch)
-    long_step = measure_training(long_batch, "long", "train-vae-long.sh",
-                                 {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",)})
+    steps["long"] = measure_training(long_batch, "long", "train-vae-long.sh",
+                                     {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",)}, 1)
     log(f"timings above on: {card}")
 
     enc = core["encoder"]
@@ -1207,9 +1473,12 @@ def main() -> int:
             "max_abs_err": flash_err[kid], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
-    for label, st in (("wide", step), ("long", long_step)):
-        log(f"{label} training step {st['ms']:.3f} ms, {st['tokens_per_s']:.0f} target tokens/s, "
-            "kernel shares " + ", ".join(f"{k} {v:.3f}" for k, v in st["shares"].items()))
+    for label, st in steps.items():
+        log(f"{label} training step: " + "; ".join(
+            f"{mode} {st[mode]['ms']:.3f} ms ({st[mode]['tokens_per_s']:.0f} target tokens/s, "
+            f"{st[mode]['kernel_ms']:.3f} ms of kernels, busy {st[mode]['busy']:.3f}, "
+            f"{st[mode]['launches']:.0f} kernels, {st[mode]['host_ops']:.0f} host ops)"
+            for mode in ("eager", "graphed")))
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,13 @@ so each counterpart is found by path:
 - ``ops``       — hand-written Hopper kernels (CUDA C++ in ``ops/csrc``,
                   built with ``nvcc`` at first use) and their plain PyTorch
                   versions.
-- ``training``  — loss, metrics, optimizer, train step, checkpoints, fit loop.
-- ``inference`` — encode -> class swap -> sampled decode -> MIDI files.
-- ``cli``       — ``python -m musicstyletransfer_torch.cli.main`` (training)
-                  and ``.cli.sample``; both run on CUDA unless ``--cpu``.
+- ``training``  — loss, metrics, optimizers, train step, CUDA graphs of N
+                  steps, checkpoints, fit loop.
+- ``inference`` — encode -> class swap -> sampled or beam-search decode ->
+                  MIDI files; transfer quality statistics.
+- ``cli``       — ``python -m musicstyletransfer_torch.cli.main`` (training),
+                  ``.cli.sample`` and ``.cli.evaluate``; all run on CUDA
+                  unless ``--cpu``.
 
 The package imports nothing of JAX or of the JAX package.
 """

@@ -118,14 +118,14 @@ def build_parser() -> argparse.ArgumentParser:
     tpu.add_argument("--grad-accum-steps", type=int, default=1,
                      help="gradient accumulation micro-steps")
     tpu.add_argument("--steps-per-dispatch", type=int, default=1,
-                     help="train steps fused into one dispatched program "
-                          "(lax.scan); amortizes host dispatch on small "
-                          "configs — semantics identical, ticks snap to "
-                          "dispatch boundaries")
+                     help="train steps run as one CUDA-graph replay "
+                          "(training/graph.py); amortizes host dispatch — "
+                          "semantics identical, ticks snap to group "
+                          "boundaries")
     tpu.add_argument("--log-param-grad-norms", action="store_true",
-                     help="per-parameter gradient-norm TB scalars")
+                     help="per-parameter gradient-norm scalars")
     tpu.add_argument("--profile-dir", type=str, default=None,
-                     help="write a jax.profiler trace of steps 10-20 here")
+                     help="write a torch.profiler trace of steps 10-20 here")
     tpu.add_argument("--temperature", type=float, default=1.0,
                      help="sampling temperature for ancestral decoding")
     tpu.add_argument("--top-k", type=int, default=0,

@@ -11,22 +11,26 @@ from scratch, or resumed from the newest checkpoint in ``--model-output``;
 every checkpoint also writes ``<model-output>/torch/`` for
 ``musicstyletransfer_torch.cli.sample``.
 
-Refused until ported (ROADMAP queue 1): ``--toy``, ``--decoder-type lstm``,
-``--tp`` > 1, multi-process (``--dist-*``), ``--grad-accum-steps`` > 1,
-``--profile-dir``, ``--log-param-grad-norms`` and ``--sampling-type
-beam-search``. ``--remat`` recomputes each layer in the backward.
-``--ring-attention`` (with ``--tp 1``, as ``scripts/train-vae-long.sh``
-passes it) runs on one device as the JAX package does there: no ring, the
-flash route at T >= ``flash_min_seq_len``. ``--prefetch`` and
-``--rng-impl`` are accepted and have no effect (batches are laid out on the
-host and copied; randomness comes from one ``torch.Generator``).
+``--toy`` trains the reference's toy model (D=32, 2 heads, vocabulary 10)
+on ``ToyData`` into ``/tmp/music-style-transfer/toy/model``. On CUDA every
+group of ``--steps-per-dispatch`` steps is one CUDA-graph replay;
+``--prefetch``, ``--grad-accum-steps``, ``--profile-dir`` (a
+``torch.profiler`` trace of steps 10-20) and ``--log-param-grad-norms`` do
+what they do in the JAX CLI. ``--remat`` recomputes each layer in the
+backward. ``--ring-attention`` (with ``--tp 1``, as
+``scripts/train-vae-long.sh`` passes it) runs on one device as the JAX
+package does there: no ring, the flash route at T >= ``flash_min_seq_len``.
+``--rng-impl`` is accepted and has no effect (randomness comes from one
+``torch.Generator``). Refused until ported (ROADMAP queue 1):
+``--decoder-type lstm`` (item 11), ``--tp`` > 1 and multi-process runs
+(``--dist-*``, item 9).
 """
 
 from __future__ import annotations
 
 import os
 
-from ..data import Loader, load_dataset
+from ..data import Loader, ToyData, load_dataset
 from ..inference.sampler import get_sampler
 from ..models.config import DecoderConfig, EncoderConfig, ModelConfig, TransformerConfig
 from ..models.vae import StyleVAE, init_params
@@ -83,22 +87,63 @@ def create_train_config(args) -> TrainConfig:
         keep_checkpoints=args.keep_checkpoints,
         gen_health_rows=args.gen_health_rows,
         steps_per_dispatch=args.steps_per_dispatch,
+        prefetch=args.prefetch,
+        grad_accum_steps=args.grad_accum_steps,
+        log_param_grad_norms=args.log_param_grad_norms,
+        profile_dir=args.profile_dir,
     )
+
+
+TOY_MODEL = "/tmp/music-style-transfer/toy/model"  # the reference's (main.py:59-76)
+
+
+def create_toy_model_config(data) -> ModelConfig:
+    """Reference: main.py:14-38 (create_toy_model_config)."""
+    tc = TransformerConfig(model_size=32, dropout=0.0, num_layers=1, num_heads=2,
+                           vocab_size=data.num_tokens())
+    return ModelConfig(
+        encoder_config=EncoderConfig(transformer_config=tc, latent_dim=16,
+                                     num_classes=data.num_classes(),
+                                     input_dim=data.num_tokens()),
+        decoder_config=DecoderConfig(transformer_config=tc, latent_dim=16,
+                                     num_classes=data.num_classes(),
+                                     output_dim=data.num_tokens()),
+        dtype="float32",
+    )
+
+
+def create_toy_train_config(logdir: str = "/tmp/out") -> TrainConfig:
+    """Reference: main.py:41-56."""
+    return TrainConfig(
+        batch_size=1, sampling_frequency=500, checkpoint_frequency=1000,
+        num_checkpoints_not_improved=-1, kl_loss_weight=1.0, logdir=logdir,
+        optimizer=OptimizerConfig(learning_rate=1e-3, optimizer="adam",
+                                  optimizer_params="clip_gradient:1.0"),
+    )
+
+
+def main_toy(args, epochs: int = 20000, model_folder: str = TOY_MODEL) -> None:
+    """Reference: main.py:59-76 (main_toy): the toy model trained on
+    ``ToyData`` (validated on it too) into ``model_folder``, whose ``torch/``
+    export ``cli.sample --toy`` reads."""
+    dataset = ToyData()
+    device = resolve_device(gpu=args.gpu, cpu=args.cpu)
+    os.makedirs(model_folder, exist_ok=True)
+    model = init_params(StyleVAE(create_toy_model_config(dataset)), args.seed).to(device)
+    trainer = Trainer(create_toy_train_config(os.path.join(model_folder, "log")), model)
+    trainer.fit(dataset=dataset, validation_dataset=dataset, model_folder=model_folder,
+                epochs=epochs)
 
 
 def _refuse_unported(args) -> None:
     unported = {
-        "--toy": args.toy,
         "--tp > 1": args.tp > 1,
         "--dist-coordinator": args.dist_coordinator is not None,
-        "--grad-accum-steps > 1": args.grad_accum_steps > 1,
-        "--profile-dir": args.profile_dir is not None,
-        "--log-param-grad-norms": args.log_param_grad_norms,
     }
     for flag, asked in unported.items():
         if asked:
             raise SystemExit(f"train: {flag} is not ported to PyTorch yet "
-                             "(ROADMAP queue 1)")
+                             "(ROADMAP queue 1, item 9)")
 
 
 def main(argv=None) -> None:
@@ -107,6 +152,9 @@ def main(argv=None) -> None:
                         help="log (print and scalars.jsonl) every N steps")
     args, _ = parser.parse_known_args(argv)
     _refuse_unported(args)
+    if args.toy:
+        main_toy(args, model_folder=TOY_MODEL)
+        return
     device = resolve_device(gpu=args.gpu, cpu=args.cpu)
 
     def loader(path):

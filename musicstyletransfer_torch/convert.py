@@ -18,7 +18,7 @@ writes.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -62,19 +62,33 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
-    """``model``'s parameters as the flat ``/``-keyed float32 arrays of an
-    export's ``params.npz`` (flax names and layouts)."""
-    out: Dict[str, np.ndarray] = {}
+def _flax_leaves(model: nn.Module):
+    """(flax path, the parameter, its flax layout's transpose flag) for every
+    parameter of ``model``, in the order of ``model.parameters()``."""
     for mod_name, module in model.named_modules():
         for leaf, p in module.named_parameters(recurse=False):
-            arr = p.detach().float().cpu().numpy()
+            transpose = False
             if isinstance(module, nn.Embedding):
                 leaf = "embedding"
             elif isinstance(module, nn.LayerNorm):
                 leaf = "scale" if leaf == "weight" else leaf
             elif leaf == "weight":
-                arr, leaf = arr.T, "kernel"
+                leaf, transpose = "kernel", True
             name = re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layer\2", mod_name)
-            out["/".join(name.split(".") + [leaf])] = np.ascontiguousarray(arr)
+            yield "/".join(name.split(".") + [leaf]), p, transpose
+
+
+def flax_names(model: nn.Module) -> List[str]:
+    """The flax path of each parameter of ``model``, in the order of
+    ``model.parameters()`` (``encoder/encoder/layer0/attention/w_q/kernel``)."""
+    return [name for name, _, _ in _flax_leaves(model)]
+
+
+def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """``model``'s parameters as the flat ``/``-keyed float32 arrays of an
+    export's ``params.npz`` (flax names and layouts)."""
+    out: Dict[str, np.ndarray] = {}
+    for name, p, transpose in _flax_leaves(model):
+        arr = p.detach().float().cpu().numpy()
+        out[name] = np.ascontiguousarray(arr.T if transpose else arr)
     return out

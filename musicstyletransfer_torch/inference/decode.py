@@ -7,7 +7,10 @@ loop for tensors on the CPU. Sampling is seeded by an integer (the kernel's
 Philox key) rather than a JAX key; the same seed gives the same draws on
 either route wherever the two compute the same logits.
 
-Beam search is not ported yet (ROADMAP queue 1, item 5).
+``beam_search`` and ``decode_beam`` run the batched beam search step by
+step through the model's cached ``decode_step`` (plain PyTorch: the JAX
+package has no kernel for it either), reordering the cache rows of the
+surviving hypotheses with ``index_select``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Tuple
 
 import torch
 
+from ..midi.vocab import EOS_ID, PAD_ID, SOS_ID
 from ..models.vae import StyleVAE
 from ..ops.fused_decode import fused_decode
 
@@ -93,3 +97,64 @@ def style_transfer_all_classes(model: StyleVAE, tokens: torch.Tensor,
         temperature, top_k=top_k, top_p=top_p,
     )
     return seqs.reshape(C, B, max_len), scores.reshape(C, B)
+
+
+@torch.inference_mode()
+def beam_search(model: StyleVAE, tokens: torch.Tensor, seq_lens: torch.Tensor,
+                classes: torch.Tensor, max_len: int, beam_size: int,
+                length_penalty: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode + batched beam-search decode (``decode.py:304-327`` of the JAX
+    package). ``length_penalty`` alpha > 0 ranks the final hypotheses by
+    score / len^alpha (GNMT length normalization; 0 = the raw cumulative
+    score). Returns (seqs [B, max_len] the best hypothesis of each row,
+    scores [B])."""
+    z = _encode_deterministic(model, tokens, seq_lens, classes)
+    return decode_beam(model, z, classes, max_len, beam_size, length_penalty)
+
+
+@torch.inference_mode()
+def decode_beam(model: StyleVAE, z: torch.Tensor, classes: torch.Tensor, max_len: int,
+                beam_size: int, length_penalty: float = 0.0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beam search from (z, classes), ``decode.py:330-426`` of the JAX
+    package: K hypotheses a row, scores the cumulative -log p (lower is
+    better), only beam 0 live at first so identical expansions do not tie,
+    a finished hypothesis extends only with PAD at no cost, the top K of
+    the K*V expansions kept each step (ties to the lower index, as
+    ``lax.top_k``)."""
+    B, K = z.shape[0], beam_size
+    V = model.decoder.config.output_dim
+    dev = z.device
+    classes_rep = classes.repeat_interleave(K)
+    cache = model.decode_prefill(z.repeat_interleave(K, dim=0), classes_rep, max_len + 1)
+    seqs = torch.full((B * K, max_len), PAD_ID, dtype=torch.int32, device=dev)
+    seqs[:, 0] = SOS_ID
+    scores = torch.where(torch.arange(K, device=dev) == 0, 0.0, torch.inf).repeat(B, 1)
+    offset = (torch.arange(B, device=dev) * K)[:, None]
+    done = torch.zeros(B * K, dtype=torch.bool, device=dev)
+    pad_only = torch.full((V,), torch.inf, device=dev)
+    pad_only[PAD_ID] = 0.0
+    t = 1
+    while t < max_len and not bool(done.all()):
+        logits = model.decode_step(seqs[:, t - 1].long(), cache, t, classes_rep)
+        nll = -torch.log_softmax(logits.float(), dim=-1)
+        nll = torch.where(done[:, None], pad_only[None, :], nll)
+        folded = (scores.reshape(B * K, 1) + nll).reshape(B, K * V)
+        order = torch.sort(folded, dim=-1, stable=True)
+        scores, top = order.values[:, :K], order.indices[:, :K]
+        src = (top // V + offset).reshape(B * K)
+        word = (top % V).reshape(B * K)
+        seqs = seqs.index_select(0, src)
+        seqs[:, t] = word.to(torch.int32)
+        cache = [(k.index_select(0, src), v.index_select(0, src)) for k, v in cache]
+        done = done.index_select(0, src) | (word == EOS_ID)
+        t += 1
+    seqs = seqs.reshape(B, K, max_len)
+    if length_penalty > 0.0:
+        # over the generated tokens only: the SOS at position 0 adds no score
+        lens = ((seqs != PAD_ID).sum(-1) - 1).float()
+        normed = scores / lens.clamp(min=1.0) ** length_penalty
+        best = normed.argmin(-1)
+        rows = torch.arange(B, device=dev)
+        return seqs[rows, best], normed[rows, best]
+    return seqs[:, 0], scores[:, 0]

@@ -10,6 +10,7 @@ from the export ``<model>/torch/params.npz`` (``scripts/export-torch-weights.py`
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -23,7 +24,7 @@ from ..convert import load_npz, params_from_jax
 from ..models.config import load_config
 from ..models.vae import StyleVAE
 from ..training.checkpoint import checkpoint_indices, restore_checkpoint
-from .decode import sample_sequences, style_transfer_all_classes
+from .decode import beam_search, sample_sequences, style_transfer_all_classes
 
 
 def load_inference_model(model_folder: str, checkpoint: Optional[int],
@@ -81,8 +82,9 @@ def get_sampler(type: str, model_folder: Optional[str], checkpoint: Optional[int
                         top_k=getattr(args, "top_k", 0),
                         top_p=getattr(args, "top_p", 0.0))
     if type == "beam-search":
-        raise NotImplementedError(
-            "beam search is not ported to PyTorch yet (ROADMAP queue 1, item 5)")
+        return BeamSearchSampler(model_folder, checkpoint, device=device, model=model,
+                                 beam_size=args.beam_size,
+                                 length_penalty=getattr(args, "length_penalty", 0.0))
     raise ValueError(f"Sampler {type} is not implemented")
 
 
@@ -135,7 +137,14 @@ class SamplerBase:
         return torch.as_tensor(np.asarray(x), dtype=torch.long, device=self.device)
 
     def sample_all_classes(self, batch: Batch, num_classes: int) -> np.ndarray:
-        """[C, B, T] transfers of the batch into every class."""
+        """[C, B, T] transfers of the batch into every class: ``sample`` once
+        per class, the batch's classes overwritten (reference:
+        sampler.py:93-95)."""
+        return np.stack([self.sample(dataclasses.replace(
+            batch, classes=np.full_like(batch.classes, c))) for c in range(num_classes)])
+
+    def sample(self, batch: Batch) -> np.ndarray:
+        """[B, T] transfers of the batch into its own ``classes``."""
         raise NotImplementedError
 
 
@@ -172,4 +181,24 @@ class Sampling(SamplerBase):
             self.model, self._tensor(batch.tokens), self._tensor(batch.seq_lens),
             max_len, num_classes, self._next_seed(), self.temperature,
             top_k=self.top_k, top_p=self.top_p)
+        return seqs.cpu().numpy()
+
+
+class BeamSearchSampler(SamplerBase):
+    """Batched beam search (``sampler.py:234-256`` of the JAX package), at
+    max_len twice the source's length."""
+
+    def __init__(self, model_folder: Optional[str], checkpoint: Optional[int],
+                 device: torch.device = torch.device("cpu"), beam_size: int = 5,
+                 length_penalty: float = 0.0, model: Optional[StyleVAE] = None):
+        super().__init__(model_folder, checkpoint, device, model)
+        self.beam_size = beam_size
+        self.length_penalty = length_penalty
+        self.max_length_factor = 2.0
+
+    def sample(self, batch: Batch) -> np.ndarray:
+        max_len = int(batch.tokens.shape[1] * self.max_length_factor)
+        seqs, _ = beam_search(self.model, self._tensor(batch.tokens),
+                              self._tensor(batch.seq_lens), self._tensor(batch.classes),
+                              max_len, self.beam_size, self.length_penalty)
         return seqs.cpu().numpy()

@@ -24,9 +24,9 @@ Dropout sits where flax has it (after the FFN's ReLU, and on both residual
 branches) and applies only in training mode, drawing its masks from the
 ``torch.Generator`` passed down from ``StyleVAE.forward``. ``remat`` in
 training mode recomputes each layer in the backward
-(``torch.utils.checkpoint``) from the generator state the layer started
-from, so the masks, the loss, the gradients and the generator's final
-state are those of a run without it.
+(``torch.utils.checkpoint``) with the dropout masks its forward drew, so
+the masks, the loss, the gradients and the generator's final state are
+those of a run without it.
 """
 
 from __future__ import annotations
@@ -93,14 +93,30 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+class DrawnMasks:
+    """Dropout keep masks drawn ahead, handed to the ``dropout`` calls of a
+    layer in the order the layer makes them (``_remat_layer``)."""
+
+    def __init__(self, masks: List[torch.Tensor]):
+        self.masks = masks
+        self.used = 0
+
+    def next(self) -> torch.Tensor:
+        self.used += 1
+        return self.masks[self.used - 1]
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool, generator) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
     1 / (1 - rate), in x's dtype; the identity outside training or at rate
-    0. The mask comes from ``generator`` (on x's device)."""
+    0. The mask comes from ``generator`` (a ``torch.Generator`` on x's
+    device, or ``DrawnMasks``)."""
     if not training or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if isinstance(generator, DrawnMasks):
+        keep = generator.next()
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -305,24 +321,23 @@ class TransformerStack(nn.Module):
 def _remat_layer(layer: TransformerLayer, x: torch.Tensor, key_mask: torch.Tensor,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
     """``layer`` under ``torch.utils.checkpoint`` (non-reentrant). The
-    checkpoint restores only the global RNG, so the forward and the
-    recompute each draw their dropout masks from a fresh generator set to
-    the state ``generator`` had before the layer; ``generator`` is then left
-    where the forward left that copy, as a run without remat leaves it."""
-    if generator is None:
-        return checkpoint(layer, x, key_mask, None, use_reentrant=False)
-    start, end = generator.get_state(), []
+    layer's dropout masks are drawn from ``generator`` before it runs, in the
+    order and shapes the layer draws them (the attention branch [B, T, D],
+    the FFN's hidden [B, T, FF], the FFN branch [B, T, D]), so they and the
+    generator's state equal a run without remat; the forward and the
+    recompute read the same kept masks, and no generator state is saved or
+    set, which a CUDA graph's capture does not allow."""
+    masks = []
+    if layer.training and layer.rate > 0.0:
+        B, T, D = x.shape
+        ff = layer.ff.ff1.out_features
+        masks = [torch.rand(shape, generator=generator, device=x.device) >= layer.rate
+                 for shape in ((B, T, D), (B, T, ff), (B, T, D))]
 
     def run(x_, mask_):
-        g = torch.Generator(device=generator.device)
-        g.set_state(start)
-        y = layer(x_, mask_, g)
-        end.append(g.get_state())
-        return y
+        return layer(x_, mask_, DrawnMasks(masks))
 
-    y = checkpoint(run, x, key_mask, use_reentrant=False, preserve_rng_state=False)
-    generator.set_state(end[0])
-    return y
+    return checkpoint(run, x, key_mask, use_reentrant=False, preserve_rng_state=False)
 
 
 def compute_dtype(name: str) -> torch.dtype:

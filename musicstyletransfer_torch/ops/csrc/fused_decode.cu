@@ -46,6 +46,14 @@
 //   barrier): the top-k/top-p bisections, Gumbel-max or argmax over V.
 // - A group stops when all its rows have emitted EOS; a finished row emits
 //   PAD and adds nothing to its score.
+// - Any decoder whose heads divide its model size: the wrapper pads the
+//   model size Dl to D, a multiple of 32 that the heads divide (each head's
+//   dimensions padded from Dl/H to D/H), and FF to a multiple of 32, with
+//   zeros in every weight, bias, LayerNorm parameter and input of the pads,
+//   so every product and every pad column stays what it was (zero);
+//   LayerNorm takes its statistics over the Dl true columns. A vocabulary
+//   above 32 * kMaxVLane takes a token choice that loops over shared memory
+//   instead of holding the logits in registers.
 //
 // What bounds it: a position is a chain of dependent phases (products,
 // attention, barriers); at the wide decoder the weights streamed from L2 each
@@ -92,6 +100,7 @@ struct MstFusedDecodeArgs {
   float top_p, temperature, scale, head_scale;
   int rows, cluster;      // the plan: rows a group, blocks a cluster (<= 8)
   int resident;           // the plan: weight slices resident in shared memory
+  int Dl;                 // the model size; D is its padded width (see below)
 };
 }
 
@@ -106,7 +115,7 @@ constexpr int kMaxCluster = 8;  // the portable cluster size
 // read 64 contiguous bytes, and the next column's lanes the 64 bytes on the
 // other half of the banks.
 constexpr int kSlicePad = 64;
-constexpr int kMaxVLane = 10;   // vocab entries a lane holds: V <= 320
+constexpr int kMaxVLane = 10;   // vocab entries a lane holds in registers: V <= 320
 constexpr int kPad = 0, kSos = 1, kEos = 2;
 constexpr int kGreedy = 1, kForced = 2;  // mode 0 samples
 constexpr float kNegInf = -1e30f;
@@ -487,25 +496,27 @@ __device__ void dense_cluster(const T* A, int lda, int R, int K, const T* W, con
   });
 }
 
-// out = round(LayerNorm(in)) row by row, one warp a row, float32 statistics;
+// out = round(LayerNorm(in)) row by row, one warp a row, float32 statistics
+// over the Dl true columns; the pad columns [Dl, D) of `out` are zeros.
 // `out` may alias `in`.
 template <typename T>
-__device__ void layer_norm_rows(const T* in, T* out, int R, int D, int ld, const float* s,
-                                const float* b) {
+__device__ void layer_norm_rows(const T* in, T* out, int R, int Dl, int D, int ld,
+                                const float* s, const float* b) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < R; r += kWarps) {
     const T* x = in + (size_t)r * ld;
     float part = 0.f;
-    for (int d = lane; d < D; d += 32) part += to_f(x[d]);
-    const float mean = warp_sum(part) / D;
+    for (int d = lane; d < Dl; d += 32) part += to_f(x[d]);
+    const float mean = warp_sum(part) / Dl;
     part = 0.f;
-    for (int d = lane; d < D; d += 32) {
+    for (int d = lane; d < Dl; d += 32) {
       const float c = to_f(x[d]) - mean;
       part += c * c;
     }
-    const float inv = rsqrtf(warp_sum(part) / D + kLnEps);
+    const float inv = rsqrtf(warp_sum(part) / Dl + kLnEps);
     for (int d = lane; d < D; d += 32)
-      out[(size_t)r * ld + d] = from_f<T>((to_f(x[d]) - mean) * inv * s[d] + b[d]);
+      out[(size_t)r * ld + d] =
+          from_f<T>(d < Dl ? (to_f(x[d]) - mean) * inv * s[d] + b[d] : 0.f);
   }
 }
 
@@ -868,6 +879,160 @@ __device__ __forceinline__ void embed_row(const MstFusedDecodeArgs& a, T* x, int
   }
 }
 
+// The next token of row b from its logits lg and (sample mode) noise, by one
+// warp, a vocabulary of V <= 32 * kMaxVLane held in registers; `lse` gets
+// the row's logsumexp.
+__device__ __forceinline__ int pick_narrow(const MstFusedDecodeArgs& a, const float* lg,
+                                           const float* noise, int b, int t, float& lse) {
+  const int lane = threadIdx.x & 31, V = a.V;
+  float x[kMaxVLane];
+#pragma unroll
+  for (int i = 0; i < kMaxVLane; ++i) {
+    const int v = lane + 32 * i;
+    x[i] = v < V ? lg[v] : -INFINITY;
+  }
+  int nxt;
+  if (a.mode == kForced) {
+    nxt = static_cast<const int*>(a.forced)[(size_t)b * a.T + t];
+  } else if (a.mode == kGreedy) {
+    float best = -INFINITY;
+    int bi = INT32_MAX;
+#pragma unroll
+    for (int i = 0; i < kMaxVLane; ++i)
+      if (lane + 32 * i < V) argmax_merge(best, bi, x[i], lane + 32 * i);
+    nxt = warp_argmax(best, bi);
+  } else {
+    float wv[kMaxVLane], w[kMaxVLane];
+    int keys[kMaxVLane];
+#pragma unroll
+    for (int i = 0; i < kMaxVLane; ++i) wv[i] = x[i] / a.temperature;
+    if (a.top_k > 0 && a.top_k < V) {
+#pragma unroll
+      for (int i = 0; i < kMaxVLane; ++i) {
+        const bool ok = lane + 32 * i < V;
+        keys[i] = ok ? sort_key(wv[i]) : INT32_MIN;
+        w[i] = ok ? 1.f : 0.f;
+      }
+      const int thr = warp_threshold_key(keys, w, (float)a.top_k);
+#pragma unroll
+      for (int i = 0; i < kMaxVLane; ++i)
+        if (keys[i] < thr) wv[i] = kNegInf;
+    }
+    if (a.top_p > 0.f && a.top_p < 1.f) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kMaxVLane; ++i) {
+        const bool ok = lane + 32 * i < V;
+        keys[i] = ok ? sort_key(wv[i]) : INT32_MIN;
+        if (ok) m = fmaxf(m, wv[i]);
+      }
+      m = warp_max(m);
+      float part = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxVLane; ++i) {
+        w[i] = lane + 32 * i < V ? expf(wv[i] - m) : 0.f;
+        part += w[i];
+      }
+      const float sum = warp_sum(part);
+#pragma unroll
+      for (int i = 0; i < kMaxVLane; ++i) w[i] /= sum;
+      const int thr = warp_threshold_key(keys, w, a.top_p);
+#pragma unroll
+      for (int i = 0; i < kMaxVLane; ++i)
+        if (keys[i] < thr) wv[i] = kNegInf;
+    }
+    float best = -INFINITY;
+    int bi = INT32_MAX;
+#pragma unroll
+    for (int i = 0; i < kMaxVLane; ++i) {
+      const int v = lane + 32 * i;
+      if (v < V) argmax_merge(best, bi, wv[i] + noise[v], v);
+    }
+    nxt = warp_argmax(best, bi);
+  }
+  // -log p of the emitted token under the unfiltered, untempered logits.
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kMaxVLane; ++i) m = fmaxf(m, x[i]);
+  m = warp_max(m);
+  float part = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxVLane; ++i)
+    if (lane + 32 * i < V) part += expf(x[i] - m);
+  lse = logf(warp_sum(part)) + m;
+  return nxt;
+}
+
+// The same for any vocabulary: every pass reads the logits from shared
+// memory (a lane takes entries lane, lane + 32, ...: the sums run in the
+// order of the register version). The scaled logit of entry v after the
+// top-k filter is recomputed where it is needed.
+__device__ __forceinline__ int pick_wide(const MstFusedDecodeArgs& a, const float* lg,
+                                         const float* noise, int b, int t, float& lse) {
+  const int lane = threadIdx.x & 31, V = a.V;
+  int nxt;
+  if (a.mode == kForced) {
+    nxt = static_cast<const int*>(a.forced)[(size_t)b * a.T + t];
+  } else if (a.mode == kGreedy) {
+    float best = -INFINITY;
+    int bi = INT32_MAX;
+    for (int v = lane; v < V; v += 32) argmax_merge(best, bi, lg[v], v);
+    nxt = warp_argmax(best, bi);
+  } else {
+    const bool use_k = a.top_k > 0 && a.top_k < V;
+    int thr_k = INT32_MIN;
+    if (use_k) {  // the least key with fewer than top_k entries above it
+      int lo = INT32_MIN, hi = INT32_MAX;
+      for (int it = 0; it < kFilterIters; ++it) {
+        const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
+        float part = 0.f;
+        for (int v = lane; v < V; v += 32)
+          if (sort_key(lg[v] / a.temperature) > mid) part += 1.f;
+        if (warp_sum(part) < (float)a.top_k) hi = mid; else lo = mid;
+      }
+      thr_k = hi;
+    }
+    auto scaled = [&](int v) {
+      const float w = lg[v] / a.temperature;
+      return use_k && sort_key(w) < thr_k ? kNegInf : w;
+    };
+    int thr_p = INT32_MIN;
+    if (a.top_p > 0.f && a.top_p < 1.f) {
+      float m = -INFINITY;
+      for (int v = lane; v < V; v += 32) m = fmaxf(m, scaled(v));
+      m = warp_max(m);
+      float part = 0.f;
+      for (int v = lane; v < V; v += 32) part += expf(scaled(v) - m);
+      const float sum = warp_sum(part);
+      int lo = INT32_MIN, hi = INT32_MAX;
+      for (int it = 0; it < kFilterIters; ++it) {
+        const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
+        float acc = 0.f;
+        for (int v = lane; v < V; v += 32) {
+          const float w = scaled(v);
+          if (sort_key(w) > mid) acc += expf(w - m) / sum;
+        }
+        if (warp_sum(acc) < a.top_p) hi = mid; else lo = mid;
+      }
+      thr_p = hi;
+    }
+    float best = -INFINITY;
+    int bi = INT32_MAX;
+    for (int v = lane; v < V; v += 32) {
+      const float w = scaled(v);
+      argmax_merge(best, bi, (sort_key(w) < thr_p ? kNegInf : w) + noise[v], v);
+    }
+    nxt = warp_argmax(best, bi);
+  }
+  float m = -INFINITY;
+  for (int v = lane; v < V; v += 32) m = fmaxf(m, lg[v]);
+  m = warp_max(m);
+  float part = 0.f;
+  for (int v = lane; v < V; v += 32) part += expf(lg[v] - m);
+  lse = logf(warp_sum(part)) + m;
+  return nxt;
+}
+
 // The next token of each row, one warp a row, in every block alike; block 0
 // of the cluster writes the outputs; the warp then writes the row's input of
 // the next position.
@@ -878,81 +1043,14 @@ __device__ void choose_tokens(const MstFusedDecodeArgs& a, int row0, int R, int 
   for (int r = warp; r < R; r += kWarps) {
     const int b = row0 + r;
     const float* lg = s.lg + (size_t)r * V;
-    float x[kMaxVLane];
-#pragma unroll
-    for (int i = 0; i < kMaxVLane; ++i) {
-      const int v = lane + 32 * i;
-      x[i] = v < V ? lg[v] : -INFINITY;
-    }
-    int nxt;
-    if (a.mode == kForced) {
-      nxt = static_cast<const int*>(a.forced)[(size_t)b * T_ + t];
-    } else if (a.mode == kGreedy) {
-      float best = -INFINITY;
-      int bi = INT32_MAX;
-#pragma unroll
-      for (int i = 0; i < kMaxVLane; ++i)
-        if (lane + 32 * i < V) argmax_merge(best, bi, x[i], lane + 32 * i);
-      nxt = warp_argmax(best, bi);
-    } else {
-      float wv[kMaxVLane], w[kMaxVLane];
-      int keys[kMaxVLane];
-#pragma unroll
-      for (int i = 0; i < kMaxVLane; ++i) wv[i] = x[i] / a.temperature;
-      if (a.top_k > 0 && a.top_k < V) {
-#pragma unroll
-        for (int i = 0; i < kMaxVLane; ++i) {
-          const bool ok = lane + 32 * i < V;
-          keys[i] = ok ? sort_key(wv[i]) : INT32_MIN;
-          w[i] = ok ? 1.f : 0.f;
-        }
-        const int thr = warp_threshold_key(keys, w, (float)a.top_k);
-#pragma unroll
-        for (int i = 0; i < kMaxVLane; ++i)
-          if (keys[i] < thr) wv[i] = kNegInf;
-      }
-      if (a.top_p > 0.f && a.top_p < 1.f) {
-        float m = -INFINITY;
-#pragma unroll
-        for (int i = 0; i < kMaxVLane; ++i) {
-          const bool ok = lane + 32 * i < V;
-          keys[i] = ok ? sort_key(wv[i]) : INT32_MIN;
-          if (ok) m = fmaxf(m, wv[i]);
-        }
-        m = warp_max(m);
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < kMaxVLane; ++i) {
-          w[i] = lane + 32 * i < V ? expf(wv[i] - m) : 0.f;
-          part += w[i];
-        }
-        const float sum = warp_sum(part);
-#pragma unroll
-        for (int i = 0; i < kMaxVLane; ++i) w[i] /= sum;
-        const int thr = warp_threshold_key(keys, w, a.top_p);
-#pragma unroll
-        for (int i = 0; i < kMaxVLane; ++i)
-          if (keys[i] < thr) wv[i] = kNegInf;
-      }
-      float best = -INFINITY;
-      int bi = INT32_MAX;
-#pragma unroll
-      for (int i = 0; i < kMaxVLane; ++i) {
-        const int v = lane + 32 * i;
-        if (v < V) argmax_merge(best, bi, wv[i] + s.noise[(size_t)r * V + v], v);
-      }
-      nxt = warp_argmax(best, bi);
-    }
-    // -log p of the emitted token under the unfiltered, untempered logits.
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kMaxVLane; ++i) m = fmaxf(m, x[i]);
-    m = warp_max(m);
-    float part = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxVLane; ++i)
-      if (lane + 32 * i < V) part += expf(x[i] - m);
-    const float lse = logf(warp_sum(part)) + m;
+    const float* noise = s.noise + (size_t)r * V;
+    float lse;
+    // Both give the same tokens. Under top-k or top-p the register version
+    // holds each bisection's weights, which pick_wide recomputes: at the
+    // serving launch it is 2.1x faster with top-k 30 and top-p 0.9 (pick_wide
+    // 1.4% faster without them; scripts/k1-variants.py serving, PERF.md).
+    const int nxt = V <= 32 * kMaxVLane ? pick_narrow(a, lg, noise, b, t, lse)
+                                        : pick_wide(a, lg, noise, b, t, lse);
     if (lane == 0) {
       const int done = s.done[r];
       if (!done) s.score[r] += lse - lg[nxt];
@@ -1064,7 +1162,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
       const T* in = s.x;
       if (a.pre_ln) {
         PH_BEGIN(tl);
-        layer_norm_rows(s.x, s.a, R, D, ld, L.ln1s, L.ln1b);
+        layer_norm_rows(s.x, s.a, R, a.Dl, D, ld, L.ln1s, L.ln1b);
         block_sync();
         PH_END(kPhLN, tl);
         in = s.a;
@@ -1078,8 +1176,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
       cluster_sync();
       PH_END(kPhO, to);
       PH_BEGIN(tn);
-      if (a.pre_ln) layer_norm_rows(s.x, s.a, R, D, ld, L.ln2s, L.ln2b);
-      else layer_norm_rows(s.a, s.x, R, D, ld, L.ln1s, L.ln1b);
+      if (a.pre_ln) layer_norm_rows(s.x, s.a, R, a.Dl, D, ld, L.ln2s, L.ln2b);
+      else layer_norm_rows(s.a, s.x, R, a.Dl, D, ld, L.ln1s, L.ln1b);
       block_sync();
       PH_END(kPhLN, tn);
       PH_BEGIN(t1);
@@ -1094,7 +1192,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
       PH_END(kPhFF2, t2);
       if (!a.pre_ln) {
         PH_BEGIN(tn2);
-        layer_norm_rows(s.a, s.x, R, D, ld, L.ln2s, L.ln2b);
+        layer_norm_rows(s.a, s.x, R, a.Dl, D, ld, L.ln2s, L.ln2b);
         block_sync();
         PH_END(kPhLN, tn2);
       }
@@ -1102,7 +1200,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_decode_kernel(const MstFuse
     const T* h = s.x;
     if (a.pre_ln) {
       PH_BEGIN(tf);
-      layer_norm_rows(s.x, s.a, R, D, ld, fln, fln + D);
+      layer_norm_rows(s.x, s.a, R, a.Dl, D, ld, fln, fln + D);
       block_sync();
       PH_END(kPhLN, tf);
       h = s.a;
@@ -1191,7 +1289,8 @@ cudaError_t launch(const MstFusedDecodeArgs& a, cudaStream_t stream) {
 extern "C" int mst_fused_decode(const MstFusedDecodeArgs* a, void* stream) {
   const int hd = a->H >= 1 ? a->D / a->H : 0, C = a->cluster;
   const bool ok = a->B >= 1 && a->T >= 1 && a->H >= 1 && a->D % a->H == 0 && a->NL >= 1 &&
-                  a->D % 32 == 0 && a->FF % 32 == 0 && a->V >= 1 && a->V <= 32 * kMaxVLane &&
+                  a->D % 32 == 0 && a->FF % 32 == 0 && a->V >= 1 && a->Dl >= 1 &&
+                  a->Dl <= a->D &&
                   a->rows >= 1 && a->rows <= kMaxRows && C >= 1 && C <= kMaxCluster &&
                   a->H % C == 0 && a->D % (8 * C) == 0 && a->FF % (8 * C) == 0;
   if (!ok) return (int)cudaErrorInvalidValue;

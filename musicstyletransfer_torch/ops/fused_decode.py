@@ -27,6 +27,7 @@ round alike.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -217,6 +218,7 @@ class _Args(ctypes.Structure):
         ("top_p", ctypes.c_float), ("temperature", ctypes.c_float),
         ("scale", ctypes.c_float), ("head_scale", ctypes.c_float),
         ("rows", ctypes.c_int), ("cluster", ctypes.c_int), ("resident", ctypes.c_int),
+        ("Dl", ctypes.c_int),
     ]
 
 
@@ -261,7 +263,7 @@ def clusters_held(device: torch.device) -> Dict[int, int]:
 # pure function of the shapes and of the clusters the card runs at once)
 
 _WARPS = 8  # kThreads / 32 of csrc/fused_decode.cu
-_MAX_ROWS, _LD_PAD, _MAX_VOCAB = 16, 8, 320
+_MAX_ROWS, _LD_PAD = 16, 8
 MAX_CLUSTER = 8  # kMaxCluster of the source: the portable cluster size
 _SMEM_LIMIT = 232448 - 1024  # a block's shared memory, less the static part
 # ``clusters_held`` of an H100 80GB HBM3 (scripts/k1-variants.py prints the
@@ -281,15 +283,25 @@ def _require(cond: bool, msg: str) -> None:
 
 def check_shapes(D: int, H: int, FF: int, V: int) -> None:
     """Raise ValueError for a decoder the kernel does not take: the heads
-    must divide the model size (any head dimension), the products' inputs
-    come in pieces of 32 (D and FF multiples of 32, as every model whose
-    model size is a multiple of 128, the JAX kernel's own condition), and a
-    warp holds the vocabulary in 10 registers a lane (V <= 320; the MIDI
-    vocabulary is 293)."""
-    _require(H >= 1 and D % H == 0, f"model size {D} is not a multiple of the {H} heads")
-    _require(D % 32 == 0 and FF % 32 == 0,
-             f"model size {D} and FF {FF} must be multiples of 32")
-    _require(1 <= V <= _MAX_VOCAB, f"vocabulary {V} outside the kernel's [1, {_MAX_VOCAB}]")
+    must divide the model size, and the vocabulary must not be empty. Any
+    other width is taken: ``padded_widths`` pads the products' inputs to
+    pieces of 32, and a vocabulary above 320 (10 registers a lane) takes
+    the token choice's loop over shared memory."""
+    _require(H >= 1 and D >= 1 and D % H == 0,
+             f"model size {D} is not a multiple of the {H} heads")
+    _require(FF >= 1, f"FF width {FF} must be at least 1")
+    _require(V >= 1, f"vocabulary {V} must hold at least one token")
+
+
+def padded_widths(D: int, H: int, FF: int) -> Tuple[int, int]:
+    """(Dp, FFp): the kernel's widths. Dp is the least multiple of 32 at or
+    above D that the heads divide (each head padded from D/H to Dp/H
+    dimensions), FFp FF rounded up to 32. The pads are zeros in the weights
+    and activations, so every product is unchanged; LayerNorm takes its
+    statistics over the D true columns. Dp == D and FFp == FF wherever D
+    and FF are multiples of 32 (every recipe's decoder)."""
+    step = 32 * H // math.gcd(32, H)
+    return -(-D // step) * step, -(-FF // 32) * 32
 
 
 def _split_of(n_tiles: int, K: int) -> int:
@@ -302,8 +314,9 @@ def _nb_head(V: int, cluster: int) -> int:
 
 def slice_bytes(cluster: int, D: int, FF: int, V: int, NL: int, esize: int) -> int:
     """A block's resident weight slices (``Dims::slice_bytes`` in the
-    source): its rows of every layer's products, each padded by 64 bytes
-    (``kSlicePad``), and its float32 rows of the head."""
+    source) at the kernel's widths D and FF: its rows of every layer's
+    products, each padded by 64 bytes (``kSlicePad``), and its float32 rows
+    of the head."""
     pad = 64 // esize
     layer = ((3 * D + D + FF) // cluster * (D + pad)) + D // cluster * (FF + pad)
     return NL * layer * esize + _nb_head(V, cluster) * (D + 16) * 4
@@ -311,7 +324,8 @@ def slice_bytes(cluster: int, D: int, FF: int, V: int, NL: int, esize: int) -> i
 
 def smem_bytes(rows: int, cluster: int, D: int, H: int, FF: int, V: int, esize: int,
                NL: int = 1, resident: bool = False) -> int:
-    """Dynamic shared memory of a block (``smem_layout`` in the source)."""
+    """Dynamic shared memory of a block (``smem_layout`` in the source) at
+    the kernel's widths D and FF."""
     hd, hc = D // H, H // cluster
     nb = {"qkv": 3 * hc * hd, "o": D // cluster, "ff1": FF // cluster,
           "head": _nb_head(V, cluster)}
@@ -331,8 +345,9 @@ def plan(B: int, D: int, H: int, FF: int, V: int, NL: int, T: int, esize: int,
     """How the kernel decodes B rows: groups of ``rows`` rows (the last one
     ragged), each on a cluster of ``cluster`` blocks, with each block's
     weight slices ``resident`` in its shared memory or streamed from L2 at
-    every position. Raises ValueError for shapes the kernel does not take
-    (``check_shapes``).
+    every position; ``D`` and ``FF`` of the result are the kernel's padded
+    widths (``padded_widths``), which every size here counts. Raises
+    ValueError for shapes the kernel does not take (``check_shapes``).
 
     The cluster is the largest size up to ``MAX_CLUSTER`` that divides the
     heads and leaves every block whole 8-column tiles. Weights are resident
@@ -345,6 +360,7 @@ def plan(B: int, D: int, H: int, FF: int, V: int, NL: int, T: int, esize: int,
     clusters of each size the card runs at once, by default an H100's);
     the least estimate wins, a larger group on ties."""
     check_shapes(D, H, FF, V)
+    D, FF = padded_widths(D, H, FF)
     hd = D // H
     cluster = next(c for c in range(MAX_CLUSTER, 0, -1)
                    if H % c == 0 and D % (8 * c) == 0 and FF % (8 * c) == 0)
@@ -369,7 +385,7 @@ def plan(B: int, D: int, H: int, FF: int, V: int, NL: int, T: int, esize: int,
         raise ValueError(f"no group of rows fits a block's shared memory at D={D}, FF={FF}")
     _, rows, groups, resident = best
     return {"rows": rows, "cluster": cluster, "groups": groups, "blocks": groups * cluster,
-            "resident": resident,
+            "resident": resident, "D": D, "FF": FF,
             "smem": smem_bytes(rows, cluster, D, H, FF, V, esize, NL, resident)}
 
 
@@ -405,17 +421,46 @@ def _mma_unpack(w: torch.Tensor) -> torch.Tensor:
     return out.reshape(N, K)
 
 
-def pack_weights(model) -> Dict[str, torch.Tensor]:
-    """The decoder's weights in the kernel's layout, on the model's device.
+def _pad(x: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """``x`` with zeros appended along each dimension up to ``sizes``."""
+    pads = []
+    for d in reversed(range(x.dim())):
+        pads += [0, sizes[d] - x.shape[d]]
+    return torch.nn.functional.pad(x, pads) if any(pads) else x
 
-    ``wt`` (compute dtype), per layer: Wqkv [3D, D] (the rows of w_q, w_k,
-    w_v), Wo [D, D], W1 [FF, D], W2 [D, FF] (PyTorch's [out, in]: a row per
+
+def _pad_heads(x: torch.Tensor, dim: int, H: int, hdp: int) -> torch.Tensor:
+    """``x`` with its H heads along ``dim`` (H * hd wide) each padded with
+    zeros to hdp."""
+    hd = x.shape[dim] // H
+    if hd == hdp:
+        return x
+    split = list(x.shape[:dim]) + [H, hd] + list(x.shape[dim + 1:])
+    y = _pad(x.reshape(split), *split[:dim + 1], hdp, *split[dim + 2:])
+    return y.reshape(*x.shape[:dim], H * hdp, *x.shape[dim + 1:])
+
+
+def _unpad_heads(x: torch.Tensor, dim: int, H: int, hd: int) -> torch.Tensor:
+    hdp = x.shape[dim] // H
+    split = list(x.shape[:dim]) + [H, hdp] + list(x.shape[dim + 1:])
+    y = x.reshape(split).narrow(dim + 1, 0, hd)
+    return y.reshape(*x.shape[:dim], H * hd, *x.shape[dim + 1:])
+
+
+def pack_weights(model) -> Dict[str, torch.Tensor]:
+    """The decoder's weights in the kernel's layout, on the model's device,
+    at the kernel's widths Dp and FFp (``padded_widths``; zeros in every pad).
+
+    ``wt`` (compute dtype), per layer: Wqkv [3Dp, Dp] (the rows of w_q, w_k,
+    w_v, each head's rows padded to Dp/H), Wo [Dp, Dp] (its inputs padded
+    by head), W1 [FFp, Dp], W2 [Dp, FFp] (PyTorch's [out, in]: a row per
     output, its inputs contiguous; in bf16 each 32-wide piece of a row in
     ``MMA_ORDER``), then bqkv, bo, b1, b2. ``wf`` (float32): per layer ln1
     scale/bias, ln2 scale/bias; then the final LayerNorm's scale/bias
-    (ones/zeros under post-LN); then the head [V, D] and its bias. Built
-    once per model and reused while the parameters are unchanged (keyed by
-    their storage and version counters); ``unpack_weights`` inverts it."""
+    (ones/zeros under post-LN); then the head [V, Dp] and its bias. ``emb``
+    and ``pos`` are padded to Dp too. Built once per model and reused while
+    the parameters are unchanged (keyed by their storage and version
+    counters); ``unpack_weights`` inverts it."""
     dec = model.decoder
     params = list(dec.parameters())
     key = tuple((p.device, p.data_ptr(), p._version) for p in params)
@@ -425,42 +470,52 @@ def pack_weights(model) -> Dict[str, torch.Tensor]:
     dt = model.compute_dtype
     order = _mma_pack if dt == torch.bfloat16 else (lambda w: w)
     stack = dec.decoder
-    D = stack.config.model_size
+    tc = stack.config
+    D, H, FF = tc.model_size, tc.num_heads, tc.model_size * tc.ffn_multiplier
+    Dp, FFp = padded_widths(D, H, FF)
+    hdp = Dp // H
     wt, wf = [], []
+
+    def qkv_rows(*ws):
+        return torch.cat([_pad_heads(w, 0, H, hdp) for w in ws])
+
     with torch.no_grad():
         for layer in stack.layers:
             att, ff = layer.attention, layer.ff
-            wqkv = torch.cat([att.w_q.weight, att.w_k.weight, att.w_v.weight])
-            wt += [order(w.to(dt)) for w in (wqkv, att.w_o.weight, ff.ff1.weight,
-                                             ff.ff2.weight)]
-            wt += [torch.cat([att.w_q.bias, att.w_k.bias, att.w_v.bias]),
-                   att.w_o.bias, ff.ff1.bias, ff.ff2.bias]
-            wf += [layer.ln1.weight, layer.ln1.bias, layer.ln2.weight,
-                   layer.ln2.bias]
-        if stack.config.norm_scheme == "pre":
-            wf += [stack.final_ln.weight, stack.final_ln.bias]
+            wqkv = _pad(qkv_rows(att.w_q.weight, att.w_k.weight, att.w_v.weight), 3 * Dp, Dp)
+            wo = _pad(_pad_heads(att.w_o.weight, 1, H, hdp), Dp, Dp)
+            wt += [order(w.to(dt)) for w in (wqkv, wo, _pad(ff.ff1.weight, FFp, Dp),
+                                             _pad(ff.ff2.weight, Dp, FFp))]
+            wt += [qkv_rows(att.w_q.bias, att.w_k.bias, att.w_v.bias),
+                   _pad(att.w_o.bias, Dp), _pad(ff.ff1.bias, FFp), _pad(ff.ff2.bias, Dp)]
+            wf += [_pad(w, Dp) for w in (layer.ln1.weight, layer.ln1.bias,
+                                         layer.ln2.weight, layer.ln2.bias)]
+        if tc.norm_scheme == "pre":
+            wf += [_pad(stack.final_ln.weight, Dp), _pad(stack.final_ln.bias, Dp)]
         else:
-            wf += [torch.ones_like(wf[0]), torch.zeros_like(wf[0])]
-        wf += [dec.output_layer.weight, dec.output_layer.bias]
+            wf += [_pad(torch.ones(D, device=wf[0].device), Dp), torch.zeros_like(wf[0])]
+        wf += [_pad(dec.output_layer.weight, dec.config.output_dim, Dp), dec.output_layer.bias]
         pack = {
             "key": key,
+            "dims": (D, H, FF, Dp, FFp),
             "wt": torch.cat([w.reshape(-1).to(dt) for w in wt]).contiguous(),
             "wf": torch.cat([w.reshape(-1) for w in wf]).float().contiguous(),
-            "emb": dec.token_emb.weight.to(dt).contiguous(),
-            "pos": stack.pos_table.contiguous(),
+            "emb": _pad(dec.token_emb.weight.to(dt), dec.config.output_dim, Dp).contiguous(),
+            "pos": _pad(stack.pos_table, stack.pos_table.shape[0], Dp).contiguous(),
             "scale": float(stack.scale),
-            "head_scale": float(sqrt_in(D // stack.config.num_heads, dt)),
+            "head_scale": float(sqrt_in(D // H, dt)),
         }
     model._fused_decode_pack = pack
     return pack
 
 
-def unpack_weights(pack: Dict[str, torch.Tensor], D: int, FF: int, NL: int, V: int
-                   ) -> Dict[str, torch.Tensor]:
-    """The plain inverse of ``pack_weights``: ``layers.{l}.{wqkv,wo,w1,w2}``
-    as [out, in] matrices, ``layers.{l}.{bqkv,bo,b1,b2,ln1s,ln1b,ln2s,ln2b}``,
-    ``final_lns``, ``final_lnb``, ``head`` [V, D] and ``head_b``."""
+def padded_weights(pack: Dict[str, torch.Tensor], NL: int, V: int) -> Dict[str, torch.Tensor]:
+    """The tensors of a pack as the kernel reads them, at the padded widths
+    (``pack["dims"]``) and in [out, in] order: ``layers.{l}.{wqkv,wo,w1,w2}``,
+    ``layers.{l}.{bqkv,bo,b1,b2,ln1s,ln1b,ln2s,ln2b}``, ``final_lns``,
+    ``final_lnb``, ``head`` [V, Dp] and ``head_b``."""
     wt, wf = pack["wt"], pack["wf"]
+    _, _, _, Dp, FFp = pack["dims"]
     unorder = _mma_unpack if wt.dtype == torch.bfloat16 else (lambda w: w)
     out, i, j = {}, 0, 0
 
@@ -468,21 +523,56 @@ def unpack_weights(pack: Dict[str, torch.Tensor], D: int, FF: int, NL: int, V: i
         return src[at:at + n], at + n
 
     for l in range(NL):
-        for name, (rows, cols) in (("wqkv", (3 * D, D)), ("wo", (D, D)), ("w1", (FF, D)),
-                                   ("w2", (D, FF))):
+        for name, (rows, cols) in (("wqkv", (3 * Dp, Dp)), ("wo", (Dp, Dp)), ("w1", (FFp, Dp)),
+                                   ("w2", (Dp, FFp))):
             w, i = take(wt, i, rows * cols)
             out[f"layers.{l}.{name}"] = unorder(w.reshape(rows, cols))
-        for name, n in (("bqkv", 3 * D), ("bo", D), ("b1", FF), ("b2", D)):
+        for name, n in (("bqkv", 3 * Dp), ("bo", Dp), ("b1", FFp), ("b2", Dp)):
             out[f"layers.{l}.{name}"], i = take(wt, i, n)
         for name in ("ln1s", "ln1b", "ln2s", "ln2b"):
-            out[f"layers.{l}.{name}"], j = take(wf, j, D)
-    out["final_lns"], j = take(wf, j, D)
-    out["final_lnb"], j = take(wf, j, D)
-    head, j = take(wf, j, V * D)
-    out["head"] = head.reshape(V, D)
+            out[f"layers.{l}.{name}"], j = take(wf, j, Dp)
+    out["final_lns"], j = take(wf, j, Dp)
+    out["final_lnb"], j = take(wf, j, Dp)
+    head, j = take(wf, j, V * Dp)
+    out["head"] = head.reshape(V, Dp)
     out["head_b"], j = take(wf, j, V)
     if i != wt.numel() or j != wf.numel():
         raise ValueError("the pack does not hold these shapes")
+    return out
+
+
+def unpack_weights(pack: Dict[str, torch.Tensor], D: int, FF: int, NL: int, V: int
+                   ) -> Dict[str, torch.Tensor]:
+    """The plain inverse of ``pack_weights``: ``padded_weights`` with the
+    pads removed, at the model's widths D and FF."""
+    D_, H, FF_, Dp, FFp = pack["dims"]
+    if (D_, FF_) != (D, FF):
+        raise ValueError(f"the pack holds D={D_}, FF={FF_}, not D={D}, FF={FF}")
+    hd = D // H
+
+    def qkv(w):  # [3Dp, ...] -> [3D, ...], each head's pad removed
+        return torch.cat([_unpad_heads(part, 0, H, hd) for part in w.chunk(3)])
+
+    out = {}
+    for name, w in padded_weights(pack, NL, V).items():
+        kind = name.rsplit(".", 1)[-1]
+        if kind == "wqkv":
+            w = qkv(w)[:, :D]
+        elif kind == "bqkv":
+            w = qkv(w)
+        elif kind == "wo":
+            w = _unpad_heads(w[:D], 1, H, hd)
+        elif kind == "w1":
+            w = w[:FF, :D]
+        elif kind == "w2":
+            w = w[:D, :FF]
+        elif kind == "b1":
+            w = w[:FF]
+        elif kind == "head":
+            w = w[:, :D]
+        elif kind != "head_b":
+            w = w[:D]
+        out[name] = w
     return out
 
 
@@ -503,9 +593,9 @@ def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
     Returns (seqs [B, max_len] int32 with SOS at 0 and PAD after EOS,
     scores [B] float32), plus logits [B, max_len, V] float32 in
     ``"forced"`` mode (row 0 zeros). The kernel decodes the rows in the
-    groups and clusters of ``plan``, which also raises for a decoder the
-    kernel does not take (``check_shapes``).
-    """
+    groups and clusters of ``plan``, at the padded widths of
+    ``padded_widths`` (x0 and the class rows are padded here); ``plan``
+    raises for a decoder the kernel does not take (``check_shapes``)."""
     if not x0.is_cuda:
         return fused_decode_reference(model, x0, max_len, seed, temperature,
                                       mode, forced_tokens, top_k, top_p, classes)
@@ -538,12 +628,16 @@ def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
         _require(classes is not None and classes.shape == (B,)
                  and classes.device == dev,
                  f"per_step conditioning needs classes [B] on {dev}")
-        step_bias = dec.step_bias(classes).contiguous()
+        step_bias = dec.step_bias(classes)
 
     NL, FF, H = tc.num_layers, D * tc.ffn_multiplier, tc.num_heads
     p = plan(B, D, H, FF, V, NL, T, x0.element_size(), clusters_held(dev))
+    Dp, FFp = p["D"], p["FF"]
     pack = pack_weights(model)
-    cache = torch.empty(NL * 2 * B * T * D, dtype=dt, device=dev)  # [NL, 2, B, H, T, D/H]
+    x0 = _pad(x0, B, Dp).contiguous()
+    if step_bias is not None:
+        step_bias = _pad(step_bias, B, Dp).contiguous()
+    cache = torch.empty(NL * 2 * B * T * Dp, dtype=dt, device=dev)  # [NL, 2, B, H, T, Dp/H]
     seqs = torch.full((B, T), PAD_ID, dtype=torch.int32, device=dev)
     scores = torch.zeros(B, dtype=torch.float32, device=dev)
     logits = (torch.zeros(B, T, V, dtype=torch.float32, device=dev)
@@ -558,12 +652,12 @@ def fused_decode(model, x0: torch.Tensor, max_len: int, seed: int,
         forced=ptr(forced), cache=ptr(cache), seqs=ptr(seqs),
         scores=ptr(scores), logits=ptr(logits),
         seed=int(seed) & ((1 << 64) - 1),
-        B=B, T=T, D=D, H=tc.num_heads, FF=FF, V=V, NL=NL, mode=MODES[mode],
+        B=B, T=T, D=Dp, H=H, FF=FFp, V=V, NL=NL, mode=MODES[mode],
         pre_ln=int(tc.norm_scheme == "pre"), per_step=int(step_bias is not None),
         top_k=int(top_k), is_bf16=int(dt == torch.bfloat16),
         top_p=float(top_p), temperature=float(temperature),
         scale=pack["scale"], head_scale=pack["head_scale"],
-        rows=p["rows"], cluster=p["cluster"], resident=int(p["resident"]),
+        rows=p["rows"], cluster=p["cluster"], resident=int(p["resident"]), Dl=D,
     )
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream

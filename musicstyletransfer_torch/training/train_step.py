@@ -2,23 +2,33 @@
 ``musicstyletransfer_tpu/training/train_step.py:99-162, 347-401``).
 
 A step is forward (training mode: reparameterised z, dropout), ``vae_loss``,
-backward and one optimizer update. Its metrics are added to (sum, count)
-device scalars that the caller carries from step to step, so the host waits
-for the device only where it reads them (the trainer's log boundaries).
+backward and one optimizer update. ``step_body`` runs it on a ``TrainState``
+whose every tensor lives on the device and is updated in place: the step
+count (the KL anneal's weight is computed from it on the device) and the
+(sum, count) metric accumulators. Nothing in a step reads the device on the
+host, so a CUDA graph can capture consecutive steps (``training/graph.py``)
+and the host waits for the device only where it reads the metrics (the
+trainer's log boundaries). ``train_step`` is the functional form of one
+step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
+from ..convert import flax_names
 from ..midi.vocab import PAD_ID
 from ..models.vae import StyleVAE
 from .loss import kl_divergence, masked_cross_entropy, vae_loss
 from .metrics import Pair, accumulate, step_metrics
-from .optimizer import Adam
+from .optimizer import Optimizer
+
+# The metrics of a step, in the order of a TrainState's vectors (the JAX
+# package's METRIC_KEYS, train_step.py:64).
+METRIC_KEYS = ("ppl", "acc", "top5_acc", "ce_loss", "kl_loss", "total_loss", "grad_norm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,26 +41,62 @@ class LossConfig:
     # Per-dimension KL floor (posterior-collapse mitigation; 0 disables).
     free_bits: float = 0.0
 
-    def kl_weight_at(self, step: int) -> float:
+    def kl_weight_at(self, step: Union[int, torch.Tensor]):
+        """The KL weight after ``step`` steps: a float for an int ``step``, a
+        float32 device scalar for a device ``step`` (as the JAX package
+        computes it inside its step)."""
         if self.kl_anneal_steps <= 0:
             return self.kl_weight
+        if isinstance(step, torch.Tensor):
+            return self.kl_weight * torch.clamp(step.float() / self.kl_anneal_steps, max=1.0)
         return self.kl_weight * min(step / self.kl_anneal_steps, 1.0)
 
 
-def train_step(model: StyleVAE, optimizer: Adam, loss_config: LossConfig, step: int,
-               metric_acc: Optional[Dict[str, Pair]], tokens: torch.Tensor,
-               seq_lens: torch.Tensor, classes: torch.Tensor, labels: torch.Tensor,
-               generator: Optional[torch.Generator] = None,
-               eps: Optional[torch.Tensor] = None) -> Dict[str, Pair]:
-    """One update of ``model`` (put in training mode) on one batch; ``step``
-    is the number of steps taken before it (for the KL anneal). ``generator``
-    draws eps and the dropout masks unless ``eps`` is given. Returns
-    ``metric_acc`` plus this step's (sum, count) pairs, including the raw
-    gradients' global norm."""
+def metric_names(model: StyleVAE, per_param_grad_norms: bool = False) -> list:
+    """The names a step accumulates: ``METRIC_KEYS``, then with
+    ``per_param_grad_norms`` one ``grad_norm/<flax path>`` per parameter (the
+    JAX package's names, train_step.py:138-145)."""
+    names = list(METRIC_KEYS)
+    if per_param_grad_norms:
+        names += [f"grad_norm/{n}" for n in flax_names(model)]
+    return names
+
+
+class TrainState:
+    """The device state a training step updates in place: ``step`` (int64,
+    the steps taken) and, for each of ``names``, a (sum, count) pair held
+    in the float32 vectors ``sums`` and ``counts``."""
+
+    def __init__(self, names: Sequence[str], device: Union[str, torch.device], step: int = 0):
+        self.names = list(names)
+        self.step = torch.full((), step, dtype=torch.int64, device=device)
+        self.sums = torch.zeros(len(self.names), device=device)
+        self.counts = torch.zeros(len(self.names), device=device)
+
+    def metrics(self) -> Dict[str, Pair]:
+        """{name: (sum, count)}, views of the accumulators."""
+        return {n: (self.sums[i], self.counts[i]) for i, n in enumerate(self.names)}
+
+    def reset_metrics(self) -> None:
+        self.sums.zero_()
+        self.counts.zero_()
+
+
+def step_body(model: StyleVAE, optimizer: Optimizer, loss_config: LossConfig,
+              state: TrainState, tokens: torch.Tensor, seq_lens: torch.Tensor,
+              classes: torch.Tensor, labels: torch.Tensor,
+              generator: Optional[torch.Generator] = None,
+              eps: Optional[torch.Tensor] = None) -> None:
+    """One update of ``model`` (put in training mode) on one batch, with
+    every effect in place: the parameters and the optimizer's state,
+    ``state.step`` + 1, and this step's metrics added to ``state``'s
+    accumulators (the raw gradients' global norm among them, and one norm
+    per parameter where ``state`` names them). ``generator`` draws eps and
+    the dropout masks unless ``eps`` is given."""
     model.train()
     logits, mu, logvar = model(tokens, seq_lens, classes, eps=eps, generator=generator)
     total, scalars = vae_loss(logits, labels, mu, logvar,
-                              kl_weight=loss_config.kl_weight_at(step),
+                              kl_weight=loss_config.kl_weight_at(state.step),
                               label_smoothing=loss_config.label_smoothing,
                               normalize=loss_config.normalize,
                               free_bits=loss_config.free_bits)
@@ -60,10 +106,32 @@ def train_step(model: StyleVAE, optimizer: Adam, loss_config: LossConfig, step: 
     grad = optimizer.flat_grad()
     optimizer.step(grad)
     with torch.no_grad():
-        metrics = step_metrics(logits.detach(), labels, {k: v.detach() for k, v in scalars.items()})
-        one = torch.ones((), device=grad.device)
-        metrics["grad_norm"] = (torch.sqrt(torch.sum(grad * grad)), one)
-        return accumulate(metric_acc or {}, metrics)
+        metrics = step_metrics(logits.detach(), labels,
+                               {k: v.detach() for k, v in scalars.items()})
+        sums = [metrics[k][0].float() for k in METRIC_KEYS[:-1]]
+        counts = [metrics[k][1].float() for k in METRIC_KEYS[:-1]]
+        norms = [torch.sqrt(torch.sum(grad * grad))]
+        if len(state.names) > len(METRIC_KEYS):
+            norms += list(torch._foreach_norm(optimizer.views(grad)))
+        sums = torch.cat([torch.stack(sums), torch.stack(norms)])
+        counts = torch.cat([torch.stack(counts), torch.ones(len(norms), device=grad.device)])
+        state.sums.add_(sums)
+        state.counts.add_(counts)
+        state.step.add_(1)
+
+
+def train_step(model: StyleVAE, optimizer: Optimizer, loss_config: LossConfig, step: int,
+               metric_acc: Optional[Dict[str, Pair]], tokens: torch.Tensor,
+               seq_lens: torch.Tensor, classes: torch.Tensor, labels: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> Dict[str, Pair]:
+    """``step_body`` in functional form: ``step`` is the number of steps
+    taken before this one (for the KL anneal); returns ``metric_acc`` plus
+    this step's (sum, count) pairs."""
+    state = TrainState(METRIC_KEYS, tokens.device, step)
+    step_body(model, optimizer, loss_config, state, tokens, seq_lens, classes, labels,
+              generator, eps)
+    return accumulate(metric_acc or {}, state.metrics())
 
 
 @torch.no_grad()

@@ -9,17 +9,25 @@ Scalars are printed and appended to ``<logdir>/scalars.jsonl``, one JSON
 object per write with the batch count under ``"step"`` (the JAX package
 writes TensorBoard files; the port needs no tensorboard package).
 
-``steps_per_dispatch`` is accepted: it groups N batches and runs them as N
-single steps, with the log, checkpoint and sampling ticks at group
-boundaries as in the JAX package (whose N steps run as one program). Not
-ported yet (ROADMAP queue 1, item 4): meshes and multi-process runs,
-profiling, input prefetch, gradient accumulation and a choice of random
-number generator (the port draws from one ``torch.Generator``).
+``steps_per_dispatch`` groups N batches, with the log, checkpoint and
+sampling ticks at group boundaries as in the JAX package, whose N steps run
+as one program. On CUDA a group is one replay of a CUDA graph of its N steps
+(``training/graph.py``; an epoch's shorter remainder gets a graph of its own
+length); on the CPU its steps run one after the other. Batches reach the
+device through ``data/prefetch.py`` (``prefetch`` deep, 0 disables),
+``grad_accum_steps`` k applies the mean gradient of k steps every k-th step
+(``optax.MultiSteps``), ``log_param_grad_norms`` logs one gradient norm per
+parameter, and ``profile_dir`` gets a ``torch.profiler`` trace of the steps
+``[profile_start, profile_stop)``, snapped to group boundaries. Not ported
+yet (ROADMAP queue 1, item 9): meshes and multi-process runs; the port draws
+its random numbers from one ``torch.Generator`` whatever ``--rng-impl``
+says.
 
-Resume restores the parameters, the Adam state, the step, the generator
-and, unlike the JAX package, the order of the training batches, so a run
-resumed from a checkpoint at an epoch boundary continues as it would have
-uninterrupted.
+Resume restores the parameters, the optimizer's state, the step, the
+generator and, unlike the JAX package, the order of the training batches,
+so a run resumed from a checkpoint at an epoch boundary continues as it
+would have uninterrupted. It copies into the tensors a captured graph
+reads.
 """
 
 from __future__ import annotations
@@ -36,12 +44,15 @@ from typing import Dict, Optional
 import torch
 
 from ..data.dataset import Dataset
+from ..data.prefetch import DeviceBatch, PrefetchingDataset
 from ..midi.vocab import EOS_ID, PAD_ID
 from ..models.vae import StyleVAE
 from . import checkpoint as ckpt
+from .graph import GraphedSteps
 from .metrics import MetricAccumulator, accumulate
-from .optimizer import Adam, OptimizerConfig
-from .train_step import LossConfig, batch_tensors, eval_step, train_step
+from .optimizer import Optimizer, OptimizerConfig
+from .train_step import (LossConfig, TrainState, batch_tensors, eval_step, metric_names,
+                         step_body)
 
 
 @dataclasses.dataclass
@@ -68,6 +79,18 @@ class TrainConfig:
     # disables; cli.main defaults it to 8.
     gen_health_rows: int = 0
     steps_per_dispatch: int = 1
+    # When set, a torch.profiler trace of steps [profile_start, profile_stop)
+    # is written here.
+    profile_dir: Optional[str] = None
+    profile_start: int = 10
+    profile_stop: int = 20
+    # Host->device input prefetch depth (0 disables; data/prefetch.py).
+    prefetch: int = 2
+    # Per-parameter gradient-norm scalars (reference: trainer.py:257-270).
+    log_param_grad_norms: bool = False
+    # Gradient accumulation: apply the optimizer every k steps
+    # (optax.MultiSteps); effective batch = k * batch_size.
+    grad_accum_steps: int = 1
 
 
 class Trainer:
@@ -78,7 +101,8 @@ class Trainer:
         self.model = model
         self.sampler = sampler
         self.device = model.device
-        self.optimizer = Adam(list(model.parameters()), config.optimizer)
+        self.optimizer = Optimizer(list(model.parameters()), config.optimizer,
+                                   accumulate_steps=config.grad_accum_steps)
         self.loss_config = LossConfig(
             kl_weight=config.kl_loss_weight,
             label_smoothing=config.label_smoothing,
@@ -86,9 +110,13 @@ class Trainer:
             free_bits=config.free_bits,
         )
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
-        self.step = 0
+        # the step count and the metric sums, on the device
+        self.state = TrainState(metric_names(model, config.log_param_grad_norms), self.device)
+        self.graphs = (GraphedSteps(model, self.optimizer, self.loss_config, self.state,
+                                    self.generator, max(1, config.steps_per_dispatch))
+                       if self.device.type == "cuda" else None)
         self.progress = ckpt.TrainingProgress()
-        self._metric_acc = None
+        self._profiler = None
         self._health_batch = None
         self._health_classes = 0
         self._dataset = None
@@ -120,11 +148,15 @@ class Trainer:
         self._batches_at_start = self.progress.n_batches
         self._last_log = None
         self._stop_requested = False
+        if cfg.prefetch > 0:
+            dataset = PrefetchingDataset(dataset, cfg.prefetch, self.device)
         restore_handlers = self._install_signal_handlers()
         try:
             self._fit_loop(dataset, model_folder, epochs, validation_dataset, start_time)
         finally:
             restore_handlers()
+            if self._profiler is not None:  # training ended inside the window
+                self._stop_profiler()
 
     def _install_signal_handlers(self):
         """SIGTERM/SIGINT: finish the current batch, checkpoint, return."""
@@ -160,10 +192,9 @@ class Trainer:
                                    start_time, dataset):
                     return
                 group = []
-            for b in group:  # the epoch's remainder, one step at a time
-                if self._run_group([b], epoch, model_folder, validation_dataset,
-                                   start_time, dataset):
-                    return
+            if group and self._run_group(group, epoch, model_folder, validation_dataset,
+                                         start_time, dataset):  # the epoch's remainder
+                return
             group = []
         if self.progress.n_batches != self._last_ckpt_batches:
             self._checkpoint(model_folder, validation_dataset)
@@ -175,8 +206,18 @@ class Trainer:
         Returns True when training should stop."""
         cfg = self.config
         prev = self.progress.n_batches
-        for batch in group:
-            self.train_batch(batch)
+        if cfg.profile_dir is not None:
+            # Snapped to group boundaries (the JAX package's trainer.py:348-360):
+            # a running trace stops at the first boundary at or after
+            # profile_stop, and starts before the group that covers
+            # profile_start.
+            if self._profiler is not None and prev >= cfg.profile_stop:
+                self._stop_profiler()
+            if prev <= cfg.profile_start < prev + len(group) and self._profiler is None:
+                self._start_profiler()
+        staged = [b if isinstance(b, DeviceBatch) else DeviceBatch(b, batch_tensors(b, self.device))
+                  for b in group]
+        self.train_batches([b.tensors for b in staged])
         self.progress.n_batches += len(group)
         nb = self.progress.n_batches
 
@@ -195,17 +236,42 @@ class Trainer:
         if (self.sampler is not None and cfg.sampling_frequency > 0
                 and nb // cfg.sampling_frequency > prev // cfg.sampling_frequency):
             with self._eval_mode():
-                self.sampler.process_batch(group[-1],
+                self.sampler.process_batch(staged[-1].batch,
                                            os.path.join(model_folder, f"samples/step-{nb}"),
                                            dataset.num_classes())
         return False
 
-    def train_batch(self, batch) -> None:
-        """One training step on a host batch."""
-        self._metric_acc = train_step(
-            self.model, self.optimizer, self.loss_config, self.step, self._metric_acc,
-            *batch_tensors(batch, self.device), generator=self.generator)
-        self.step += 1
+    def train_batches(self, group) -> None:
+        """One training step per (tokens, seq_lens, classes, labels) of
+        ``group``: one graph replay on CUDA, eager steps on the CPU."""
+        if self.graphs is not None:
+            self.graphs.run(group)
+            return
+        for tensors in group:
+            step_body(self.model, self.optimizer, self.loss_config, self.state, *tensors,
+                      generator=self.generator)
+
+    @property
+    def step(self) -> int:
+        """The steps taken (a host read of the device count)."""
+        return int(self.state.step)
+
+    def _start_profiler(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+
+    def _stop_profiler(self) -> None:
+        self._profiler.stop()
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        path = os.path.join(self.config.profile_dir, "trace.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        print(f"Profiler trace written to {path}")
 
     @contextlib.contextmanager
     def _eval_mode(self):
@@ -252,7 +318,7 @@ class Trainer:
         self.progress.save(model_folder)
         if self.config.keep_checkpoints > 0:
             ckpt.prune_checkpoints(model_folder, self.config.keep_checkpoints)
-        self._metric_acc = None  # reset running metrics (trainer.py:210)
+        self.state.reset_metrics()  # reset running metrics (trainer.py:210)
 
         if self._health_batch is not None:
             vals = self._generation_health()
@@ -260,7 +326,7 @@ class Trainer:
             print("Generation health: "
                   + " ".join(f"{k}={v:.3f}" for k, v in sorted(vals.items())))
         if self.optimizer.skip_nonfinite:
-            skipped = int(self.optimizer.total_notfinite)
+            skipped = int(self.optimizer.state["total_notfinite"])
             if skipped:
                 print(f"Non-finite gradient updates skipped: {skipped}")
             self._write_scalars({"nonfinite_updates_skipped": skipped})
@@ -335,7 +401,8 @@ class Trainer:
         self.optimizer.load_state_dict(state["optimizer"])
         with torch.no_grad():
             self.optimizer.flat.copy_(params)
-        self.step = int(state["step"])
+            self.state.step.fill_(int(state["step"]))
+        self.optimizer.params_changed()
         self.generator.set_state(state["generator"])
         data_rng = getattr(self._dataset, "_rng", None)
         if data_rng is not None and state.get("data_rng") is not None:
@@ -352,8 +419,8 @@ class Trainer:
 
     def _periodic_log(self, epoch: int, start_time: float) -> None:
         host = MetricAccumulator()
-        host.update(self._metric_acc or {})
-        self._metric_acc = None
+        host.update(self.state.metrics())
+        self.state.reset_metrics()
         vals = host.get()
         self._write_scalars(vals)
         now = time.time()

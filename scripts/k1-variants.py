@@ -4,6 +4,7 @@ text-substituted variants of its source, on the card.
 
     python3 scripts/k1-variants.py plans
     python3 scripts/k1-variants.py sources
+    python3 scripts/k1-variants.py serving [NAME ...]
 
 Builds csrc/fused_decode.cu as the package does and launches it at the
 three recipe decoders with seeded bf16 weights (the canonical decoder, 64
@@ -19,6 +20,15 @@ sums, so in bf16 a token may flip where two logits nearly tie).
 nvcc processes at once, ``-Xptxas -v``: its registers and spills are
 printed), holds its float32 forced logits to the plain version's at a
 short length, and times it at the three shapes under the planned plan.
+
+``serving`` builds the named variants (default: all) and times each on the
+serving path's own launch: the shipped models/guitar_bass export, the first
+batch of work/data/guitar_bass (32 sources, L=64) encoded into both
+classes, B=64, T=130, bf16, seed 5, in sample mode as the sampler runs it
+(no top-k or top-p) and with top-k 30 and top-p 0.9. The variants take
+turns over ``ROUNDS`` rounds (A B, B A, ...), each time the mean of 50
+launches by CUDA events after one warm-up; each variant's tokens are held
+to the first variant's.
 """
 
 from __future__ import annotations
@@ -48,7 +58,11 @@ SOURCES = {
     "512 threads": [(THREADS, "constexpr int kThreads = 512,")],
     "every device function inlined": [("__device__ void ", "__device__ __forceinline__ void ",
                                        "every")],
+    "token choice from shared memory at every V": [
+        ("V <= 32 * kMaxVLane ? pick_narrow(a, lg, noise, b, t, lse)\n"
+         "                                        : pick_wide(", "pick_wide(")],
 }
+ROUNDS = 4
 
 REPS = 3
 SHAPES = (
@@ -136,6 +150,46 @@ def sources() -> None:
               f"{times[1]:.3f} ms, long {times[2]:.3f} ms a launch", flush=True)
 
 
+def serving(names) -> None:
+    from musicstyletransfer_torch.data import Loader, MelodyDataset
+    from musicstyletransfer_torch.inference import decode
+    from musicstyletransfer_torch.inference.sampler import load_inference_model
+
+    names = names or list(SOURCES)
+    with ThreadPoolExecutor(len(names)) as pool:
+        built = list(pool.map(lambda n: build_variant(n, SOURCES[n]), names))
+    libs = {}
+    for name, so, info in built:
+        print(f"== {name}: {info}", flush=True)
+        if so is not None:
+            libs[name] = ctypes.CDLL(so)
+    repo = _build.REPO_ROOT
+    loader = Loader(str(repo / "work" / "data" / "guitar_bass"), 64)
+    batch = next(iter(MelodyDataset(32, loader.max_sequence_length, loader.melodies)))
+    model = load_inference_model(str(repo / "models" / "guitar_bass"), -1, torch.device("cuda"))
+    tokens = torch.as_tensor(batch.tokens, dtype=torch.long).cuda()
+    seq_lens = torch.as_tensor(batch.seq_lens, dtype=torch.long).cuda()
+    with torch.inference_mode():
+        classes = torch.arange(2, device="cuda").repeat_interleave(tokens.shape[0])
+        z = decode._encode_deterministic(model, tokens.repeat(2, 1), seq_lens.repeat(2), classes)
+        x0 = model.decode_init(z, classes).contiguous()
+    for label, kw in (("sample", {}), ("sample top-k 30 top-p 0.9", dict(top_k=30, top_p=0.9))):
+        times = {n: [] for n in libs}
+        want = None
+        for r in range(ROUNDS):
+            for name in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
+                fd._build._loaded["fused_decode"] = libs[name]
+                run = lambda: fd.fused_decode(model, x0, 130, 5, **kw)  # noqa: E731
+                times[name].append(time_launch(run, 50))
+                seqs, _ = run()
+                want = seqs if want is None else want
+                if not torch.equal(seqs, want):
+                    print(f"  {name}: tokens differ from {list(libs)[0]!r}", flush=True)
+        for name, ms in times.items():
+            print(f"  {label}, B=64 T=130 bf16, {name}: " + " / ".join(f"{t:.4f}" for t in ms)
+                  + f" ms a launch (least {min(ms):.4f})", flush=True)
+
+
 def plans() -> None:
     planned, max_cluster = fd.plan, fd.MAX_CLUSTER
     for label, dec, latent, rows, steps, cond, mode in SHAPES:
@@ -189,4 +243,8 @@ if __name__ == "__main__":
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    {"plans": plans, "sources": sources}[sys.argv[1] if len(sys.argv) > 1 else "plans"]()
+    mode = sys.argv[1] if len(sys.argv) > 1 else "plans"
+    if mode == "serving":
+        serving(sys.argv[2:])
+    else:
+        {"plans": plans, "sources": sources}[mode]()

@@ -8,13 +8,15 @@ TREE (default: the tree holding this script) is a checkout of the repository,
 for example an older commit unpacked with ``git archive`` into a directory
 that .gitignore lists; its own ``chip_smoke.py`` and package are imported,
 so two trees are compared on one card by running this script once for each,
-in turns (old, new, new, old). Prints the step's CUDA-event time, its host
-clock, the device's busy share and kernel time a step by name
-(``chip_smoke.measure_training``), then K2 and K3 at both wide shapes with
+in turns (old, new, new, old). Prints the step's CUDA-event time (eager,
+and as replays of a CUDA graph of 4 steps on trees that have one; the host
+clock on older trees), the device's busy share and kernel time a step by
+name (``chip_smoke.measure_training``), then K2 and K3 at both wide shapes with
 the card held back while the host enqueues, and the wrappers' host time a
 call (the least and the median of five rounds of 100 calls). Needs a card.
 """
 
+import inspect
 import math
 import os
 import sys
@@ -42,9 +44,16 @@ def main() -> int:
     # Older trees name a kernel by one substring of its symbol.
     kernels = ({"K2": ("core_fwd_kernel",), "K3": ("core_bwd_",)} if hasattr(cs, "CORE_SHORT")
                else {"K2": "core_fwd_kernel", "K3": "core_bwd_"})
-    step = cs.measure_training(batch, f"[{label}] wide", "train-vae-wide.sh", kernels)
-    cs.log(f"[{label}] wide step {step['ms']:.3f} ms (CUDA events), {step['host_ms']:.3f} ms host "
-           f"clock, busy {step['busy']:.3f}, kernel shares {step['shares']}")
+    args = (batch, f"[{label}] wide", "train-vae-wide.sh", kernels)
+    if "n" in inspect.signature(cs.measure_training).parameters:  # eager and graphed
+        step = cs.measure_training(*args, 4)
+        for mode in ("eager", "graphed"):
+            cs.log(f"[{label}] wide step, {mode}: {step[mode]['ms']:.3f} ms (CUDA events), busy "
+                   f"{step[mode]['busy']:.3f}, kernel shares {step[mode]['shares']}")
+    else:
+        step = cs.measure_training(*args)
+        cs.log(f"[{label}] wide step {step['ms']:.3f} ms (CUDA events), {step['host_ms']:.3f} ms "
+               f"host clock, busy {step['busy']:.3f}, kernel shares {step['shares']}")
     seq_lens = torch.as_tensor(batch.seq_lens).long()
     for name, T, hd, causal in cs.CORE_SHAPES:
         lens = (seq_lens if name == "encoder" else seq_lens + 1).to(torch.int32).cuda()

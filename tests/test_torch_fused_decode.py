@@ -367,12 +367,27 @@ class TestPlan:
         assert p["cluster"] == C and H % C == 0
 
     @pytest.mark.parametrize("D,H,FF,V,match", [
-        (100, 4, 400, 293, "multiples of 32"), (128, 8, 400, 293, "multiples of 32"),
-        (128, 3, 512, 293, "not a multiple of the 3 heads"), (128, 8, 512, 321, "vocabulary 321"),
-        (128, 8, 512, 0, "vocabulary 0")])
+        (128, 3, 512, 293, "not a multiple of the 3 heads"), (128, 8, 512, 0, "vocabulary 0")])
     def test_shapes_the_kernel_does_not_take(self, D, H, FF, V, match):
+        """Only what the JAX package refuses too: heads that do not divide
+        the model size, and an empty vocabulary."""
         with pytest.raises(ValueError, match=match):
             fd.plan(8, D, H, FF, V, 1, 16, 2)
+
+    @pytest.mark.parametrize("D,H,FF,V,Dp,FFp", [
+        (100, 4, 400, 293, 128, 416), (128, 8, 400, 293, 128, 416),
+        (128, 8, 512, 321, 128, 512), (128, 8, 512, 400, 128, 512),
+        (60, 3, 240, 293, 96, 256), (30, 5, 120, 1, 160, 128)])
+    @pytest.mark.parametrize("esize", [2, 4])
+    def test_lifted_shapes_plan(self, D, H, FF, V, Dp, FFp, esize):
+        """Any model size the heads divide, any FF, any vocabulary: the plan
+        runs at the padded widths (Dp a multiple of 32 the heads divide)."""
+        assert fd.padded_widths(D, H, FF) == (Dp, FFp)
+        p = fd.plan(8, D, H, FF, V, 1, 16, esize)
+        C = p["cluster"]
+        assert (p["D"], p["FF"]) == (Dp, FFp) and H % C == 0
+        assert Dp % (8 * C) == 0 and FFp % (8 * C) == 0
+        assert p["smem"] == fd.smem_bytes(p["rows"], C, Dp, H, FFp, V, esize, 1, p["resident"])
 
 
 class TestPack:
@@ -416,3 +431,106 @@ class TestPack:
             assert bool((got["final_lns"] == 1).all() and (got["final_lnb"] == 0).all())
         assert torch.equal(got["head"], model.decoder.output_layer.weight.detach().float())
         assert torch.equal(got["head_b"], model.decoder.output_layer.bias.detach().float())
+
+
+def padded_model(d, heads, vocab, norm_scheme, conditioning, seed=0):
+    """A float32 decoder whose widths the kernel pads (FF = 4 * d)."""
+    cfg = make_config(d=d, layers=2, heads=heads, vocab=vocab, norm_scheme=norm_scheme,
+                      class_conditioning=conditioning)
+    torch.manual_seed(seed)
+    model = StyleVAE(tconfig.ModelConfig.from_dict(dataclasses.asdict(cfg))).eval()
+    with torch.no_grad():  # LayerNorm parameters away from ones/zeros
+        for m in model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.normal_(1.0, 0.2)
+                m.bias.normal_(0.0, 0.2)
+    return model
+
+
+@torch.no_grad()
+def padded_forced_logits(model, x0, forced, classes):
+    """The kernel's arithmetic in float32 on the padded pack (zeros in every
+    pad, LayerNorm statistics over the true columns): forced logits [B, T, V]."""
+    pack = fd.pack_weights(model)
+    D, H, FF, Dp, FFp = pack["dims"]
+    tc = model.decoder.config.transformer_config
+    NL, V = tc.num_layers, model.decoder.config.output_dim
+    w = fd.padded_weights(pack, NL, V)
+    hdp, B, T = Dp // H, x0.shape[0], forced.shape[1]
+    pre = tc.norm_scheme == "pre"
+
+    def ln(x, s, b):
+        mean = x[:, :D].mean(-1, keepdim=True)
+        var = ((x[:, :D] - mean) ** 2).mean(-1, keepdim=True)
+        y = (x - mean) / torch.sqrt(var + 1e-6) * s + b
+        return torch.cat([y[:, :D], torch.zeros_like(y[:, D:])], -1)
+
+    bias = (fd._pad(model.decoder.step_bias(classes), B, Dp)
+            if model.decoder.per_step_conditioning else 0.0)
+    caches = [([], []) for _ in range(NL)]
+    x = pack["scale"] * fd._pad(x0, B, Dp) + pack["pos"][0]
+    out = torch.zeros(B, T, V)
+    for t in range(T):
+        if t > 0:  # the input of position t: SOS, then the forced tokens
+            tok = forced[:, t - 1].long() if t > 1 else torch.full((B,), SOS_ID)
+            x = pack["scale"] * (pack["emb"][tok] + bias) + pack["pos"][t]
+        for l in range(NL):
+            g = {k.split(".")[-1]: v for k, v in w.items() if k.startswith(f"layers.{l}.")}
+            inp = ln(x, g["ln1s"], g["ln1b"]) if pre else x
+            q, k, v = (inp @ g["wqkv"].T + g["bqkv"]).reshape(B, 3, H, hdp).unbind(1)
+            caches[l][0].append(k)
+            caches[l][1].append(v)
+            K, Vc = torch.stack(caches[l][0], 2), torch.stack(caches[l][1], 2)
+            p = torch.softmax(torch.einsum("bhd,bhkd->bhk", q, K) / pack["head_scale"], -1)
+            o = torch.einsum("bhk,bhkd->bhd", p, Vc).reshape(B, Dp) @ g["wo"].T + g["bo"]
+            if pre:
+                x = x + o
+                h = torch.relu(ln(x, g["ln2s"], g["ln2b"]) @ g["w1"].T + g["b1"])
+                x = x + h @ g["w2"].T + g["b2"]
+            else:
+                x = ln(x + o, g["ln1s"], g["ln1b"])
+                h = torch.relu(x @ g["w1"].T + g["b1"])
+                x = ln(x + h @ g["w2"].T + g["b2"], g["ln2s"], g["ln2b"])
+        h = ln(x, w["final_lns"], w["final_lnb"]) if pre else x
+        if t > 0:
+            out[:, t] = h @ w["head"].T + w["head_b"]
+    return out
+
+
+class TestPaddedWidths:
+    """Decoders whose widths the kernel pads (D=100 with 4 heads of 25, FF
+    400, a vocabulary of 400): the pack's pads are zeros that change no
+    product. Tolerance: float32 sums in another order, 1e-4 on logits."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_unpack_gives_back_the_weights(self, dtype):
+        cfg = make_config(d=100, layers=2, heads=4, norm_scheme="pre", dtype=dtype)
+        torch.manual_seed(0)
+        model = StyleVAE(tconfig.ModelConfig.from_dict(dataclasses.asdict(cfg)))
+        pack = fd.pack_weights(model)
+        assert pack["dims"] == (100, 4, 400, 128, 416)
+        got = fd.unpack_weights(pack, 100, 400, 2, 293)
+        att = model.decoder.decoder.layers[1].attention
+        want = torch.cat([att.w_q.weight, att.w_k.weight, att.w_v.weight])
+        assert torch.equal(got["layers.1.wqkv"], want.detach().to(model.compute_dtype))
+        assert torch.equal(got["layers.1.wo"], att.w_o.weight.detach().to(model.compute_dtype))
+        padded = fd.padded_weights(pack, 2, 293)["layers.1.wqkv"].float()
+        heads = padded.reshape(3, 4, 32, 128)
+        assert not heads[:, :, 25:].any() and not heads[..., 100:].any()
+
+    @pytest.mark.parametrize("d,heads,vocab,norm_scheme,conditioning", [
+        (100, 4, 293, "post", "initial"), (100, 4, 400, "pre", "per_step"),
+        (60, 3, 293, "post", "per_step"), (128, 8, 400, "pre", "initial")])
+    def test_padded_pack_computes_the_model(self, d, heads, vocab, norm_scheme, conditioning):
+        model = padded_model(d, heads, vocab, norm_scheme, conditioning)
+        rng = np.random.default_rng(1)
+        B, T = 3, 9
+        classes = torch.as_tensor(rng.integers(0, 2, B))
+        with torch.no_grad():
+            x0 = model.decode_init(torch.as_tensor(rng.normal(size=(B, 32)),
+                                                   dtype=torch.float32), classes)
+        forced = torch.as_tensor(rng.integers(3, vocab, (B, T)), dtype=torch.int32)
+        _, _, want = fd.fused_decode_reference(model, x0, T, 0, mode="forced",
+                                               forced_tokens=forced, classes=classes)
+        got = padded_forced_logits(model, x0, forced, classes)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-4)

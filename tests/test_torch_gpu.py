@@ -1,5 +1,5 @@
-"""K1-K5's CUDA kernels against their plain PyTorch versions, on a CUDA
-card.
+"""K1-K5's CUDA kernels against their plain PyTorch versions, and CUDA
+graphs of training steps against eager steps, on a CUDA card.
 
 Skipped where ``torch.cuda.is_available()`` is False. This file imports no
 JAX, so it also runs on a machine with the card and no JAX (whose
@@ -16,7 +16,10 @@ strided [B, T, H, hd] views and with an lse cotangent. bfloat16 at head
 dimension 32 or 64 takes the tensor-core kernels (K2 and K3 through the
 core's entry points of the same source), which round P and dS to bf16
 before their second products: out 3e-2, lse 1e-3, gradients 2e-2 relative
-to their largest magnitude (``chip_smoke.py``'s tolerances).
+to their largest magnitude (``chip_smoke.py``'s tolerances). K1 at padded
+widths and wide vocabularies takes K1's tolerances. A graph of training
+steps and the same eager steps run the same kernels on the same inputs in
+the same order: bit for bit.
 """
 
 import numpy as np
@@ -517,3 +520,158 @@ def test_remat_replays_the_cuda_generator(cuda):
     assert torch.equal(l0, l1) and torch.equal(s0, s1)
     for a, b in zip(g0, g1):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H,FF,V,norm_scheme", [(100, 4, 400, 293, "post"),
+                                                  (128, 8, 512, 400, "pre"),
+                                                  (60, 3, 240, 700, "post")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_widths_and_wide_vocabulary(cuda, D, H, FF, V, norm_scheme, dtype):
+    """K1 on decoders it pads (model size 100 with heads of 25, 60 with 3
+    heads, FF 400) or whose vocabulary outgrows the token choice's
+    registers (400, 700): forced logits, greedy and same-seed sampled tokens
+    against the plain version, and top-k/top-p samples in the support."""
+    tc = TransformerConfig(model_size=D, num_heads=H, ffn_multiplier=FF // D, vocab_size=V,
+                           norm_scheme=norm_scheme)
+    cfg = ModelConfig(
+        encoder_config=EncoderConfig(transformer_config=TransformerConfig(model_size=32),
+                                     latent_dim=16, input_dim=V),
+        decoder_config=DecoderConfig(transformer_config=tc, latent_dim=16, output_dim=V,
+                                     class_conditioning="per_step"),
+        dtype=dtype)
+    torch.manual_seed(0)
+    model = StyleVAE(cfg).to(cuda).eval()
+    rng = np.random.default_rng(4)
+    classes = torch.as_tensor(rng.integers(0, 2, 12), device=cuda)
+    with torch.inference_mode():
+        x0 = model.decode_init(torch.as_tensor(rng.normal(size=(12, 16)), dtype=torch.float32,
+                                               device=cuda), classes).contiguous()
+    check_against_plain(model, x0, classes, rng, 24, dtype)
+    seqs, _ = fd.fused_decode(model, x0, 24, 5, 0.9, top_k=30, top_p=0.8, classes=classes)
+    _, _, logits = fd.fused_decode(model, x0, 24, 0, mode="forced", forced_tokens=seqs,
+                                   classes=classes)
+    scaled = fd.filter_support(logits.reshape(-1, V) / 0.9, 30, 0.8).reshape(logits.shape)
+    chosen = scaled.gather(2, seqs.long()[:, :, None])[:, 1:, 0]
+    live = torch.cumsum((seqs == 2).int(), 1)[:, :-1] == 0  # up to each row's EOS
+    assert bool((chosen[live] > -1e29).all())
+
+
+def tiny_recipe(remat, device, core, lr=1e-3, accumulate=2):
+    tc = TransformerConfig(model_size=64, num_layers=2, num_heads=2, dropout=0.1,
+                           use_flash_attention=core, attention_core_min_seq_len=1, remat=remat)
+    cfg = ModelConfig(encoder_config=EncoderConfig(transformer_config=tc, latent_dim=8),
+                      decoder_config=DecoderConfig(transformer_config=tc, latent_dim=8),
+                      dtype="float32")
+    from musicstyletransfer_torch.models.vae import init_params
+    from musicstyletransfer_torch.training.optimizer import Optimizer, OptimizerConfig
+
+    model = init_params(StyleVAE(cfg), 0).to(device)
+    opt = Optimizer(list(model.parameters()),
+                    OptimizerConfig("adam", "clip_gradient:1.0,skip_nonfinite:3", lr),
+                    accumulate_steps=accumulate)
+    return model, opt
+
+
+def step_batches(device, n, seed=5):
+    """``n`` (tokens, seq_lens, classes, labels) batches of 4 rows, L=20."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        tokens = torch.as_tensor(rng.integers(3, 293, (4, 21)), device=device)
+        tokens[:, 0] = 1
+        tokens[2, 15:] = 0
+        labels = torch.roll(tokens, -1, 1)
+        labels[:, -1] = 0
+        out.append((tokens, (tokens != 0).sum(-1), torch.as_tensor(rng.integers(0, 2, 4),
+                                                                   device=device), labels))
+    return out
+
+
+def run_groups(model, opt, groups, graphed, device):
+    """Train ``model`` on ``groups`` of batches from a seeded generator:
+    each group one replay of a ``GraphedSteps`` graph of its length, or
+    eager ``step_body`` calls. Returns the state tensors, the generator's
+    state and the launch counts."""
+    from musicstyletransfer_torch.ops import counters
+    from musicstyletransfer_torch.training.graph import GraphedSteps
+    from musicstyletransfer_torch.training.train_step import (LossConfig, TrainState,
+                                                              metric_names, step_body)
+
+    loss = LossConfig(kl_weight=0.5, kl_anneal_steps=4, free_bits=0.1)
+    state = TrainState(metric_names(model, True), device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    counters.reset()
+    graphs = GraphedSteps(model, opt, loss, state, gen, max(map(len, groups)))
+    for group in groups:
+        if graphed:
+            graphs.run(group)
+        else:
+            for t in group:
+                step_body(model, opt, loss, state, *t, generator=gen)
+    torch.cuda.synchronize()
+    return ([opt.flat, *opt.state.values(), state.step, state.sums, state.counts],
+            gen.get_state(), counters.read())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat,core", [(False, True), (True, True), (False, False)])
+def test_graph_of_steps_equals_eager_steps(cuda, remat, core):
+    """Two replays of a CUDA graph of 3 training steps against 6 eager
+    ``step_body`` calls from one seeded state (dropout, the attention
+    core's kernels where ``core``, remat, gradient accumulation over 2
+    steps, the KL anneal): parameters, optimizer state, step count, metric
+    sums and the dropout generator bit for bit; the launch counters count
+    each replay's launches as the eager steps' own."""
+    group = step_batches(cuda, 3)
+    out = [run_groups(*tiny_recipe(remat, cuda, core), [group, group], graphed, cuda)
+           for graphed in (False, True)]
+    (a, ga, ca), (b, gb, cb) = out
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(ga, gb) and ca == cb
+    assert ca["K3"] == (6 * 4 if core else 0)
+
+
+@pytest.mark.gpu
+def test_graphs_of_two_lengths_interleaved(cuda):
+    """The trainer's graph of a group and the graph of an epoch's shorter
+    remainder share one memory pool and replay out of capture order
+    (3, 2, 3): equal to the same 8 eager ``step_body`` calls bit for bit."""
+    batches = step_batches(cuda, 8, seed=7)
+    groups = [batches[:3], batches[3:5], batches[5:]]
+    out = [run_groups(*tiny_recipe(False, cuda, True, accumulate=1), groups, graphed, cuda)
+           for graphed in (False, True)]
+    (a, ga, ca), (b, gb, cb) = out
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(ga, gb) and ca == cb and ca["K3"] == 8 * 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("graphed", [False, True])
+def test_k1_follows_the_trained_weights(cuda, graphed):
+    """K1 packs the decoder's weights once and reuses the pack while the
+    parameters' version counters stand still. A training step (eager, or a
+    graph replay, which runs no Python) writes the parameters in place:
+    K1's forced logits after it agree with the plain version's on the
+    trained model (1e-3) and moved away from those before it."""
+    model, opt = tiny_recipe(False, cuda, True, lr=1e-2, accumulate=1)
+    rng = np.random.default_rng(6)
+    classes = torch.as_tensor(rng.integers(0, 2, 8), device=cuda)
+    z = torch.as_tensor(rng.normal(size=(8, 8)), dtype=torch.float32, device=cuda)
+    forced = torch.as_tensor(rng.integers(3, 293, (8, 16)), dtype=torch.int32, device=cuda)
+
+    def logits(decode):
+        model.eval()
+        with torch.inference_mode():
+            x0 = model.decode_init(z, classes).contiguous()
+            out = decode(model, x0, 16, 0, mode="forced", forced_tokens=forced,
+                         classes=classes)[2].clone()
+        model.train()
+        return out
+
+    before = logits(fd.fused_decode)
+    run_groups(model, opt, [step_batches(cuda, 1)], graphed, cuda)
+    kernel, plain = logits(fd.fused_decode), logits(fd.fused_decode_reference)
+    torch.cuda.synchronize()
+    assert float((kernel - plain).abs().max()) <= 1e-3
+    assert float((plain - before).abs().max()) > 1e-2

@@ -151,9 +151,16 @@ class TestSampling:
         assert seqs.shape == (8, 2 * short_batch.tokens.shape[1])
         assert (seqs[:, 0] == SOS_ID).all() and ((seqs >= 0) & (seqs < 293)).all()
 
-    def test_beam_search_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-            get_sampler("beam-search", MODEL, -1, get_config([]))
+    def test_beam_search_sampler_and_unknown_type(self, model, short_batch):
+        """get_sampler("beam-search") decodes by beam search (the shipped
+        model, bf16, K=2, L=16: [2, 8, 34]); an unknown type raises."""
+        sampler = get_sampler("beam-search", None, None,
+                              get_config(["--beam-size", "2", "--length-penalty", "0.6"]),
+                              model=model)
+        assert (sampler.beam_size, sampler.length_penalty) == (2, 0.6)
+        seqs = sampler.sample_all_classes(short_batch, 2)
+        assert seqs.shape == (2, 8, 34)
+        assert (seqs[..., 0] == SOS_ID).all() and ((seqs >= 0) & (seqs < 293)).all()
         with pytest.raises(ValueError):
             get_sampler("nope", MODEL, -1, get_config([]))
 
@@ -184,7 +191,20 @@ class TestDevice:
         with pytest.raises(ValueError):
             resolve_device(gpu=True, cpu=True)
 
-    @pytest.mark.parametrize("argv", [["--data", CORPUS], ["--toy", "-o", "x"]])
+    @pytest.mark.parametrize("argv", [["--data", CORPUS]])
     def test_cli_refuses(self, argv):
         with pytest.raises(SystemExit):
             cli_sample.main(argv)
+
+    def test_cli_toy_runs(self, tmp_path, monkeypatch):
+        """``cli.sample --toy`` transfers ToyData with the toy model that
+        ``cli.main --toy`` trained (its folder moved into tmp_path): 3
+        originals and 3 rows x 3 classes."""
+        from musicstyletransfer_torch.cli import main as cli_main
+
+        folder = str(tmp_path / "toy" / "model")
+        monkeypatch.setattr(cli_main, "TOY_MODEL", folder)
+        monkeypatch.setattr(cli_sample, "TOY_MODEL", folder)
+        cli_main.main_toy(get_config(["--cpu"]), epochs=3, model_folder=folder)
+        cli_sample.main(["--toy", "--cpu", "-o", str(tmp_path / "out")])
+        assert len(os.listdir(tmp_path / "out")) == 3 + 3 * 3

@@ -45,9 +45,10 @@ from musicstyletransfer_torch.data import layout_chunks
 from musicstyletransfer_torch.models import StyleVAE
 from musicstyletransfer_torch.models import config as tconfig
 from musicstyletransfer_torch.ops import attention_core as ac
+from musicstyletransfer_torch.ops import fused_decode as fd
 from musicstyletransfer_torch.training import loss as tloss
 from musicstyletransfer_torch.training import metrics as tmetrics
-from musicstyletransfer_torch.training.optimizer import Adam, OptimizerConfig
+from musicstyletransfer_torch.training.optimizer import OptimizerConfig, Optimizer
 from musicstyletransfer_torch.training.train_step import LossConfig, eval_step, train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -173,28 +174,43 @@ def test_losses_and_metrics_match_jax():
         assert acc.get()[k] == pytest.approx(v, rel=1e-5)
 
 
+# (optimizer, extras, steps whose gradient holds a NaN, accumulation steps k)
 OPT_CASES = {
-    "warmup+cosine, one NaN step": ("clip_gradient:1.0,clip_global_norm:1.0,warmup_steps:2,"
-                                    "decay_steps:4,skip_nonfinite:2", [3]),
-    "gives up after K non-finite steps": ("clip_gradient:1.0,skip_nonfinite:2", [1, 2, 3]),
-    "constant rate, epsilon and betas": ("beta1:0.8,beta2:0.99,epsilon:1e-6", []),
-    "warmup only": ("warmup_steps:3,clip_global_norm:0.5", []),
-    "cosine only": ("decay_steps:5", []),
+    "warmup+cosine, one NaN step": ("adam", "clip_gradient:1.0,clip_global_norm:1.0,"
+                                    "warmup_steps:2,decay_steps:4,skip_nonfinite:2", [3], 1),
+    "gives up after K non-finite steps": ("adam", "clip_gradient:1.0,skip_nonfinite:2",
+                                          [1, 2, 3], 1),
+    "constant rate, epsilon and betas": ("adam", "beta1:0.8,beta2:0.99,epsilon:1e-6", [], 1),
+    "warmup only": ("adam", "warmup_steps:3,clip_global_norm:0.5", [], 1),
+    "cosine only": ("adam", "decay_steps:5", [], 1),
+    "adam with wd": ("adam", "wd:0.1", [], 1),
+    "adamw, default decay": ("adamw", "clip_global_norm:1.0", [], 1),
+    "adamw with wd and warmup": ("adamw", "wd:0.05,warmup_steps:2", [], 1),
+    "sgd": ("sgd", "", [], 1),
+    "sgd with momentum, wd and clip": ("sgd", "momentum:0.9,wd:0.1,clip_gradient:1.0", [], 1),
+    "rmsprop": ("rmsprop", "gamma1:0.95,epsilon:1e-6,decay_steps:5", [], 1),
+    "MultiSteps k=2, one NaN step": ("adam", "clip_gradient:1.0,skip_nonfinite:2", [2], 2),
+    "MultiSteps k=3, one NaN step": ("adam", "warmup_steps:2,skip_nonfinite:3", [1], 3),
+    "MultiSteps k=2, sgd with momentum": ("sgd", "momentum:0.5", [], 2),
 }
 
 
 @pytest.mark.parametrize("case", sorted(OPT_CASES))
 def test_optimizer_matches_optax(case):
-    extras, nan_steps = OPT_CASES[case]
+    """Seven steps against build_optimizer's chain (wrapped in
+    optax.MultiSteps where k > 1, as the JAX trainer does)."""
+    name, extras, nan_steps, k = OPT_CASES[case]
     rng = np.random.default_rng(3)
     shapes = [(3, 4), (5,), (2, 2, 3)]
     init = [rng.normal(size=s).astype(np.float32) for s in shapes]
     jparams = {f"p{i}": jnp.asarray(x) for i, x in enumerate(init)}
-    tx = build_optimizer(JaxOptimizerConfig("adam", extras, 1e-2))
+    tx = build_optimizer(JaxOptimizerConfig(name, extras, 1e-2))
+    if k > 1:
+        tx = optax.MultiSteps(tx, every_k_schedule=k).gradient_transformation()
     state = tx.init(jparams)
     tparams = [torch.nn.Parameter(torch.from_numpy(x.copy())) for x in init]
-    opt = Adam(tparams, OptimizerConfig("adam", extras, 1e-2))
-    for step in range(6):
+    opt = Optimizer(tparams, OptimizerConfig(name, extras, 1e-2), accumulate_steps=k)
+    for step in range(7):
         grads = [(rng.normal(size=s) * 3).astype(np.float32) for s in shapes]
         if step in nan_steps:
             grads[1][2] = np.nan
@@ -206,13 +222,57 @@ def test_optimizer_matches_optax(case):
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[f"p{i}"]),
                                        rtol=1e-5, atol=1e-7, err_msg=f"{case}, step {step}")
     if "skip_nonfinite" in extras:
-        assert int(opt.total_notfinite) == int(state.total_notfinite) == len(nan_steps)
+        guard = getattr(state, "inner_opt_state", state)
+        assert int(opt.state["total_notfinite"]) == int(guard.total_notfinite)
+        # a NaN stays in MultiSteps' running mean: every later k-th step is skipped
+        assert int(opt.state["total_notfinite"]) == (len(nan_steps) if k == 1 else 2)
 
 
-@pytest.mark.parametrize("extras,name", [("", "sgd"), ("wd:0.1", "adam")])
-def test_unported_optimizer_options_raise(extras, name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Adam([torch.nn.Parameter(torch.zeros(2))], OptimizerConfig(name, extras, 1e-3))
+def test_unknown_optimizer_raises():
+    with pytest.raises(ValueError, match="unsupported optimizer 'lamb'"):
+        Optimizer([torch.nn.Parameter(torch.zeros(2))], OptimizerConfig("lamb", "", 1e-3))
+
+
+def test_optimizer_state_loads_in_place():
+    """load_state_dict copies into the optimizer's own tensors (a captured
+    CUDA graph keeps reading them): the next step equals the uninterrupted
+    one bit for bit."""
+    rng = np.random.default_rng(4)
+    config = OptimizerConfig("adam", "clip_gradient:1.0,skip_nonfinite:2", 1e-2)
+    grads = [torch.from_numpy(rng.normal(size=7).astype(np.float32)) for _ in range(4)]
+    a = Optimizer([torch.nn.Parameter(torch.ones(7))], config, accumulate_steps=2)
+    for g in grads[:3]:
+        a.step(g)
+    b = Optimizer([torch.nn.Parameter(torch.ones(7))], config, accumulate_steps=2)
+    held = {k: v for k, v in b.state.items()}
+    b.load_state_dict(a.state_dict())
+    with torch.no_grad():
+        b.flat.copy_(a.flat)
+    assert all(b.state[k] is v for k, v in held.items())
+    a.step(grads[3])
+    b.step(grads[3])
+    assert torch.equal(a.flat, b.flat)
+    assert all(torch.equal(a.state[k], b.state[k]) for k in a.state)
+
+
+def test_weight_pack_follows_the_optimizer():
+    """K1's weight pack is keyed by the parameters' version counters; the
+    optimizer writes the parameters through its flat buffer, so it bumps
+    them: the pack after a step is rebuilt, equal to one made afresh, and
+    kept while nothing changes."""
+    torch.manual_seed(0)
+    model = StyleVAE(tconfig.ModelConfig.from_dict(dataclasses.asdict(small_config())))
+    opt = Optimizer(list(model.parameters()), OptimizerConfig("adam", "", 1e-2))
+    before = fd.pack_weights(model)
+    assert fd.pack_weights(model) is before
+    opt.step(torch.ones_like(opt.flat))
+    after = fd.pack_weights(model)
+    assert after is not before and fd.pack_weights(model) is after
+    model._fused_decode_pack = None
+    fresh = fd.pack_weights(model)
+    for k in ("wt", "wf", "emb", "pos"):
+        assert torch.equal(after[k], fresh[k])
+    assert not torch.equal(after["wt"], before["wt"])
 
 
 def test_train_step_and_eval_step(both_models):
@@ -234,7 +294,7 @@ def test_train_step_and_eval_step(both_models):
         assert float(tm[k][1]) == float(c)
 
     extras = "clip_gradient:1.0,clip_global_norm:1.0,skip_nonfinite:3"
-    opt = Adam(list(tmodel.parameters()), OptimizerConfig("adam", extras, 1e-3))
+    opt = Optimizer(list(tmodel.parameters()), OptimizerConfig("adam", extras, 1e-3))
     acc = train_step(tmodel, opt, LossConfig(kl_weight=0.5, kl_anneal_steps=4), 2, None,
                      *ttensors, eps=torch.from_numpy(eps))
     (jtotal, _), jgrads = jax.value_and_grad(
@@ -385,11 +445,46 @@ def test_cli_sample_reads_the_ports_own_checkpoints(tiny_corpus, tmp_path):
         assert (out / name).read_bytes() == (ref / name).read_bytes(), name
 
 
-@pytest.mark.parametrize("flag", [["--toy"], ["--tp", "2"], ["--grad-accum-steps", "2"],
-                                  ["--profile-dir", "x"], ["--log-param-grad-norms"]])
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--dist-coordinator", "localhost:1234"]])
 def test_cli_refuses_unported(flag, tmp_path):
     with pytest.raises(SystemExit, match="not ported"):
         cli_main.main(["--cpu", "--data", CORPUS, "--model-output", str(tmp_path), *flag])
+
+
+@pytest.mark.parametrize("flag", ["--grad-accum-steps", "--profile-dir",
+                                  "--log-param-grad-norms", "--steps-per-dispatch",
+                                  "--prefetch"])
+def test_cli_runs_the_flags_the_jax_cli_has(flag, tiny_corpus, tmp_path):
+    """Each flag through cli.main (3 steps an epoch): --grad-accum-steps 2
+    applies the optimizer every 2nd step; --profile-dir writes the trace of
+    steps 10-20 (4 epochs); --log-param-grad-norms logs one gradient norm
+    per parameter under the JAX package's names; --steps-per-dispatch 2
+    logs at group boundaries (an epoch's remainder is a group of its own);
+    --prefetch 0 trains without the prefetching thread."""
+    from musicstyletransfer_torch.convert import flax_names
+    from musicstyletransfer_torch.inference.sampler import load_inference_model
+
+    model = str(tmp_path / "m")
+    value = {"--grad-accum-steps": "2", "--profile-dir": str(tmp_path / "profile"),
+             "--steps-per-dispatch": "2", "--prefetch": "0"}
+    epochs = 4 if flag == "--profile-dir" else 2
+    extra = [flag, value[flag]] if flag in value else [flag]
+    cli_main.main(train_argv(tiny_corpus, model, model + "-log", epochs, extra=extra))
+    train = [x for x in scalars(model + "-log") if "grad_norm" in x]
+    assert train and all(np.isfinite(x["total_loss"]) for x in train)
+    state = torch.load(os.path.join(model, f"params.{epochs}.pt"), weights_only=False)
+    assert int(state["step"]) == 3 * epochs
+    if flag == "--grad-accum-steps":
+        assert int(state["optimizer"]["count"]) == 3
+        assert int(state["optimizer"]["mini_step"]) == 0
+    elif flag == "--profile-dir":
+        assert os.listdir(value[flag]) == ["trace.json"]
+    elif flag == "--log-param-grad-norms":
+        names = {k[len("grad_norm/"):] for k in train[0] if k.startswith("grad_norm/")}
+        assert names == set(flax_names(load_inference_model(model, -1)))
+        assert all(x[f"grad_norm/{n}"] >= 0 for x in train for n in names)
+    elif flag == "--steps-per-dispatch":
+        assert [x["step"] for x in train] == [2, 3, 5, 6]
 
 
 def test_cli_runs_on_cuda_by_default(monkeypatch, tmp_path):
