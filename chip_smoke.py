@@ -49,6 +49,17 @@
    Serving path: the shipped models/guitar_bass export through
    Sampling.process_dataset on the first two batches of work/data/guitar_bass
    (batch 32, L=64); the MIDI parses back, the decode went through K1 only.
+   Serving entry points (serving_path, the shipped model, bf16):
+   StyleTransferService (buckets 16,32,64, batch 32) serves 64 corpus
+   requests through its threaded loop, one K1 launch a micro-batch and no
+   plain loop, every result parsed back; the streaming engine's graphed
+   cycles equal its eager cycles bit for bit (sampled, admissions between
+   cycles); engine greedy against K1 greedy token for token in float32
+   (bf16: the share of identical rows printed); cli.serve --http on
+   loopback, plain and --streaming, as processes: concurrent posts, /stats,
+   /healthz. Timed: the service's closed-loop requests/s and p50/p99, the
+   engine's p50/p99 open loop at half that rate, ms a cycle graphed and
+   eager, host ops a cycle, the readout copy.
 7. Wide training path: musicstyletransfer_torch.cli.main with
    scripts/train-vae-wide.sh's flags (L=512, batch 8, bf16, pre-LN, the
    attention core; each group of 4 steps one CUDA-graph replay) for two
@@ -1260,6 +1271,402 @@ def main_path(fd, device):
     return sampler.model, dataset, launches
 
 
+MODEL = os.path.join(REPO, "models", "guitar_bass")
+SERVE_BUCKETS, SERVE_BATCH, SERVE_REQUESTS = (16, 32, 64), 32, 64
+SLOTS, SEGMENT = 128, 32  # the engine's defaults (cli.serve --streaming)
+
+
+def corpus_requests(n: int):
+    """n MIDI requests: the corpus's L=64 chunks, each written as a MIDI file."""
+    from musicstyletransfer_torch.data import Loader, MelodyDataset
+    from musicstyletransfer_torch.midi import smf
+    from musicstyletransfer_torch.midi.codec import MelodyWriter, melody_from_ids
+
+    writer, out = MelodyWriter(), []
+    loader = Loader(os.path.join(REPO, "work", "data", "guitar_bass"), L)
+    for batch in MelodyDataset(32, L, loader.melodies):
+        for row in batch.tokens[:batch.num_valid]:
+            out.append(smf.dump_midifile(writer.to_midifile(melody_from_ids(row))))
+            if len(out) == n:
+                return out
+    raise AssertionError(f"the corpus holds fewer than {n} chunks of {L}")
+
+
+def midi_tokens(midi: bytes):
+    """The note-event tokens of a MIDI byte string; every token a real event."""
+    from musicstyletransfer_torch.midi import smf
+    from musicstyletransfer_torch.midi.codec import tokenize_track
+    from musicstyletransfer_torch.midi.vocab import FEATURE_OFFSET
+
+    tracks = smf.parse_midifile(midi).tracks
+    toks = np.concatenate([tokenize_track(t) for t in tracks] or [np.zeros(0, np.int32)])
+    check(bool((toks >= FEATURE_OFFSET).all()), "a result holds a token that is no event")
+    return toks
+
+
+def wait_all(events, timeout: float, what: str) -> None:
+    deadline = time.perf_counter() + timeout
+    for ev in events:
+        check(ev.wait(max(0.0, deadline - time.perf_counter())), f"{what}: timed out")
+
+
+def closed_loop(svc, requests, clients: int, seconds: float):
+    """``clients`` threads, each enqueueing its next request as soon as the
+    last one is served, for ``seconds``: (requests/s, latencies in ms)."""
+    import threading
+
+    lat, errors, lock = [], [], threading.Lock()
+    stop_at = time.perf_counter() + seconds
+
+    def client(i):
+        k = i
+        while time.perf_counter() < stop_at and not errors:
+            ev, box = threading.Event(), []
+            t0 = time.perf_counter()
+            svc.enqueue(requests[k % len(requests)], lambda r: (box.append(r), ev.set()))
+            if not ev.wait(60) or isinstance(box[0], Exception):
+                errors.append(box[0] if box else "timed out")
+                return
+            with lock:
+                lat.append((time.perf_counter() - t0) * 1e3)
+            k += clients
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 120)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in threads), f"closed loop: {errors[:1]}")
+    return len(lat) / wall, sorted(lat)
+
+
+def open_loop(eng, requests, rate: float, seconds: float):
+    """Requests enqueued at ``rate`` a second for ``seconds`` (evenly
+    spaced), whatever the engine's progress: (served/s, latencies in ms)."""
+    import threading
+
+    n = max(1, int(rate * seconds))
+    events, lat, got = [threading.Event() for _ in range(n)], [0.0] * n, [None] * n
+    t_start = time.perf_counter()
+    for i in range(n):
+        delay = t_start + i / rate - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t0 = time.perf_counter()
+
+        def cb(r, i=i, t0=t0):
+            lat[i] = (time.perf_counter() - t0) * 1e3
+            got[i] = r
+            events[i].set()
+
+        eng.enqueue(requests[i % len(requests)], cb)
+    wait_all(events, 120, "open loop")
+    wall = time.perf_counter() - t_start
+    bad = [r for r in got if isinstance(r, Exception)]
+    check(not bad, f"open loop: {bad[:1]}")
+    return n / wall, sorted(lat)
+
+
+def pct(sorted_ms, p: float) -> float:
+    from musicstyletransfer_torch.inference.service import _percentile
+
+    return _percentile(sorted_ms, p)
+
+
+def drive_cycles(eng, schedule, requests):
+    """Cycles of ``eng`` by hand: cycle i admits ``schedule[i]`` requests
+    (the next ones of ``requests``), nothing is harvested; returns every
+    state tensor and the readout after each cycle, on the host."""
+    snaps, k = [], 0
+    eng._ensure_state()
+    for n in schedule:
+        eng._cycle_idx += 1
+        arrivals = [(eng._tokens_from_midi(m), lambda r: None, 0.0) for m in requests[k:k + n]]
+        k += n
+        eng._dispatch(eng._register(arrivals) if arrivals else None)
+        torch.cuda.synchronize()
+        snaps.append([x.cpu() for x in eng._state.tensors() + [eng._readout]])
+    return snaps
+
+
+def engine_rows(eng, requests):
+    """Every request through ``eng`` (its loop driven inline): the raw token
+    row of each (request, class)."""
+    import threading
+
+    eng._result_of = lambda req: dict(req.results_tokens)
+    out, events = {}, [threading.Event() for _ in requests]
+    for i, midi in enumerate(requests):
+        eng.enqueue(midi, lambda r, i=i: (out.__setitem__(i, r), events[i].set()))
+    deadline = time.perf_counter() + 120
+    while not all(e.is_set() for e in events) and time.perf_counter() < deadline:
+        eng._cycle(block=False)
+    check(all(e.is_set() for e in events), "engine rows: timed out")
+    return out
+
+
+def engine_vs_k1(requests, dtype: torch.dtype, decode):
+    """Greedy tokens of the engine (graphed cycles) against K1's greedy
+    decode of the same requests: the share of identical (request, class)
+    rows up to each request's budget."""
+    import dataclasses
+
+    from musicstyletransfer_torch.inference.streaming import StreamingTransferEngine
+    from musicstyletransfer_torch.midi.vocab import PAD_ID, SOS_ID
+    from musicstyletransfer_torch.models import StyleVAE
+
+    eng = StreamingTransferEngine(MODEL, -1, slots=SLOTS, segment_steps=SEGMENT, greedy=True)
+    if dtype == torch.float32:
+        model = StyleVAE(dataclasses.replace(eng.model.config, dtype="float32"))
+        model.load_state_dict(eng.model.state_dict())
+        eng.model = model.to(eng.device).eval()
+    rows = engine_rows(eng, requests)
+    toks = [eng._tokens_from_midi(m) for m in requests]
+    tokens = np.full((len(toks), L + 1), PAD_ID, np.int64)
+    tokens[:, 0] = SOS_ID
+    for i, t in enumerate(toks):
+        tokens[i, 1:len(t) + 1] = t
+    dev = eng.device
+    lens = torch.as_tensor([len(t) + 1 for t in toks], device=dev)
+    C = eng.num_classes
+    classes = torch.arange(C, device=dev).repeat_interleave(len(toks))
+    seqs, _ = decode.sample_sequences(eng.model, torch.as_tensor(tokens, device=dev).repeat(C, 1),
+                                      lens.repeat(C), classes, eng.t_gen, 0, greedy=True)
+    seqs = seqs.cpu().numpy().reshape(C, len(toks), -1)
+    same = [np.array_equal(rows[i][c][:2 * (len(t) + 1)], seqs[c, i, :2 * (len(t) + 1)])
+            for i, t in enumerate(toks) for c in range(C)]
+    return float(np.mean(same)), len(same)
+
+
+def read_lines(proc, out) -> None:
+    for line in proc.stdout:
+        out.append(line)
+
+
+def serve_http_clis(requests):
+    """``python -m musicstyletransfer_torch.cli.serve --http 0`` on loopback,
+    plain and --streaming, both started at once: concurrent posts (JSON
+    and raw), /stats and /healthz. Every process is stopped at the end."""
+    import base64
+    import signal
+    import threading
+    import urllib.request
+
+    procs, lines = {}, {}
+    try:
+        for label, extra in (("plain", []), ("streaming", ["--streaming"])):
+            p = subprocess.Popen(
+                [sys.executable, "-m", "musicstyletransfer_torch.cli.serve", "--model-output",
+                 MODEL, "--http", "0", "--max-seq-len", str(L), "--buckets", "16,32,64", *extra],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            procs[label], lines[label] = p, []
+            threading.Thread(target=read_lines, args=(p, lines[label]), daemon=True).start()
+        deadline = time.perf_counter() + 240
+        urls = {}
+        while len(urls) < len(procs) and time.perf_counter() < deadline:
+            for label, p in procs.items():
+                check(p.poll() is None, f"cli.serve {label} exited: {''.join(lines[label])[-2000:]}")
+                m = next((re.search(r"serving HTTP on ([\d.]+):(\d+)", x) for x in lines[label]
+                          if "serving HTTP" in x), None)
+                if m:
+                    urls[label] = f"http://{m.group(1)}:{m.group(2)}"
+            time.sleep(0.1)
+        check(len(urls) == len(procs), f"cli.serve did not come up: {lines}")
+        for label, url in urls.items():
+            errors, n = [], 16
+
+            def post(i, url=url, errors=errors):
+                try:
+                    raw = i % 2 == 1
+                    req = urllib.request.Request(url + ("/transfer?class=1" if raw else "/transfer"),
+                                                 data=requests[i], method="POST")
+                    with urllib.request.urlopen(req, timeout=120) as resp:
+                        body = resp.read()
+                    if raw:
+                        midi_tokens(body)
+                    else:
+                        for v in json.loads(body).values():
+                            midi_tokens(base64.b64decode(v))
+                except Exception as exc:  # surfaced below
+                    errors.append(exc)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=150)
+            wall = time.perf_counter() - t0
+            check(not errors and not any(t.is_alive() for t in threads),
+                  f"cli.serve {label}: {errors[:1]}")
+            with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+                check(resp.read() == b"ok", f"cli.serve {label}: /healthz")
+            with urllib.request.urlopen(url + "/stats", timeout=30) as resp:
+                stats = json.loads(resp.read())
+            check(stats["requests_served"] >= n, f"cli.serve {label}: /stats {stats}")
+            log(f"cli.serve --http {label}: {n} concurrent posts (JSON and ?class=1) answered "
+                f"and parsed in {wall:.2f} s; /healthz ok; /stats served "
+                f"{stats['requests_served']} in {stats['batches']} batches/harvests, p50 "
+                f"{stats['latency_p50_ms']:.1f} ms, p99 {stats['latency_p99_ms']:.1f} ms")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+        for p in procs.values():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def serving_path(fd, decode, card: str) -> dict:
+    """The serving entry points on the shipped model (bf16) on CUDA.
+
+    1. StyleTransferService (buckets 16,32,64, batch 32): 64 corpus
+       requests through the threaded loop, each result parsed back; K1
+       launched once a micro-batch, its plain loop never. Then closed-loop
+       requests/s and p50/p99 (64 clients, 3 s).
+    2. StreamingTransferEngine (128 slots, 32 steps a cycle): graphed cycles
+       equal eager cycles bit for bit (sampled, admissions between cycles);
+       open-loop p50/p99 at half the service's capacity for 5 s; ms a cycle
+       graphed and eager, host ops a cycle, the readout copy's ms.
+    3. Engine greedy against K1 greedy: float32 token for token; bf16 the
+       share of identical rows, printed.
+    4. cli.serve --http, plain and --streaming, through their processes.
+    Returns the K1 launches of step 1 and the numbers."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from musicstyletransfer_torch.inference import StreamingTransferEngine, StyleTransferService
+    from musicstyletransfer_torch.ops import counters
+
+    t_phase = time.perf_counter()
+    requests = corpus_requests(SERVE_REQUESTS)
+    svc = StyleTransferService(MODEL, -1, batch_size=SERVE_BATCH, max_seq_len=L,
+                               buckets=list(SERVE_BUCKETS))
+    svc.start()  # warms up: the weight pack, the libraries' handles
+    counts(reset=True)
+    try:
+        got = [None] * len(requests)
+        events = [threading.Event() for _ in requests]
+        for i, midi in enumerate(requests):
+            svc.enqueue(midi, lambda r, i=i: (got.__setitem__(i, r), events[i].set()))
+        wait_all(events, 120, "service")
+        c = counts()
+        snap = svc.stats.snapshot()
+        for r in got:
+            check(not isinstance(r, Exception), f"service: {r}")
+            check(set(r.midi_by_class) == {0, 1}, "service: a class is missing")
+            for midi in r.midi_by_class.values():
+                midi_tokens(midi)
+        launches = c["K1"]
+        check(launches == snap["batches"] >= len(requests) // SERVE_BATCH,
+              f"service: {launches} K1 launches for {snap['batches']} micro-batches")
+        check(c["K1 plain"] == 0, f"service: the plain decode loop ran {c['K1 plain']} times")
+        log(f"service path: {len(requests)} corpus requests x 2 classes through the threaded "
+            f"loop in {snap['batches']} micro-batches (buckets {SERVE_BUCKETS}); every result "
+            f"parsed back; K1 launches {launches}, plain decode loops on CUDA {c['K1 plain']}")
+        saved = counters.read()
+        svc.stats = type(svc.stats)()
+        rps, lat = closed_loop(svc, requests, clients=64, seconds=3.0)
+        counters.write(saved)  # timing launches are not the main path's
+    finally:
+        svc.stop()
+    svc_p50, svc_p99 = pct(lat, 50), pct(lat, 99)
+    log(f"service closed loop (64 clients, 3 s, batch {SERVE_BATCH}, bf16): {rps:.1f} "
+        f"requests/s, p50 {svc_p50:.2f} ms, p99 {svc_p99:.2f} ms, mean fill "
+        f"{svc.stats.snapshot()['mean_batch_fill']:.1f} [{card}]")
+
+    # Graphed cycles against eager cycles from one seed, sampled.
+    schedule = (3, 0, 5, 0, 4, 0)
+    engines = [StreamingTransferEngine(MODEL, -1, slots=SLOTS, segment_steps=SEGMENT, seed=3)
+               for _ in range(2)]
+    engines[1].use_graphs = False
+    a, b = (drive_cycles(e, schedule, requests) for e in engines)
+    for i, (sa, sb) in enumerate(zip(a, b)):
+        for x, y in zip(sa, sb):
+            check(torch.equal(x, y), f"engine cycle {i + 1}: the graph differs from eager")
+    check(engines[0].graph_replays == len(schedule) and engines[1].graph_replays == 0,
+          "engine: the graphed engine did not replay its graphs")
+    log(f"engine graph vs eager: {len(schedule)} cycles (admissions {schedule}, sampled), "
+        f"every state tensor and readout bit for bit")
+
+    # ms a cycle, graphed and eager: all slots live (one admission fills them).
+    cycle_ms, host_ops = {}, {}
+    for mode, eng in (("graphed", engines[0]), ("eager", engines[1])):
+        eng._dispatch(eng._register(
+            [(eng._tokens_from_midi(m), lambda r: None, 0.0)
+             for m in requests[:len(eng._free_slots) // 2]]))
+        n = 20
+
+        def cycles(eng=eng, n=n):
+            for _ in range(n):
+                eng._dispatch(None)
+
+        cycles()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(eng._stream)
+        cycles()
+        end.record(eng._stream)
+        end.synchronize()
+        cycle_ms[mode] = start.elapsed_time(end) / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            cycles(n=5)
+            torch.cuda.synchronize()
+        host_ops[mode] = sum(e.count for e in prof.key_averages()
+                             if e.device_type != torch.autograd.DeviceType.CUDA) / 5
+    eng = engines[0]
+    copies = []
+    for _ in range(20):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(eng._stream), torch.inference_mode():
+            e0.record()
+            eng._ring[0].copy_(eng._readout, non_blocking=True)
+            e1.record()
+        e1.synchronize()
+        copies.append(e0.elapsed_time(e1))
+    copy_ms = statistics.median(copies)
+    log(f"engine cycle ({SLOTS} slots x {SEGMENT} steps, bf16, all slots live): graphed "
+        f"{cycle_ms['graphed']:.3f} ms, eager {cycle_ms['eager']:.3f} ms; host ops a cycle "
+        f"{host_ops['graphed']:.0f} graphed, {host_ops['eager']:.0f} eager; readout copy "
+        f"[{SLOTS}, {1 + engines[0].t_gen}] int16 to pinned memory {copy_ms:.4f} ms "
+        f"(median of 20, event to event) [{card}]")
+
+    # Open loop at half the service's measured capacity.
+    eng = StreamingTransferEngine(MODEL, -1, slots=SLOTS, segment_steps=SEGMENT)
+    eng.start()
+    try:
+        eng_rps, eng_lat = open_loop(eng, requests, 0.5 * rps, 5.0)
+    finally:
+        eng.stop()
+    snap = eng.stats.snapshot()
+    log(f"engine open loop at {0.5 * rps:.1f} requests/s (half the service's capacity, 5 s): "
+        f"served {eng_rps:.1f}/s, p50 {pct(eng_lat, 50):.2f} ms, p99 {pct(eng_lat, 99):.2f} ms; "
+        f"{eng.cycles_dispatched} cycles ({eng.graph_replays} graph replays), ring waits "
+        f"{eng.ring_waits}, mean slot fill {snap['mean_batch_fill']:.1f} [{card}]")
+    check(eng.graph_replays == eng.cycles_dispatched > 0, "engine: a cycle ran eagerly")
+
+    saved = counters.read()
+    same32, n32 = engine_vs_k1(requests, torch.float32, decode)
+    check(same32 == 1.0, f"engine vs K1 greedy, float32: only {same32:.4f} of rows identical")
+    same16, n16 = engine_vs_k1(requests, torch.bfloat16, decode)
+    counters.write(saved)
+    log(f"engine greedy vs K1 greedy ({n32} rows): float32 token for token; bf16 "
+        f"{same16:.4f} of rows identical (not gated)")
+
+    serve_http_clis(requests)
+    log(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "rps": rps, "p50": svc_p50, "p99": svc_p99,
+            "engine_p50": pct(eng_lat, 50), "engine_p99": pct(eng_lat, 99),
+            "cycle_ms": cycle_ms, "host_ops": host_ops, "copy_ms": copy_ms,
+            "bf16_same": same16}
+
+
 def time_cuda(fn, n: int, queued: bool = False) -> float:
     """Mean ms per call over n calls, CUDA events, after one warm-up call.
     ``queued`` holds the card back (a spin kernel of ~10 ms) while the host
@@ -1422,6 +1829,7 @@ def main() -> int:
 
     counts(reset=True)
     model, dataset, launches = main_path(fd, device)
+    serving = serving_path(fd, decode, card)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = train_path(ac, fd, tmp)
         long_counts = long_path(tmp)
@@ -1445,7 +1853,7 @@ def main() -> int:
         "name": "fused_decode", "route": "cuda",
         "source": "musicstyletransfer_torch/ops/csrc/fused_decode.cu",
         "replaces": "musicstyletransfer_tpu/ops/fused_decode.py:494",
-        "launches": launches,
+        "launches": launches + serving["launches"],
         "max_abs_err": max(k1_errs),
         "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
         "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],

@@ -14,9 +14,11 @@ so each counterpart is found by path:
 - ``training``  — loss, metrics, optimizers, train step, CUDA graphs of N
                   steps, checkpoints, fit loop.
 - ``inference`` — encode -> class swap -> sampled or beam-search decode ->
-                  MIDI files; transfer quality statistics.
+                  MIDI files; transfer quality statistics; the
+                  micro-batched service and the slot-based streaming
+                  engine (each cycle one CUDA-graph replay).
 - ``cli``       — ``python -m musicstyletransfer_torch.cli.main`` (training),
-                  ``.cli.sample`` and ``.cli.evaluate``; all run on CUDA
+                  ``.cli.sample``, ``.cli.evaluate`` and ``.cli.serve``; all run on CUDA
                   unless ``--cpu``.
 
 The package imports nothing of JAX or of the JAX package.

@@ -228,6 +228,27 @@ class MultiHeadSelfAttention(nn.Module):
         out = torch.einsum("bhk,bkhd->bhd", probs, cache_v)
         return self.w_o(out.reshape(B, -1))
 
+    def step_ragged(self, x_t: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """``step`` with a position per row (``transformer.py:325-359`` of
+        the JAX package): row s sits at ``t[s]`` ([S] int64 on the cache's
+        device). (k, v) are scattered into ``[s, t[s]]`` in place and row s
+        attends over keys <= t[s]. Nothing here reads a value back to the
+        host, so a CUDA graph can capture it. Equal to ``step`` when every
+        row shares t: the same products over the whole cache, the same
+        masked positions."""
+        S, T = x_t.shape[0], cache_k.shape[1]
+        q = self._heads(self.w_q(x_t))  # [S, H, hd]
+        at = t.view(S, 1, 1, 1).expand(S, 1, self.num_heads, self.head_dim)
+        cache_k.scatter_(1, at, self._heads(self.w_k(x_t)).to(cache_k.dtype)[:, None])
+        cache_v.scatter_(1, at, self._heads(self.w_v(x_t)).to(cache_v.dtype)[:, None])
+        logits = torch.einsum("bhd,bkhd->bhk", q, cache_k) / self.scale
+        valid = torch.arange(T, device=t.device)[None, :] <= t[:, None]  # [S, T]
+        logits = logits.masked_fill(~valid[:, None, :], NEG_INF)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhk,bkhd->bhd", probs, cache_v)
+        return self.w_o(out.reshape(S, -1))
+
 
 class TransformerLayer(nn.Module):
     """Post-LN (the reference's) or pre-LN residual block: attention + FFN."""
@@ -260,6 +281,14 @@ class TransformerLayer(nn.Module):
             x_t = x_t + self.attention.step(self.ln1(x_t), cache[0], cache[1], t)
             return x_t + self.ff(self.ln2(x_t))
         x_t = self.ln1(x_t + self.attention.step(x_t, cache[0], cache[1], t))
+        return self.ln2(x_t + self.ff(x_t))
+
+    def step_ragged(self, x_t: torch.Tensor, cache: LayerCache,
+                    t: torch.Tensor) -> torch.Tensor:
+        if self.pre_ln:
+            x_t = x_t + self.attention.step_ragged(self.ln1(x_t), cache[0], cache[1], t)
+            return x_t + self.ff(self.ln2(x_t))
+        x_t = self.ln1(x_t + self.attention.step_ragged(x_t, cache[0], cache[1], t))
         return self.ln2(x_t + self.ff(x_t))
 
 
@@ -303,6 +332,15 @@ class TransformerStack(nn.Module):
         x_t = self.scale * x_t + self.pos_table[t]
         for layer, layer_cache in zip(self.layers, cache):
             x_t = layer.step(x_t, layer_cache, t)
+        if self.config.norm_scheme == "pre":
+            x_t = self.final_ln(x_t)
+        return x_t
+
+    def step_ragged(self, x_t: torch.Tensor, cache: Cache, t: torch.Tensor) -> torch.Tensor:
+        """``step`` at a position per row: x_t [S, D] (before scaling), t [S]."""
+        x_t = self.scale * x_t + self.pos_table.index_select(0, t)
+        for layer, layer_cache in zip(self.layers, cache):
+            x_t = layer.step_ragged(x_t, layer_cache, t)
         if self.config.norm_scheme == "pre":
             x_t = self.final_ln(x_t)
         return x_t

@@ -106,6 +106,13 @@ class VAEDecoder(nn.Module):
         """Logits [B, V] at position t from token ids [B]; updates ``cache``."""
         return self.step_embedded(self.embed(token_t, classes), cache, t)
 
+    def step_ragged(self, token_t: torch.Tensor, cache: Cache, t: torch.Tensor,
+                    classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits [S, V] with a position per row, t [S] (``vae.py:176-189``
+        of the JAX package: the streaming engine's slots); updates ``cache``."""
+        h = self.decoder.step_ragged(self.embed(token_t, classes), cache, t)
+        return self.output_layer(h.float())
+
     def prefill(self, z: torch.Tensor, classes: torch.Tensor, max_len: int) -> Cache:
         """A fresh cache with position 0 (the conditioning state) processed."""
         cache = self.decoder.init_cache(z.shape[0], max_len)
@@ -162,6 +169,10 @@ class StyleVAE(nn.Module):
     def decode_step(self, token_t: torch.Tensor, cache: Cache, t: int,
                     classes: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.decoder.step_token(token_t, cache, t, classes)
+
+    def decode_step_ragged(self, token_t: torch.Tensor, cache: Cache, t: torch.Tensor,
+                           classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.decoder.step_ragged(token_t, cache, t, classes)
 
 
 @torch.no_grad()

@@ -675,3 +675,137 @@ def test_k1_follows_the_trained_weights(cuda, graphed):
     torch.cuda.synchronize()
     assert float((kernel - plain).abs().max()) <= 1e-3
     assert float((plain - before).abs().max()) > 1e-2
+
+
+def serving_folder(tmp_path, dtype):
+    """A model folder holding the export of a seeded decoder D=128, 8
+    heads, 2 layers (K1's canonical decoder shape) for the serving entry
+    points, in ``dtype``."""
+    from musicstyletransfer_torch.models.vae import init_params
+    from musicstyletransfer_torch.training.checkpoint import export_inference
+
+    tc = TransformerConfig(model_size=128, num_layers=2, num_heads=8)
+    cfg = ModelConfig(encoder_config=EncoderConfig(transformer_config=tc, latent_dim=32),
+                      decoder_config=DecoderConfig(transformer_config=tc, latent_dim=32),
+                      dtype=dtype)
+    export_inference(str(tmp_path), 0, init_params(StyleVAE(cfg), 3))
+    return str(tmp_path)
+
+
+def serving_requests(n, seed=0):
+    """n MIDI requests of 3-15 random notes."""
+    from musicstyletransfer_torch.midi import smf
+    from musicstyletransfer_torch.midi.codec import Melody, MelodyWriter
+    from musicstyletransfer_torch.midi.vocab import note_on_id, timeshift_id
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = []
+        for p in rng.integers(40, 80, rng.integers(3, 16)):
+            toks += [note_on_id(int(p)), timeshift_id(120)]
+        melody = Melody(tokens=np.asarray(toks, np.int32))
+        out.append(smf.dump_midifile(MelodyWriter().to_midifile(melody)))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("greedy", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_graphed_cycles_equal_eager_cycles(cuda, tmp_path, dtype, greedy):
+    """The streaming engine's cycles as CUDA-graph replays (the admit and
+    no-admit variants) against the same cycles run eagerly, from one seed,
+    over 6 cycles with admissions on cycles 1, 3 and 5: every state tensor
+    and the readout bit for bit after every cycle (sampling draws from the
+    generator registered with both graphs)."""
+    from musicstyletransfer_torch.inference.streaming import StreamingTransferEngine
+
+    folder = serving_folder(tmp_path, dtype)
+    reqs = serving_requests(4)
+    snaps = []
+    for graphed in (True, False):
+        eng = StreamingTransferEngine(folder, -1, slots=8, max_seq_len=16, segment_steps=4,
+                                      greedy=greedy, seed=5)
+        eng.use_graphs = graphed
+        eng._ensure_state()
+        out, k = [], 0
+        for n in (1, 0, 2, 0, 1, 0):
+            eng._cycle_idx += 1
+            arrivals = [(eng._tokens_from_midi(m), lambda r: None, 0.0) for m in reqs[k:k + n]]
+            k += n
+            eng._dispatch(eng._register(arrivals) if arrivals else None)
+            torch.cuda.synchronize()
+            out.append([x.cpu() for x in eng._state.tensors() + [eng._readout]])
+        assert eng.graph_replays == (6 if graphed else 0)
+        snaps.append(out)
+    for i, (a, b) in enumerate(zip(*snaps)):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), f"cycle {i + 1}"
+
+
+@pytest.mark.gpu
+def test_readout_ring_with_the_dispatcher_ahead(cuda, tmp_path):
+    """The card held back before every cycle, so the dispatcher runs ahead
+    of the readout copies: the ring fills (the dispatcher waits for the
+    oldest copy and drops it), harvests find copies not yet landed, and
+    slots are reused across harvests (4 slots, 6 requests of 2 classes).
+    Every request's greedy tokens still equal those of the same engine
+    serving it alone: no torn or stale row reached a result."""
+    from musicstyletransfer_torch.inference.streaming import StreamingTransferEngine
+
+    folder = serving_folder(tmp_path, "float32")
+    reqs = serving_requests(6, seed=1)
+    alone = StreamingTransferEngine(folder, -1, slots=4, max_seq_len=16, segment_steps=2,
+                                    greedy=True)
+    expected = [alone.submit_midi(m).tokens_by_class for m in reqs]
+    eng = StreamingTransferEngine(folder, -1, slots=4, max_seq_len=16, segment_steps=2,
+                                  greedy=True)
+    got = {}
+    for i, m in enumerate(reqs):
+        eng.enqueue(m, lambda r, i=i: got.__setitem__(i, r))
+    eng._ensure_state()
+    not_landed = 0
+    for _ in range(2000):
+        if len(got) == len(reqs):
+            break
+        with torch.cuda.stream(eng._stream):
+            torch.cuda._sleep(2_000_000)  # ~1 ms of the card's time
+        not_landed += sum(not r.landed() for r in eng._pending)
+        eng._cycle(block=False)
+    torch.cuda.synchronize()
+    assert len(got) == len(reqs)
+    assert eng.ring_waits > 0 and not_landed > 0
+    for i, r in got.items():
+        assert not isinstance(r, Exception), r
+        for c in (0, 1):
+            np.testing.assert_array_equal(r.tokens_by_class[c], expected[i][c])
+
+
+@pytest.mark.gpu
+def test_service_decodes_through_k1(cuda, tmp_path):
+    """A micro-batch of the service is one K1 launch over the real rows
+    (requests x classes) and no plain decode loop; its sampled tokens equal
+    the plain version's from the same conditioning states and seed (float32,
+    shared Philox noise)."""
+    from musicstyletransfer_torch.inference.decode import _encode_deterministic
+    from musicstyletransfer_torch.inference.service import StyleTransferService
+
+    svc = StyleTransferService(serving_folder(tmp_path, "float32"), -1, batch_size=8,
+                               max_seq_len=16, buckets=[8, 16])
+    toks = [svc._tokens_from_midi(m) for m in serving_requests(3, seed=2)]
+    launches, runs = fd.fused_decode.launches, fd.fused_decode_reference.cuda_runs
+    seqs = svc._dispatch(toks)
+    torch.cuda.synchronize()
+    assert fd.fused_decode.launches == launches + 1
+    assert fd.fused_decode_reference.cuda_runs == runs
+    bucket = svc._pick_bucket(toks)
+    assert seqs.shape == (2, 3, 2 * (bucket + 1))
+    tokens, lens = svc._make_batch(toks, bucket)
+    with torch.inference_mode():
+        classes = torch.arange(2, device=cuda).repeat_interleave(3)
+        z = _encode_deterministic(svc.model, torch.as_tensor(tokens, device=cuda).repeat(2, 1),
+                                  torch.as_tensor(lens, device=cuda).repeat(2), classes)
+        x0 = svc.model.decode_init(z, classes).contiguous()
+    ref, _ = fd.fused_decode_reference(svc.model, x0, 2 * (bucket + 1), (0 << 32) | 1)
+    assert torch.equal(seqs.reshape(6, -1), ref)
+    results = svc._finish(seqs, 3)
+    assert all(set(r.midi_by_class) == {0, 1} for r in results)

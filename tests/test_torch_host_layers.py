@@ -145,7 +145,8 @@ def test_no_jax_import_statement():
 
 def test_port_and_chip_smoke_import_without_jax():
     """In a process where JAX and the JAX package cannot be imported, every
-    port module and every import of chip_smoke.py succeeds."""
+    port module (the serving modules named among them) and every import of
+    chip_smoke.py succeeds."""
     code = textwrap.dedent(f"""
         import ast, importlib, importlib.abc, pkgutil, sys
         FORBIDDEN = {FORBIDDEN!r}
@@ -169,6 +170,10 @@ def test_port_and_chip_smoke_import_without_jax():
         import chip_smoke
         bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
         assert not bad, bad
+        serving = ("models.transformer", "inference.service", "inference.streaming",
+                   "cli.serve")
+        missing = [m for m in serving if "musicstyletransfer_torch." + m not in sys.modules]
+        assert not missing, missing
         print("ok")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
