@@ -83,14 +83,33 @@
    a graph of its own) for two epochs; cli.evaluate --transfer-stats on
    the folder it wrote; cli.sample with beam search and with sampling on
    it (two files of the corpus).
-9. Times (CUDA events, beside the card's name and power limit): the serving
+9. LSTM-decoder VAE (lstm_path: scripts/train-vae.sh --decoder-type lstm,
+   the decoder a 1x128 LSTM): CUDA graphs of 8 steps against eager steps
+   over 2 groups, bit for bit; cli.main for one epoch (graph replays);
+   cli.sample with sampling and with beam search and cli.evaluate
+   --transfer-stats on its folder; the step loop's decode timed at B=64,
+   T=130; K1 launched 0 times (the LSTM decodes step by step).
+   GAN family (gan_path: scripts/train-gan.sh's widths, bf16, D:G 5:1):
+   two groups (10 D, 2 G updates) as CUDA-graph replays against eager
+   steps, bit for bit, at r1_gamma 0.1 and 0; cli.gan as a process for two
+   epochs (checkpoints, the sampling tick at 50; the MIDI parses back) and
+   a second process resuming from its last checkpoint; cli.gan --generate
+   16 on that folder and on the shipped models/gan_guitar_bass (one JSON
+   line of class_conditional_stats each); the shipped generator's classes
+   separate on the card (note-on fraction > 0.1, octave JS own < other)
+   and its float32 hard rollout equals the CPU's token for token; updates/s
+   by bench.py's protocol (median of 5 interleaved chains), eager and
+   graphed, r1_gamma 0 and 0.1, with host ops and kernels an update and
+   the device's busy share. No hand kernel runs on either path.
+10. Times (CUDA events, beside the card's name and power limit): the serving
    transfer, K1 against its plain loop, p50 MIDI->MIDI latency; K2/K3 at
    both wide shapes and K4/K5 at both long shapes and at T=8192 beside their
    bounds, their plain versions and torch's scaled_dot_product_attention,
    and their wrappers' host time a call; the canonical, wide and long
    training steps, eager and as graph replays: ms a step, target tokens per
    second, and from torch.profiler the kernels' ms a step, the device's busy
-   share, kernels and host ops a step and the attention kernels' share.
+   share, kernels and host ops a step and the attention kernels' share;
+   the same for the LSTM-decoder VAE's step.
 
 Exits non-zero on any failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -606,12 +625,14 @@ def check_flash(fa, enc_lens) -> dict:
 
 
 def recipe_argv(script: str, data: str, model_output: str, out_samples: str,
-                required=("--use-flash-attention", "--max-seq-len", "--batch-size")):
-    """scripts/<script>'s flags, shell defaults (${TP:-1}) taken, with its
-    paths replaced; each of ``required`` must be among them."""
+                required=("--use-flash-attention", "--max-seq-len", "--batch-size"),
+                module: str = "main"):
+    """scripts/<script>'s flags to ``cli.<module>``, shell defaults
+    (${TP:-1}) taken, with its paths replaced; each of ``required`` must be
+    among them."""
     with open(os.path.join(REPO, "scripts", script)) as f:
         text = f.read()
-    body = text.split("musicstyletransfer_tpu.cli.main", 1)[1].split('"$@"', 1)[0]
+    body = text.split(f"musicstyletransfer_tpu.cli.{module}", 1)[1].split('"$@"', 1)[0]
     body = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", body)
     argv = shlex.split(body.replace("\\\n", " "))
     subs = {"--data": data, "--model-output": model_output, "--out-samples": out_samples}
@@ -880,6 +901,378 @@ def long_path(tmp: str) -> dict:
     return main_counts
 
 
+# ----------------------------------------------------------------------------
+# The GAN family and the LSTM decoder (no hand kernel runs on either path)
+
+GAN_MODEL = os.path.join(REPO, "models", "gan_guitar_bass")
+GAN_K = 5  # train-gan.sh's --discriminator-update-steps
+GAN_CHAIN = {"eager": 10, "graphed": 100}  # batches a timed chain
+
+
+def gan_argv(data: str, model_output: str, out_samples: str):
+    return recipe_argv("train-gan.sh", data, model_output, out_samples,
+                       required=("--batch-size", "--max-seq-len",
+                                 "--discriminator-update-steps", "--sampling-frequency"),
+                       module="gan")
+
+
+def gan_setup(r1_gamma: float, seed: int = 0):
+    """train-gan.sh's GAN (seeded weights, on the card) as cli.gan builds
+    it, with ``r1_gamma``: (args, GANSteps)."""
+    from musicstyletransfer_torch.cli import gan as cli_gan
+    from musicstyletransfer_torch.midi.vocab import NUM_EVENTS
+    from musicstyletransfer_torch.models.gan import init_gan_params
+    from musicstyletransfer_torch.training.gan_trainer import GANSteps
+
+    args = cli_gan.get_gan_config(gan_argv("-", "-", "-"))
+    config = cli_gan.create_gan_config(args, 2, NUM_EVENTS, args.max_seq_len)
+    tc = cli_gan.create_gan_train_config(args)
+    check(tc.discriminator_update_steps == GAN_K and config.dtype == "bfloat16",
+          f"train-gan.sh: {tc}, {config.dtype}")
+    import dataclasses
+
+    tc = dataclasses.replace(tc, r1_gamma=r1_gamma)
+    gen, disc = init_gan_params(config, seed)
+    steps = GANSteps(config, tc, gen.cuda(), disc.cuda(),
+                     torch.Generator(device="cuda").manual_seed(seed))
+    return args, steps
+
+
+def gan_graph_vs_eager(batches) -> None:
+    """Two groups of train-gan.sh's steps (D,G,D,D,D,D twice: 10 D and 2 G
+    updates) from one seeded state, as eager steps and as two replays of one
+    CUDA graph (GraphedGANGroups), at r1_gamma 0.1 and 0: both models'
+    parameters, Adam state, the metric sums and the noise generator bit for
+    bit."""
+    from musicstyletransfer_torch.training.gan_trainer import (GraphedGANGroups, batch_tensors,
+                                                               group_pattern)
+
+    for r1 in (0.1, 0.0):
+        runs = []
+        for graphed in (False, True):
+            _, steps = gan_setup(r1)
+            tensors = [batch_tensors(b, "cuda") for b in batches[:2 * GAN_K]]
+            graphs = GraphedGANGroups(steps, GAN_K) if graphed else None
+            for i in range(2):
+                group = tensors[i * GAN_K:(i + 1) * GAN_K]
+                pattern = group_pattern(i * GAN_K, GAN_K, GAN_K)
+                if graphed:
+                    graphs.run(group, pattern)
+                else:
+                    steps.run_group(group, pattern)
+            torch.cuda.synchronize()
+            runs.append([t.clone() for t in steps.tensors()]
+                        + [steps.generator.get_state().to(torch.int64).cuda()])
+            counts = (int(steps.d_opt.state["count"]), int(steps.g_opt.state["count"]))
+            check(counts == (2 * GAN_K, 2), f"GAN updates {counts}, expected (10, 2)")
+        same = [torch.equal(a, b) for a, b in zip(*runs)]
+        check(all(same), f"GAN r1_gamma={r1}: graphed groups differ from eager steps: {same}")
+        log(f"GAN graph vs eager (train-gan.sh: B=32, L=64, bf16, G/D 1x256), r1_gamma {r1}: "
+            "2 groups (10 D, 2 G updates) bit for bit identical (G and D parameters, Adam "
+            "moments and counts, metric sums, noise generator)")
+
+
+def run_cli(module: str, argv, timeout: float = 600):
+    """``python -m musicstyletransfer_torch.cli.<module> argv`` as a process
+    from the repository's root; its standard output (fails on a non-zero
+    exit)."""
+    proc = subprocess.run([sys.executable, "-m", f"musicstyletransfer_torch.cli.{module}",
+                           *argv], cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    check(proc.returncode == 0, f"cli.{module} {' '.join(argv)} exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def gan_rates(batches, card: str) -> dict:
+    """bench.py's GAN protocol on the card: updates (batches) a second with a
+    G update after every 5th batch's D update, B=32, train-gan.sh's model,
+    one fixed batch, the median of 5 interleaved chains, at r1_gamma 0 and
+    0.1, eager (chains of GAN_CHAIN["eager"] batches) and as graph replays of
+    groups of 5 (chains of GAN_CHAIN["graphed"]); each chain ends in one host
+    read of a metric sum. Then torch.profiler windows (eager: a D step and a
+    G step apart; graphed: one replay): host ops and kernels an update, the
+    device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from musicstyletransfer_torch.training.gan_trainer import (GraphedGANGroups, batch_tensors,
+                                                               group_pattern)
+
+    batch = batch_tensors(batches[0], "cuda")
+    pattern = group_pattern(0, GAN_K, GAN_K)
+    runners = {}
+    for r1 in (0.0, 0.1):
+        _, steps = gan_setup(r1)
+        graphs = GraphedGANGroups(steps, GAN_K)
+
+        def eager(n, steps=steps):
+            for i in range(0, n, GAN_K):
+                steps.run_group([batch] * GAN_K, pattern)
+
+        def graphed(n, graphs=graphs):
+            for i in range(0, n, GAN_K):
+                graphs.run([batch] * GAN_K, pattern)
+
+        runners[("eager", r1)] = (eager, steps)
+        runners[("graphed", r1)] = (graphed, steps)
+
+    def chain(key):
+        fn, steps = runners[key]
+        n = GAN_CHAIN[key[0]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(n)
+        float(steps.sums[0])  # waits for the chain
+        return n / (time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    for key in runners:
+        runners[key][0](GAN_K)  # warm-up, capture
+    log(f"gan rates: warm-ups and captures {time.perf_counter() - t0:.1f} s")
+    rates = {key: [] for key in runners}
+    for _ in range(5):
+        for key in runners:
+            rates[key].append(chain(key))
+    log(f"gan rates: chains done after {time.perf_counter() - t0:.1f} s")
+    def profiled(fn):
+        """(kernel ms, wall ms, kernels, host ops) of one call of fn."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        events = prof.key_averages()
+        dev = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        host = [e for e in events if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA]
+        return (sum(getattr(e, "self_device_time_total", 0.0) for e in dev) / 1e3, wall,
+                sum(e.count for e in dev), sum(e.count for e in host))
+
+    res = {}
+    for key, (fn, steps) in runners.items():
+        mode, r1 = key
+        if mode == "eager":  # a D step and a G step apart: a group's ~270k events take long to sum
+            d = profiled(lambda: steps.d_step(*batch))
+            g = profiled(lambda: steps.g_step(batch[1]))
+            kernel_ms, wall, kernels, host_ops = (a + b / GAN_K for a, b in zip(d, g))
+            window = "a D step and a G step, weighted 1 : 1/5"
+        else:
+            kernel_ms, wall, kernels, host_ops = (x / GAN_K for x in profiled(lambda: fn(GAN_K)))
+            window = f"one replay of {GAN_K} updates"
+        r = {"updates_per_s": statistics.median(rates[key]), "rates": rates[key],
+             "kernel_ms": kernel_ms, "busy": kernel_ms / max(wall, 1e-9),
+             "kernels": kernels, "host_ops": host_ops}
+        res[f"{mode} r1={r1}"] = r
+        log(f"GAN training {mode}, r1_gamma {r1} (train-gan.sh: B=32, L=64, bf16, D:G 5:1): "
+            f"median {r['updates_per_s']:.2f} updates/s over 5 chains of {GAN_CHAIN[mode]} "
+            f"({', '.join(f'{x:.2f}' for x in rates[key])}); profiler ({window}): "
+            f"{r['kernel_ms']:.3f} ms of kernels an update, device busy {r['busy']:.3f}, "
+            f"{r['kernels']:.0f} kernels and {r['host_ops']:.0f} host ops an update; on {card}")
+    return res
+
+
+def gan_path(tmp: str, batches, card: str) -> dict:
+    """The GAN family on the card: graphed groups against eager steps;
+    cli.gan with train-gan.sh's flags for 2 epochs (a checkpoint after each,
+    the sampling tick at batch 50) as a process, and a second process that
+    resumes from its last checkpoint; cli.gan --generate 16 on that folder
+    and on the shipped models/gan_guitar_bass, whose classes must separate;
+    the shipped generator's float32 hard rollout on the card against the
+    same rollout on the CPU; then the updates/s of gan_rates."""
+    from musicstyletransfer_torch.cli import gan as cli_gan
+    from musicstyletransfer_torch.data import Loader, load_dataset
+    from musicstyletransfer_torch.inference.quality import js_divergence, octave_histogram
+    from musicstyletransfer_torch.midi.vocab import is_note_on
+    from musicstyletransfer_torch.ops import counters
+
+    t_phase = time.perf_counter()
+    counters.reset()
+    gan_graph_vs_eager(batches)
+    data = os.path.join(REPO, "work", "data", "guitar_bass")
+    per_epoch = load_dataset(Loader(data, L), 32, 0.0)[0].num_batches()
+    model, out = os.path.join(tmp, "gan"), os.path.join(tmp, "gan-out")
+    argv = gan_argv(data, model, out) + ["--checkpoint-frequency", str(per_epoch),
+                                         "--logdir", model + "-log"]
+    check(argv[argv.index("--sampling-frequency") + 1] == "50", "train-gan.sh lost its 50")
+    t0 = time.perf_counter()
+    text = run_cli("gan", argv + ["--epochs", "2"])
+    wall = time.perf_counter() - t0
+    check(os.listdir(out) == ["step-50"], f"sampling ticks {os.listdir(out)}")
+    names, notes = parse_midi_dir(os.path.join(out, "step-50"))
+    check(sorted(names) == sorted(f"gan-out-{i}.class-{c}.mid" for i in range(8)
+                                  for c in range(2)), f"GAN samples {names}")
+    check(sorted(os.listdir(os.path.join(model, "generator"))) == [
+        "params.1.pt", "params.2.pt", "params.3.pt"], "GAN checkpoints")
+    logged = [json.loads(x) for x in open(os.path.join(model + "-log", "scalars.jsonl"))]
+    check([x["step"] for x in logged] == [50, 2 * per_epoch] and all(
+        math.isfinite(v) for x in logged for v in x.values()), f"GAN scalars {logged}")
+    log(f"gan path: cli.gan, train-gan.sh, {2 * per_epoch} batches ({2 * per_epoch} D and "
+        f"{-(-2 * per_epoch // GAN_K)} G updates) as a process in {wall:.1f} s; sampling tick "
+        f"at 50: {len(names)} MIDI files parsed back ({notes} note events); scalars "
+        + json.dumps(logged))
+    text = run_cli("gan", argv + ["--epochs", "1"])
+    check("resumed GAN from checkpoint 3" in text, "the second cli.gan run did not resume")
+    check(sorted(os.listdir(os.path.join(model, "generator")))[-1] == "params.5.pt",
+          "the resumed run's checkpoints")
+    log("gan path: a second cli.gan process resumed from checkpoint 3 and wrote 4-5")
+
+    import contextlib
+    import io
+
+    stats = {}
+    for label, folder in (("trained", model), ("shipped", GAN_MODEL)):
+        dst = os.path.join(tmp, f"gan-gen-{label}")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli_gan.main(["--generate", "16", "--model-output", folder, "--out-samples", dst,
+                          "--data", data])
+        stats[label] = json.loads(text.getvalue().strip().splitlines()[-1])
+        names, _ = parse_midi_dir(dst)
+        check(len(names) == 32, f"--generate 16 on {label}: {len(names)} files")
+        log(f"gan --generate 16 ({label}): " + json.dumps(stats[label]))
+
+    # the shipped generator in process: both classes separate; float32 card == CPU
+    config, gen, _ = cli_gan.load_generator(GAN_MODEL, -1, torch.device("cuda"))
+    loader = Loader(data, L)
+    corpus = {i: [m.tokens for m in loader.melodies[name]]
+              for i, name in enumerate(sorted(loader.melodies))}
+    from musicstyletransfer_torch.models.gan import generate_tokens
+
+    for c in range(2):
+        rows = generate_tokens(gen, torch.full((16,), c, device="cuda"),
+                               torch.Generator(device="cuda").manual_seed(100 + c)).cpu().numpy()
+        ons = float(np.mean([is_note_on(int(t)) for t in rows.ravel()]))
+        own = js_divergence(octave_histogram(list(rows)), octave_histogram(corpus[c]))
+        other = js_divergence(octave_histogram(list(rows)), octave_histogram(corpus[1 - c]))
+        check(ons > 0.1 and own < other,
+              f"shipped generator class {c}: note-on {ons}, octave JS own {own} other {other}")
+        log(f"shipped generator on the card, class {c}, 16 rows: note-on fraction {ons:.3f}, "
+            f"octave JS own {own:.4f} < other {other:.4f}")
+    import dataclasses
+
+    from musicstyletransfer_torch.models.gan import gumbel, make_generator
+
+    g32 = make_generator(dataclasses.replace(config, dtype="float32"))
+    g32.load_state_dict(gen.state_dict())
+    g32.eval()
+    draws = torch.Generator().manual_seed(4)
+    gc = config.generator_config
+    noise = torch.randn((16, gc.max_seq_len, gc.noise_dim), generator=draws)
+    gumbels = gumbel((gc.max_seq_len, 16, gc.output_dim), draws, "cpu")
+    classes = torch.arange(16) % 2
+    with torch.no_grad():
+        _, cpu_tokens = g32(noise, classes, hard=True, gumbel_noise=gumbels)
+        g32.cuda()
+        _, card_tokens = g32(noise.cuda(), classes.cuda(), hard=True, gumbel_noise=gumbels.cuda())
+    check(torch.equal(cpu_tokens, card_tokens.cpu()),
+          f"shipped generator float32: {int((cpu_tokens != card_tokens.cpu()).sum())} tokens "
+          "differ between the card and the CPU")
+    log("shipped generator float32 hard rollout (16 rows x 64 steps, fixed noise and Gumbel "
+        "draws): the card's tokens equal the CPU's, token for token")
+    log(f"gan path: checks done after {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    rates = gan_rates(batches, card)
+    c = counters.read()
+    check(all(v == 0 for v in c.values()), f"the GAN path launched a hand kernel: {c}")
+    log(f"gan path: {time.perf_counter() - t_phase:.1f} s (the rates {time.perf_counter() - t0:.1f} s)")
+    return rates
+
+
+def lstm_path(tmp: str, canonical_batches, card: str) -> dict:
+    """The LSTM-decoder VAE (train-vae.sh --decoder-type lstm: encoder
+    2x256, latent 256, decoder LSTM 1x128 with dropout 0.2, B=32, L=64,
+    groups of 8 steps): graphs against eager steps over 2 groups; cli.main
+    for one epoch (graph replays); cli.sample with sampling and with beam
+    search; cli.evaluate --transfer-stats; the step loop's decode timed at
+    the serving shape (B=64, T=130); K1 launched 0 times in the phase."""
+    import contextlib
+    import io
+
+    from musicstyletransfer_torch.cli import evaluate as cli_evaluate
+    from musicstyletransfer_torch.cli import main as cli_main
+    from musicstyletransfer_torch.cli import sample as cli_sample
+    from musicstyletransfer_torch.data import Loader, load_dataset
+    from musicstyletransfer_torch.inference import decode
+    from musicstyletransfer_torch.inference.sampler import load_inference_model
+    from musicstyletransfer_torch.ops import counters
+    from musicstyletransfer_torch.training.graph import GraphedSteps
+
+    t_phase = time.perf_counter()
+    lstm = ("--decoder-type", "lstm")
+    counters.reset()
+    graph_vs_eager("train-vae.sh", canonical_batches, (8, 8), extra=lstm)
+    data = os.path.join(REPO, "work", "data", "guitar_bass")
+    per_epoch = load_dataset(Loader(data, L), 32, 0.0)[0].num_batches()
+    model = os.path.join(tmp, "lstm")
+    argv = recipe_argv("train-vae.sh", data, model, os.path.join(tmp, "out-lstm"),
+                       required=("--max-seq-len", "--batch-size", "--steps-per-dispatch")) + [
+        *lstm, "--epochs", "1", "--logdir", model + "-log", "--log-every", "8"]
+    replays = GraphedSteps.replays
+    t0 = time.perf_counter()
+    cli_main.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    replays = GraphedSteps.replays - replays
+    check(replays == -(-per_epoch // 8), f"cli.main --decoder-type lstm: {replays} replays")
+    check_train_log(train_lines(os.path.join(model + "-log", "scalars.jsonl")), "LSTM run",
+                    guarded=False)
+    with open(os.path.join(model, "torch", "config.json")) as f:
+        dc = json.load(f)["model_config"]["decoder_config"]
+    check(dc["decoder_type"] == "lstm" and dc["lstm_config"] == {
+        "n_layers": 1, "hidden_dim": 128, "dropout": 0.2}, f"LSTM export {dc}")
+    log(f"lstm path: cli.main train-vae.sh --decoder-type lstm, {per_epoch} steps in "
+        f"{wall:.1f} s as {replays} CUDA-graph replays (checkpoint, generation-health probe "
+        "through the step loop)")
+
+    small = os.path.join(tmp, "lstm-two-files")
+    for cls, name in (("bass", "Until_It_Sleeps_2_Bass-Guitar.mid"),
+                      ("guitar", "Metal_Militia_Guitar-3.mid")):
+        os.makedirs(os.path.join(small, cls))
+        shutil.copy(os.path.join(data, cls, name), os.path.join(small, cls, name))
+    for kind in ("sampling", "beam-search"):
+        dst = os.path.join(tmp, f"samples-lstm-{kind}")
+        t0 = time.perf_counter()
+        cli_sample.main(["--model-output", model, "--checkpoint", "-1", "--data", small,
+                         "--out-samples", dst, "--sampling-type", kind, "--batch-size", "32",
+                         "--max-seq-len", str(L)])
+        torch.cuda.synchronize()
+        names, notes = parse_midi_dir(dst)
+        check(names and len(names) % 3 == 0, f"cli.sample {kind} wrote {len(names)} files")
+        log(f"lstm sample path ({kind}): {len(names)} MIDI files parsed back ({notes} note "
+            f"events) in {time.perf_counter() - t0:.1f} s")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_evaluate.main(["--model-output", model, "--data", data, "--transfer-stats"])
+    vals = json.loads(out.getvalue().strip().splitlines()[-1])
+    for k in ("ppl", "acc", "total_loss", "termination_rate", "octave_js_to_target_class"):
+        check(k in vals and math.isfinite(vals[k]), f"LSTM cli.evaluate: {k}")
+    check(vals["transfer_sequences"] == 2 * 4 * 32, f"LSTM evaluate: {vals}")
+    log("lstm evaluate path: cli.evaluate --transfer-stats: " + json.dumps(vals))
+
+    # the step loop's decode at the serving shape: 32 sources x 2 classes, T=130
+    vae = load_inference_model(model, -1, torch.device("cuda"))
+    b = canonical_batches[0]
+    tokens = torch.as_tensor(b.tokens, dtype=torch.long).cuda()
+    seq_lens = torch.as_tensor(b.seq_lens, dtype=torch.long).cuda()
+
+    def transfer(seed=5):
+        return decode.style_transfer_all_classes(vae, tokens, seq_lens, T, 2, seed)
+
+    seqs, _ = transfer()
+    steps = int((seqs != 0).sum(-1).max())
+    ms = [time_cuda(transfer, 5), time_cuda(transfer, 5)]
+    with torch.inference_mode():
+        classes = torch.arange(2, device="cuda").repeat_interleave(tokens.shape[0])
+        z = decode._encode_deterministic(vae, tokens.repeat(2, 1), seq_lens.repeat(2), classes)
+    decode_ms = [time_cuda(lambda: decode.decode_sampled(vae, z, classes, T, 5), 5)
+                 for _ in range(2)]
+    log(f"LSTM decode (step loop, bf16, B=64, T={T}, {steps} positions to the last row's "
+        f"end): style_transfer_all_classes {ms[0]:.3f} / {ms[1]:.3f} ms, decode_sampled alone "
+        f"{decode_ms[0]:.3f} / {decode_ms[1]:.3f} ms (CUDA events, 5 calls each); on {card}")
+    c = counters.read()
+    check(c["K1"] == 0 and c["K1 plain"] == 0, f"the LSTM path reached K1: {c}")
+    log(f"lstm path: K1 launched 0 times; {time.perf_counter() - t_phase:.1f} s")
+    return {"transfer_ms": min(ms), "decode_ms": min(decode_ms)}
+
+
 def core_flops_bytes(key_lens, T: int, hd: int, causal: bool, esize: int, H: int = CORE_H):
     """(unmasked (query, key) pairs x heads, forward bytes, backward bytes) of
     one K2/K3 (or K4/K5) call: each input read once, each output written
@@ -1059,7 +1452,7 @@ def graph_vs_eager(script: str, batches, lengths, extra=()) -> dict:
     runs = []
     for graphed in (False, True):
         args, model, opt, loss_cfg = recipe_setup(script, extra)
-        stale = fd.pack_weights(model)
+        stale = None if model.is_lstm else fd.pack_weights(model)
         state = TrainState(metric_names(model), "cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
         tensors = [batch_tensors(b, "cuda") for b in batches]
@@ -1081,6 +1474,9 @@ def graph_vs_eager(script: str, batches, lengths, extra=()) -> dict:
                      "counts": state.counts.clone(),
                      "generator": gen.get_state().to(torch.int64).cuda(),
                      "launches": counters.read()})
+        if model.is_lstm:  # K1 does not take the LSTM decoder
+            k1_err = None
+            continue
         pack = fd.pack_weights(model)
         model._fused_decode_pack = None
         fresh = fd.pack_weights(model)
@@ -1115,12 +1511,14 @@ def graph_vs_eager(script: str, batches, lengths, extra=()) -> dict:
         f", {args.dtype}), groups of {'+'.join(map(str, lengths))} steps: "
         + ("bit for bit identical" if worst == 0.0 else f"max rel diff {worst:.3g} ({diffs})")
         + f" (parameters, optimizer state, step, metric sums, generator); launches "
-        f"{ {k: v for k, v in graph['launches'].items() if v} } in both; K1's pack follows "
-        f"the trained weights, forced logits max|err| {k1_err:.3g} against the plain version")
+        f"{ {k: v for k, v in graph['launches'].items() if v} } in both"
+        + ("" if k1_err is None else f"; K1's pack follows the trained weights, forced "
+           f"logits max|err| {k1_err:.3g} against the plain version"))
     return diffs
 
 
-def measure_training(batch, label: str, script: str, kernels: dict, n: int) -> dict:
+def measure_training(batch, label: str, script: str, kernels: dict, n: int,
+                     extra=()) -> dict:
     """ms per training step of a recipe (the CLI's model and optimizer),
     eager and as replays of a CUDA graph of ``n`` steps (the recipe's
     steps per dispatch), target tokens per second, and from torch.profiler
@@ -1134,7 +1532,7 @@ def measure_training(batch, label: str, script: str, kernels: dict, n: int) -> d
     from musicstyletransfer_torch.training.train_step import (TrainState, batch_tensors,
                                                               metric_names, step_body)
 
-    args, model, opt, loss_cfg = recipe_setup(script)
+    args, model, opt, loss_cfg = recipe_setup(script, extra)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = TrainState(metric_names(model), "cuda")
     tensors = batch_tensors(batch, "cuda")
@@ -1821,7 +2219,8 @@ def main() -> int:
     flash_err = check_flash(fa, long_batch.seq_lens)
 
     wide_batch = next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
-    canonical_batches = list(MelodyDataset(32, L, Loader(corpus, L).melodies))[:8]
+    corpus_batches = list(MelodyDataset(32, L, Loader(corpus, L).melodies))
+    canonical_batches = corpus_batches[:8]
     graph_vs_eager("train-vae.sh", canonical_batches, (8, 3, 8))  # a group, a remainder, a group
     graph_vs_eager("train-vae.sh", canonical_batches, (2, 2), extra=("--remat",))
     graph_vs_eager("train-vae-wide.sh", [wide_batch], (4, 4))
@@ -1834,6 +2233,8 @@ def main() -> int:
         train_counts = train_path(ac, fd, tmp)
         long_counts = long_path(tmp)
         canonical_path(tmp)
+        lstm = lstm_path(tmp, canonical_batches, card)
+        gan = gan_path(tmp, corpus_batches[:2 * GAN_K], card)
 
     numbers = measure(model, dataset, fd, decode)
     core = measure_core(ac, wide_batch)
@@ -1846,6 +2247,8 @@ def main() -> int:
     flash = measure_flash(fa, ac, long_batch)
     steps["long"] = measure_training(long_batch, "long", "train-vae-long.sh",
                                      {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",)}, 1)
+    steps["lstm-vae"] = measure_training(canonical_batches[0], "lstm-vae", "train-vae.sh", {}, 8,
+                                         extra=("--decoder-type", "lstm"))
     log(f"timings above on: {card}")
 
     enc = core["encoder"]
@@ -1887,6 +2290,11 @@ def main() -> int:
             f"{st[mode]['kernel_ms']:.3f} ms of kernels, busy {st[mode]['busy']:.3f}, "
             f"{st[mode]['launches']:.0f} kernels, {st[mode]['host_ops']:.0f} host ops)"
             for mode in ("eager", "graphed")))
+    log("GAN training (train-gan.sh): " + "; ".join(
+        f"{k} {v['updates_per_s']:.2f} updates/s ({v['host_ops']:.0f} host ops an update, busy "
+        f"{v['busy']:.3f})" for k, v in gan.items()))
+    log(f"LSTM decode at B=64, T={T}: style_transfer_all_classes {lstm['transfer_ms']:.3f} ms, "
+        f"decode_sampled {lstm['decode_ms']:.3f} ms")
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,18 +21,22 @@ backward. ``--ring-attention`` (with ``--tp 1``, as
 ``scripts/train-vae-long.sh`` passes it) runs on one device as the JAX
 package does there: no ring, the flash route at T >= ``flash_min_seq_len``.
 ``--rng-impl`` is accepted and has no effect (randomness comes from one
-``torch.Generator``). Refused until ported (ROADMAP queue 1):
-``--decoder-type lstm`` (item 11), ``--tp`` > 1 and multi-process runs
-(``--dist-*``, item 9).
+``torch.Generator``). ``--decoder-type lstm`` trains the legacy LSTM
+decoder, its widths from ``--d-n-layers``, ``--d-rnn-hidden-dim`` and
+``--d-dropout`` as in the JAX CLI (``--toy`` ignores it, as the JAX toy
+does). Refused until ported (ROADMAP queue 1, item 9): ``--tp`` > 1 and
+multi-process runs (``--dist-*``).
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 from ..data import Loader, ToyData, load_dataset
 from ..inference.sampler import get_sampler
-from ..models.config import DecoderConfig, EncoderConfig, ModelConfig, TransformerConfig
+from ..models.config import (DecoderConfig, EncoderConfig, LSTMConfig, ModelConfig,
+                             TransformerConfig)
 from ..models.vae import StyleVAE, init_params
 from ..training.optimizer import OptimizerConfig
 from ..training.trainer import TrainConfig, Trainer
@@ -63,6 +67,10 @@ def create_model_config(args, dataset) -> ModelConfig:
                                            args.d_n_layers),
             latent_dim=args.latent_dim, num_classes=dataset.num_classes(),
             output_dim=dataset.num_tokens(), decoder_type=args.decoder_type,
+            lstm_config=(LSTMConfig(n_layers=args.d_n_layers,
+                                    hidden_dim=args.d_rnn_hidden_dim,
+                                    dropout=args.d_dropout)
+                         if args.decoder_type == "lstm" else None),
             class_conditioning=args.class_conditioning),
         dtype=args.dtype,
     )
@@ -122,14 +130,16 @@ def create_toy_train_config(logdir: str = "/tmp/out") -> TrainConfig:
     )
 
 
-def main_toy(args, epochs: int = 20000, model_folder: str = TOY_MODEL) -> None:
-    """Reference: main.py:59-76 (main_toy): the toy model trained on
-    ``ToyData`` (validated on it too) into ``model_folder``, whose ``torch/``
-    export ``cli.sample --toy`` reads."""
+def main_toy(args, epochs: int = 20000, model_folder: str = TOY_MODEL,
+             config: Optional[ModelConfig] = None) -> None:
+    """Reference: main.py:59-76 (main_toy): the toy model (or ``config``)
+    trained on ``ToyData`` (validated on it too) into ``model_folder``, whose
+    ``torch/`` export ``cli.sample --toy`` reads."""
     dataset = ToyData()
     device = resolve_device(gpu=args.gpu, cpu=args.cpu)
     os.makedirs(model_folder, exist_ok=True)
-    model = init_params(StyleVAE(create_toy_model_config(dataset)), args.seed).to(device)
+    config = config if config is not None else create_toy_model_config(dataset)
+    model = init_params(StyleVAE(config), args.seed).to(device)
     trainer = Trainer(create_toy_train_config(os.path.join(model_folder, "log")), model)
     trainer.fit(dataset=dataset, validation_dataset=dataset, model_folder=model_folder,
                 epochs=epochs)

@@ -1,11 +1,14 @@
 """Sampled autoregressive decode and style transfer (counterpart of
 ``musicstyletransfer_tpu/inference/decode.py``).
 
-``decode_sampled`` runs the whole decode loop through ``ops.fused_decode``:
-one launch of the CUDA kernel for tensors on the card, the plain PyTorch
-loop for tensors on the CPU. Sampling is seeded by an integer (the kernel's
-Philox key) rather than a JAX key; the same seed gives the same draws on
-either route wherever the two compute the same logits.
+``decode_sampled`` runs a transformer decoder's whole decode loop through
+``ops.fused_decode``: one launch of the CUDA kernel for tensors on the card,
+the plain PyTorch loop for tensors on the CPU. An LSTM decoder takes
+``decode_stepwise``, a plain PyTorch step loop over the model's cached
+``decode_step`` on either device (the JAX package's ``supports_fused_decode``
+refuses the LSTM too, and its XLA loop decodes it). Sampling is seeded by an
+integer (the kernel's Philox key) rather than a JAX key; the same seed gives
+the same draws on every route wherever they compute the same logits.
 
 ``beam_search`` and ``decode_beam`` run the batched beam search step by
 step through the model's cached ``decode_step`` (plain PyTorch: the JAX
@@ -15,13 +18,13 @@ surviving hypotheses with ``index_select``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..midi.vocab import EOS_ID, PAD_ID, SOS_ID
 from ..models.vae import StyleVAE
-from ..ops.fused_decode import fused_decode
+from ..ops.fused_decode import decode_loop, fused_decode
 
 _NEG_INF = -1e30  # filtered-out logits (avoids inf-inf NaNs in softmax)
 
@@ -60,13 +63,32 @@ def decode_sampled(model: StyleVAE, z: torch.Tensor, classes: torch.Tensor,
     at 0 and PAD after EOS, scores [B] = sum of -log p of emitted tokens
     under the unfiltered, untempered distribution). ``greedy`` takes the
     argmax instead of sampling."""
+    mode = "greedy" if greedy else "sample"
+    if model.is_lstm:
+        return decode_stepwise(model, z, classes, max_len, seed, temperature, mode,
+                               top_k=0 if greedy else top_k, top_p=0.0 if greedy else top_p)
     x0 = model.decode_init(z, classes).contiguous()
     return fused_decode(
-        model, x0, max_len, seed, temperature,
-        mode="greedy" if greedy else "sample",
+        model, x0, max_len, seed, temperature, mode=mode,
         top_k=0 if greedy else top_k, top_p=0.0 if greedy else top_p,
         classes=classes,
     )
+
+
+@torch.inference_mode()
+def decode_stepwise(model: StyleVAE, z: torch.Tensor, classes: torch.Tensor, max_len: int,
+                    seed: int, temperature: float = 1.0, mode: str = "sample",
+                    forced_tokens: Optional[torch.Tensor] = None, top_k: int = 0,
+                    top_p: float = 0.0):
+    """The decode loop one step at a time through ``model.decode_step`` from
+    ``model.decode_prefill`` (the LSTM decoder's route): ``ops.fused_decode.
+    decode_loop``, the kernel's semantics and noise. Returns (seqs [B,
+    max_len] int32 with SOS at 0, scores [B] float32), plus logits [B,
+    max_len, V] float32 in ``"forced"`` mode (row 0 zeros)."""
+    cache = model.decode_prefill(z, classes, max_len)
+    return decode_loop(lambda tokens, t: model.decode_step(tokens, cache, t, classes),
+                       z.shape[0], max_len, model.decoder.config.output_dim, z.device, seed,
+                       temperature, mode, forced_tokens, top_k, top_p)
 
 
 @torch.inference_mode()
@@ -146,6 +168,7 @@ def decode_beam(model: StyleVAE, z: torch.Tensor, classes: torch.Tensor, max_len
         word = (top % V).reshape(B * K)
         seqs = seqs.index_select(0, src)
         seqs[:, t] = word.to(torch.int32)
+        # a transformer's (k, v) per layer, an LSTM's (c, h): rows reordered alike
         cache = [(k.index_select(0, src), v.index_select(0, src)) for k, v in cache]
         done = done.index_select(0, src) | (word == EOS_ID)
         t += 1

@@ -189,6 +189,12 @@ class StreamingTransferEngine:
             raise NotImplementedError(MESH_NOT_PORTED)
         self.device = torch.device(device) if device is not None else resolve_device()
         self.model = load_inference_model(model_folder, checkpoint, self.device)
+        if self.model.is_lstm:
+            raise ValueError(
+                "streaming engine requires the transformer decoder "
+                "(per-slot ragged KV positions); use StyleTransferService "
+                "for the LSTM decoder"
+            )
         self.num_classes = self.model.config.decoder_config.num_classes
         self.slots = int(slots)
         self.max_seq_len = int(max_seq_len)

@@ -1,7 +1,8 @@
 """Model configuration, read from ``<model>/torch/config.json``.
 
-Dataclass twins of ``musicstyletransfer_tpu/models/config.py`` with the
-same field names and defaults. The JSON is written by
+Dataclass twins of ``musicstyletransfer_tpu/models/config.py`` (and of the
+GAN family's configs in ``musicstyletransfer_tpu/models/gan.py:53-95``) with
+the same field names and defaults. The JSON is written by
 ``scripts/export-torch-weights.py`` and by the port's own trainer
 (``training/checkpoint.py``); unknown keys are ignored on load, the way the
 JAX loader ignores unknown YAML keys.
@@ -57,6 +58,19 @@ class TransformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LSTMConfig:
+    """The legacy LSTM decoder (``decoder_type="lstm"``, ``models/lstm.py``)."""
+
+    n_layers: int = 1
+    hidden_dim: int = 128
+    dropout: float = 0.0
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "LSTMConfig":
+        return cls(**_known(cls, d))
+
+
+@dataclasses.dataclass(frozen=True)
 class EncoderConfig:
     transformer_config: TransformerConfig = dataclasses.field(
         default_factory=TransformerConfig
@@ -82,8 +96,9 @@ class DecoderConfig:
     latent_dim: int = 64
     num_classes: int = 2
     output_dim: int = 293
-    decoder_type: str = "transformer"  # "lstm" is not ported yet
-    class_conditioning: str = "initial"  # "initial" | "per_step"
+    decoder_type: str = "transformer"  # "transformer" | "lstm"
+    lstm_config: Optional[LSTMConfig] = None  # the LSTM decoder's widths
+    class_conditioning: str = "initial"  # "initial" | "per_step" (transformer only)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "DecoderConfig":
@@ -91,6 +106,8 @@ class DecoderConfig:
         kw["transformer_config"] = TransformerConfig.from_dict(
             d.get("transformer_config") or {}
         )
+        if d.get("lstm_config") is not None:
+            kw["lstm_config"] = LSTMConfig.from_dict(d["lstm_config"])
         return cls(**kw)
 
 
@@ -114,3 +131,62 @@ def load_config(path: str) -> Tuple[ModelConfig, int]:
     with open(path) as f:
         blob = json.load(f)
     return ModelConfig.from_dict(blob["model_config"]), int(blob["checkpoint"])
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratorConfig:
+    """The GAN generator (``--g-*`` and ``--noise-dim`` of ``cli.gan``)."""
+
+    n_layers: int = 1
+    hidden_dim: int = 256
+    emb_dim: int = 256
+    noise_dim: int = 64
+    num_classes: int = 2
+    output_dim: int = 293
+    max_seq_len: int = 64
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "GeneratorConfig":
+        return cls(**_known(cls, d))
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """The GAN discriminator (``--d-*`` of ``cli.gan``); ``projection`` adds
+    the class-projection term to every step's logit."""
+
+    n_layers: int = 1
+    hidden_dim: int = 256
+    emb_dim: int = 256
+    num_classes: int = 2
+    input_dim: int = 293
+    projection: bool = True
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "DiscriminatorConfig":
+        return cls(**_known(cls, d))
+
+
+@dataclasses.dataclass(frozen=True)
+class GANConfig:
+    generator_config: GeneratorConfig = dataclasses.field(default_factory=GeneratorConfig)
+    discriminator_config: DiscriminatorConfig = dataclasses.field(
+        default_factory=DiscriminatorConfig
+    )
+    dtype: str = "bfloat16"
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "GANConfig":
+        return cls(
+            generator_config=GeneratorConfig.from_dict(d.get("generator_config") or {}),
+            discriminator_config=DiscriminatorConfig.from_dict(
+                d.get("discriminator_config") or {}),
+            dtype=d.get("dtype", "bfloat16"),
+        )
+
+
+def load_gan_config(path: str) -> Tuple[GANConfig, int]:
+    """A GAN folder's ``config.json`` -> (GANConfig, checkpoint index)."""
+    with open(path) as f:
+        blob = json.load(f)
+    return GANConfig.from_dict(blob["gan_config"]), int(blob["checkpoint"])

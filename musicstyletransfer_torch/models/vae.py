@@ -4,6 +4,8 @@
 z = mu + eps * exp(logvar / 2) (``vae.py:238-245``) and applies dropout; in
 eval mode it uses z = mu, as ``encode`` and generation do. Token lookups are plain gathers; the JAX package's one-hot embedding matmul
 (``vae.py:37-49``) is a TPU workaround and is not carried over.
+``decoder_type="lstm"`` builds the legacy ``LSTMDecoder`` (``models/lstm.py``)
+in place of the transformer decoder.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from torch import nn
 from ..midi.vocab import PAD_ID
 
 from .config import DecoderConfig, EncoderConfig, ModelConfig
+from .lstm import LSTMCell, LSTMDecoder
 from .transformer import Cache, Dense, TransformerStack, compute_dtype
 
 # flax's lecun_normal: a normal truncated at two standard deviations, its
@@ -125,15 +128,24 @@ class StyleVAE(nn.Module):
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.decoder_config.decoder_type != "transformer":
-            raise NotImplementedError(
-                f"decoder_type={config.decoder_config.decoder_type!r} is not "
-                "ported yet (ROADMAP queue 1, item 11: legacy LSTM decoder)"
+        dc = config.decoder_config
+        if dc.decoder_type not in ("transformer", "lstm"):
+            raise ValueError(f"unknown decoder_type {dc.decoder_type!r}")
+        if dc.decoder_type == "lstm" and dc.class_conditioning != "initial":
+            raise ValueError(
+                "class_conditioning='per_step' requires the transformer "
+                "decoder (the legacy LSTM keeps the reference's "
+                "initial-state conditioning)"
             )
         self.config = config
         self.compute_dtype = compute_dtype(config.dtype)
         self.encoder = VAEEncoder(config.encoder_config, self.compute_dtype)
-        self.decoder = VAEDecoder(config.decoder_config, self.compute_dtype)
+        decoder = LSTMDecoder if dc.decoder_type == "lstm" else VAEDecoder
+        self.decoder = decoder(dc, self.compute_dtype)
+
+    @property
+    def is_lstm(self) -> bool:
+        return isinstance(self.decoder, LSTMDecoder)
 
     @property
     def device(self) -> torch.device:
@@ -176,20 +188,28 @@ class StyleVAE(nn.Module):
 
 
 @torch.no_grad()
-def init_params(model: StyleVAE, seed: int) -> StyleVAE:
+def init_params(model: nn.Module, seed: int) -> nn.Module:
     """Seeded initialisation with flax's default initializers (the JAX
     package's ``init_params``; the numbers differ, the distributions do
-    not): Dense kernels lecun_normal and biases zero, embeddings
-    normal(0, 1/sqrt(features)), LayerNorms one and zero. Drawn on the CPU,
-    so a seed gives the same weights on every device."""
+    not): Dense kernels lecun_normal and biases zero, an LSTM cell's hidden
+    kernels orthogonal, embeddings normal(0, 1/sqrt(features)), LayerNorms
+    one and zero. Drawn on the CPU, so a seed gives the same weights on
+    every device. Serves any module built of these layers (``StyleVAE``,
+    the GAN's ``Generator`` and ``Discriminator``)."""
     g = torch.Generator().manual_seed(seed)
+    recurrent = {id(getattr(cell, f"h{gate}")) for cell in model.modules()
+                 if isinstance(cell, LSTMCell) for gate in "ifgo"}
     for module in model.modules():
         if isinstance(module, nn.Linear):
             w = torch.empty(module.weight.shape)
-            std = module.in_features ** -0.5 / _TRUNCATED_STD
-            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+            if id(module) in recurrent:
+                nn.init.orthogonal_(w, generator=g)
+            else:
+                std = module.in_features ** -0.5 / _TRUNCATED_STD
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
             module.weight.copy_(w)
-            module.bias.zero_()
+            if module.bias is not None:
+                module.bias.zero_()
         elif isinstance(module, nn.Embedding):
             w = torch.randn(module.weight.shape, generator=g) * module.embedding_dim ** -0.5
             module.weight.copy_(w)

@@ -123,15 +123,25 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return (bits & 0x7FFFFF).to(torch.float32) * (2.0 ** -23) + 2.0 ** -24
 
 
+def gumbel_steps(seed: int, first: int, count: int, batch: int, vocab: int,
+                 device: torch.device) -> torch.Tensor:
+    """[count, batch, vocab] Gumbel noise of the decode steps first ..
+    first+count-1 (counter (row, step, vocab index, 0), key = the 64-bit
+    seed)."""
+    shape = (count, batch, vocab)
+    zero = torch.zeros(shape, dtype=torch.int64, device=device)
+    steps = torch.arange(first, first + count, dtype=torch.int64, device=device)
+    rows = torch.arange(batch, dtype=torch.int64, device=device)
+    cols = torch.arange(vocab, dtype=torch.int64, device=device)
+    bits = philox4x32(rows[None, :, None] + zero, steps[:, None, None] + zero,
+                      cols[None, None, :] + zero, zero, seed, seed >> 32)[0]
+    return -torch.log(-torch.log(uniform_from_bits(bits)))
+
+
 def gumbel_noise(seed: int, step: int, batch: int, vocab: int,
                  device: torch.device) -> torch.Tensor:
-    """[batch, vocab] Gumbel noise of decode step ``step`` (counter (row,
-    step, vocab index, 0), key = the 64-bit seed)."""
-    rows = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
-    cols = torch.arange(vocab, dtype=torch.int64, device=device)[None, :]
-    zero = torch.zeros_like(cols)
-    bits = philox4x32(rows, zero + step, cols, zero, seed, seed >> 32)[0]
-    return -torch.log(-torch.log(uniform_from_bits(bits)))
+    """[batch, vocab] Gumbel noise of decode step ``step``."""
+    return gumbel_steps(seed, step, 1, batch, vocab, device)[0]
 
 
 # ----------------------------------------------------------------------------
@@ -145,43 +155,45 @@ def _check_mode(mode: str, temperature: float) -> None:
         raise ValueError(f"temperature must be > 0, got {temperature}")
 
 
-@torch.inference_mode()
-def fused_decode_reference(model, x0: torch.Tensor, max_len: int, seed: int,
-                           temperature: float = 1.0, mode: str = "sample",
-                           forced_tokens: Optional[torch.Tensor] = None,
-                           top_k: int = 0, top_p: float = 0.0,
-                           classes: Optional[torch.Tensor] = None):
-    """The decode loop step by step through ``VAEDecoder.step_token``.
+NOISE_BLOCK = 64  # decode steps whose Gumbel noise ``decode_loop`` draws at once
 
-    Same interface and results as ``fused_decode``: (seqs [B, T] int32,
-    scores [B] float32), plus logits [B, T, V] float32 in ``"forced"`` mode
-    (row 0 zeros)."""
+
+def decode_loop(step, B: int, T: int, V: int, device: torch.device, seed: int,
+                temperature: float = 1.0, mode: str = "sample",
+                forced_tokens: Optional[torch.Tensor] = None, top_k: int = 0,
+                top_p: float = 0.0):
+    """The decode loop around ``step(tokens [B], t) -> logits [B, V]`` (the
+    decoder's cached step at position t from the tokens at t - 1): the
+    kernel's semantics, step by step. ``"sample"`` draws Gumbel-max over
+    ``filter_support(logits / temperature)`` with the kernel's noise (drawn
+    NOISE_BLOCK steps at a time by ``gumbel_steps``), ``"greedy"`` the
+    argmax, ``"forced"`` the given tokens; scores add -log p of the emitted
+    token under the unfiltered, untempered logits; a row is done at EOS and
+    then emits PAD; sampling stops once every row is done.
+
+    Returns (seqs [B, T] int32, scores [B] float32), plus logits [B, T, V]
+    float32 in ``"forced"`` mode (row 0 zeros)."""
     _check_mode(mode, temperature)
-    if x0.is_cuda:
-        fused_decode_reference.cuda_runs += 1
-    dec = model.decoder
-    B, T, V = x0.shape[0], max_len, dec.config.output_dim
-    dev = x0.device
-    cache = dec.decoder.init_cache(B, T)
-    dec.decoder.step(x0, cache, 0)  # position 0: the conditioning state
-    seqs = torch.full((B, T), PAD_ID, dtype=torch.int32, device=dev)
+    seqs = torch.full((B, T), PAD_ID, dtype=torch.int32, device=device)
     seqs[:, 0] = SOS_ID
-    scores = torch.zeros(B, dtype=torch.float32, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    logits_out = (torch.zeros(B, T, V, dtype=torch.float32, device=dev)
+    scores = torch.zeros(B, dtype=torch.float32, device=device)
+    done = torch.zeros(B, dtype=torch.bool, device=device)
+    logits_out = (torch.zeros(B, T, V, dtype=torch.float32, device=device)
                   if mode == "forced" else None)
     for t in range(1, T):
         if mode != "forced" and bool(done.all()):
             break
-        logits = dec.step_token(seqs[:, t - 1], cache, t, classes)
+        logits = step(seqs[:, t - 1].long(), t).float()
         if mode == "forced":
             logits_out[:, t] = logits
             nxt = forced_tokens[:, t].to(torch.int64)
         elif mode == "greedy":
             nxt = logits.argmax(-1)
         else:
+            if (t - 1) % NOISE_BLOCK == 0:
+                noise = gumbel_steps(seed, t, min(NOISE_BLOCK, T - t), B, V, device)
             scaled = filter_support(logits / temperature, top_k, top_p)
-            nxt = (scaled + gumbel_noise(seed, t, B, V, dev)).argmax(-1)
+            nxt = (scaled + noise[(t - 1) % NOISE_BLOCK]).argmax(-1)
         nll = torch.logsumexp(logits, -1) - logits.gather(1, nxt[:, None])[:, 0]
         scores += torch.where(done, 0.0, nll)
         if mode != "forced":
@@ -191,6 +203,30 @@ def fused_decode_reference(model, x0: torch.Tensor, max_len: int, seed: int,
     if mode == "forced":
         return seqs, scores, logits_out
     return seqs, scores
+
+
+@torch.inference_mode()
+def fused_decode_reference(model, x0: torch.Tensor, max_len: int, seed: int,
+                           temperature: float = 1.0, mode: str = "sample",
+                           forced_tokens: Optional[torch.Tensor] = None,
+                           top_k: int = 0, top_p: float = 0.0,
+                           classes: Optional[torch.Tensor] = None):
+    """The decode loop step by step through ``VAEDecoder.step_token``
+    (``decode_loop``).
+
+    Same interface and results as ``fused_decode``: (seqs [B, T] int32,
+    scores [B] float32), plus logits [B, T, V] float32 in ``"forced"`` mode
+    (row 0 zeros)."""
+    _check_mode(mode, temperature)
+    if x0.is_cuda:
+        fused_decode_reference.cuda_runs += 1
+    dec = model.decoder
+    B, T = x0.shape[0], max_len
+    cache = dec.decoder.init_cache(B, T)
+    dec.decoder.step(x0, cache, 0)  # position 0: the conditioning state
+    return decode_loop(lambda tokens, t: dec.step_token(tokens, cache, t, classes),
+                       B, T, dec.config.output_dim, x0.device, seed, temperature, mode,
+                       forced_tokens, top_k, top_p)
 
 
 fused_decode_reference.cuda_runs = 0

@@ -1,10 +1,10 @@
-"""Losses: PAD-masked token cross-entropy and the variational KL
-(counterpart of ``musicstyletransfer_tpu/training/loss.py:27-94``).
+"""Losses: PAD-masked token cross-entropy, the variational KL and the GAN
+family's binary cross-entropy (counterpart of
+``musicstyletransfer_tpu/training/loss.py:27-119``).
 
 CE comes from logits via log-softmax; KL uses the (mu, logvar)
 parameterisation; per-sample CE normalisation is "valid" (mean over
-non-PAD positions) or "length" (mean over the whole time axis). The GAN
-family's ``binary_cross_entropy`` is not ported yet (ROADMAP queue 1, item 10).
+non-PAD positions) or "length" (mean over the whole time axis).
 """
 
 from __future__ import annotations
@@ -60,3 +60,25 @@ def vae_loss(logits: torch.Tensor, labels: torch.Tensor, mu: torch.Tensor,
         kl = kl_divergence(mu, logvar)
     total = ce.mean() + kl_weight * kl.mean()
     return total, {"ce_loss": ce.mean(), "kl_loss": kl.mean(), "total_loss": total}
+
+
+def binary_cross_entropy(pred: torch.Tensor, label: torch.Tensor, from_sigmoid: bool = False,
+                         label_smoothing: float = 0.0,
+                         negative_label_downweighting: bool = True) -> torch.Tensor:
+    """Per-sample BCE [B] (the mean over every non-batch axis) of logits, or
+    of probabilities with ``from_sigmoid``, against labels in {0, 1}:
+    labels smoothed towards 0.5 by ``label_smoothing``, both logs guarded by
+    1e-12, and with ``negative_label_downweighting`` each sample's
+    label-0 terms scaled by its count of 1-labels over its count of the
+    others (``loss.py:97-119`` of the JAX package)."""
+    if not from_sigmoid:
+        pred = torch.sigmoid(pred)
+    s_label = (1.0 - label_smoothing) * label + label_smoothing * 0.5
+    bce = -(s_label * torch.log(1e-12 + pred) + (1.0 - s_label) * torch.log(1e-12 + (1.0 - pred)))
+    if negative_label_downweighting:
+        axes = tuple(range(1, label.dim()))
+        n_pos = (label == 1.0).sum(dim=axes, keepdim=True)
+        n_neg = (label != 1.0).sum(dim=axes, keepdim=True)
+        downweight = n_pos / (n_neg + 1e-12)
+        bce = torch.where(label == 0.0, downweight * bce, bce)
+    return bce.mean(dim=tuple(range(1, bce.dim())))

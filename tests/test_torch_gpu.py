@@ -19,7 +19,8 @@ before their second products: out 3e-2, lse 1e-3, gradients 2e-2 relative
 to their largest magnitude (``chip_smoke.py``'s tolerances). K1 at padded
 widths and wide vocabularies takes K1's tolerances. A graph of training
 steps and the same eager steps run the same kernels on the same inputs in
-the same order: bit for bit.
+the same order: bit for bit; so do the LSTM-decoder VAE's graphed steps and
+the GAN's graphed groups of D and G steps.
 """
 
 import numpy as np
@@ -644,6 +645,71 @@ def test_graphs_of_two_lengths_interleaved(cuda):
     (a, ga, ca), (b, gb, cb) = out
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert torch.equal(ga, gb) and ca == cb and ca["K3"] == 8 * 4
+
+
+@pytest.mark.gpu
+def test_lstm_vae_graph_equals_eager_steps(cuda):
+    """The LSTM-decoder VAE (a 2 x 32 LSTM with dropout 0.2 between its
+    layers): two replays of a graph of 3 steps against 6 eager steps, bit
+    for bit (parameters, optimizer state, step, metric sums, generator)."""
+    from musicstyletransfer_torch.models.config import LSTMConfig
+    from musicstyletransfer_torch.models.vae import init_params
+    from musicstyletransfer_torch.training.optimizer import Optimizer, OptimizerConfig
+
+    tc = TransformerConfig(model_size=64, num_layers=2, num_heads=2, dropout=0.1)
+    cfg = ModelConfig(encoder_config=EncoderConfig(transformer_config=tc, latent_dim=8),
+                      decoder_config=DecoderConfig(
+                          transformer_config=tc, latent_dim=8, decoder_type="lstm",
+                          lstm_config=LSTMConfig(n_layers=2, hidden_dim=32, dropout=0.2)),
+                      dtype="float32")
+    group = step_batches(cuda, 3)
+    out = []
+    for graphed in (False, True):
+        lstm = init_params(StyleVAE(cfg), 0).to(cuda)
+        opt = Optimizer(list(lstm.parameters()), OptimizerConfig("adam", "clip_gradient:1.0", 1e-3))
+        out.append(run_groups(lstm, opt, [group, group], graphed, cuda))
+    (a, ga, ca), (b, gb, cb) = out
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(ga, gb) and ca == cb and ca["K1"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r1_gamma", [0.1, 0.0])
+def test_gan_graphed_groups_equal_eager_steps(cuda, r1_gamma):
+    """GAN groups as CUDA-graph replays (``GraphedGANGroups``: a group of 5
+    from batch 0, then groups cut at batches 7 and 10, replayed out of
+    capture order) against the same eager D/G steps from one seeded state:
+    both models' parameters, Adam state, the metric sums and the noise
+    generator bit for bit."""
+    from musicstyletransfer_torch.models.config import (DiscriminatorConfig, GANConfig,
+                                                        GeneratorConfig)
+    from musicstyletransfer_torch.models.gan import init_gan_params
+    from musicstyletransfer_torch.training.gan_trainer import (GANSteps, GANTrainConfig,
+                                                               GraphedGANGroups, group_pattern)
+
+    cfg = GANConfig(GeneratorConfig(hidden_dim=32, emb_dim=16, noise_dim=8, max_seq_len=12),
+                    DiscriminatorConfig(n_layers=2, hidden_dim=32, emb_dim=16), "bfloat16")
+    rng = np.random.default_rng(2)
+    batches = [(torch.as_tensor(rng.integers(3, 293, (4, 12)), device=cuda),
+                torch.as_tensor(rng.integers(0, 2, 4), device=cuda)) for _ in range(15)]
+    bounds = [(0, 5), (5, 7), (7, 10), (10, 15)]
+    out = []
+    for graphed in (False, True):
+        gen, disc = init_gan_params(cfg, 0)
+        steps = GANSteps(cfg, GANTrainConfig(r1_gamma=r1_gamma), gen.to(cuda), disc.to(cuda),
+                         torch.Generator(device=cuda).manual_seed(1))
+        graphs = GraphedGANGroups(steps, 5)
+        for a, b in bounds:
+            pattern = group_pattern(a, b - a, 5)
+            if graphed:
+                graphs.run(batches[a:b], pattern)
+            else:
+                steps.run_group(batches[a:b], pattern)
+        torch.cuda.synchronize()
+        out.append([t.clone() for t in steps.tensors()] + [steps.generator.get_state()])
+        assert int(steps.g_opt.state["count"]) == 3 and int(steps.d_opt.state["count"]) == 15
+    assert all(torch.equal(x, y) for x, y in zip(*out))
+    assert len(graphs.graphs) == 3  # (5 from 0), (2 from 5), (3 from 7); (5 from 10) replays
 
 
 @pytest.mark.gpu
