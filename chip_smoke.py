@@ -110,6 +110,22 @@
    second, and from torch.profiler the kernels' ms a step, the device's busy
    share, kernels and host ops a step and the attention kernels' share;
    the same for the LSTM-decoder VAE's step.
+11. Ring attention (ring_path, ops/ring_attention.py at train-vae-long.sh's
+   widths: encoder T=2047 padded to the ring, hd=64; decoder T=2048, hd=32,
+   causal; B=4, bf16, one row's keys inside the first chunk): n = 2 and 4
+   ranks in lock step on the one card through the package's step code,
+   forward and re-rotating backward, held against K4/K5 on the whole T (out,
+   lse, dq/dk/dv at K4/K5's bf16 tolerances), n x n launches a direction on
+   the tensor-core kernels; ms of the ring against the whole-T kernels.
+12. Multi-process training (dist_path): cli.main with
+   scripts/train-distributed.sh's flags (groups of 8, one epoch) as a world
+   of one rank on NCCL (--dist-*) and without --dist-*: the same parameters
+   and optimizer state bit for bit; in this process, graphs of 8 and 3 steps
+   with the gradient's all-reduce captured against eager steps, bit for
+   bit; the graphed step with and without the mesh and the all-reduce's ms.
+   multi_gpu_path (2-process NCCL: DP=2, tp=2, --ring-attention --tp 2 at
+   L=2046) runs only where torch.cuda.device_count() >= 2, and otherwise
+   prints "multi_gpu_path: not run (1 card)".
 
 Exits non-zero on any failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -634,11 +650,16 @@ def recipe_argv(script: str, data: str, model_output: str, out_samples: str,
         text = f.read()
     body = text.split(f"musicstyletransfer_tpu.cli.{module}", 1)[1].split('"$@"', 1)[0]
     body = re.sub(r"\$\{\w+:-([^}]*)\}", r"\1", body)
+    body = re.sub(r"\$\{\w+:\+[^}]*\}", "", body)  # ${X:+...} with X unset
     argv = shlex.split(body.replace("\\\n", " "))
     subs = {"--data": data, "--model-output": model_output, "--out-samples": out_samples}
     for i, a in enumerate(argv[:-1]):
         if a in subs:
             argv[i + 1] = subs[a]
+    # a flag still given only a shell variable ("--dist-process-id
+    # "$PROCESS_ID"") is the launcher's to set: left out
+    argv = [a for i, a in enumerate(argv) if not a.startswith("$")
+            and not (i + 1 < len(argv) and argv[i + 1].startswith("$"))]
     for flag in required:
         check(flag in argv, f"{script} lost {flag}")
     return argv
@@ -1405,9 +1426,11 @@ def measure_flash(fa, ac, batch) -> dict:
     return out
 
 
-def recipe_setup(script: str, extra=(), seed: int = 0):
+def recipe_setup(script: str, extra=(), seed: int = 0, mesh=None):
     """scripts/<script>'s model (seeded weights, on the card), optimizer and
-    loss settings, as cli.main builds them: (args, model, optimizer, loss)."""
+    loss settings, as cli.main builds them: (args, model, optimizer, loss);
+    with a ``mesh``, the model sharded onto it and the optimizer's
+    collectives over it, as the trainer sets them up."""
     from types import SimpleNamespace
 
     from musicstyletransfer_torch.cli.flags import build_parser
@@ -1422,15 +1445,20 @@ def recipe_setup(script: str, extra=(), seed: int = 0):
         + list(extra))
     corpus = SimpleNamespace(num_classes=lambda: 2, num_tokens=lambda: NUM_EVENTS)
     model = init_params(StyleVAE(create_model_config(args, corpus)), seed).cuda()
+    sync = None
+    if mesh is not None:
+        from musicstyletransfer_torch.parallel.mesh import FlatSync, shard_model
+
+        sync = FlatSync(mesh, shard_model(model, mesh), mesh.device)
     opt = Optimizer(list(model.parameters()), OptimizerConfig(
         args.optimizer, args.optimizer_params, args.learning_rate),
-        accumulate_steps=args.grad_accum_steps)
+        accumulate_steps=args.grad_accum_steps, sync=sync)
     loss_cfg = LossConfig(kl_weight=args.kl_loss, kl_anneal_steps=args.kl_anneal_steps,
                           free_bits=args.free_bits)
     return args, model, opt, loss_cfg
 
 
-def graph_vs_eager(script: str, batches, lengths, extra=()) -> dict:
+def graph_vs_eager(script: str, batches, lengths, extra=(), mesh=None) -> dict:
     """Groups of ``lengths`` steps of the recipe (batches taken in turn)
     from one seeded state: as eager ``step_body`` calls, and as one replay
     a group of CUDA graphs of those lengths held by one ``GraphedSteps``, as
@@ -1442,8 +1470,11 @@ def graph_vs_eager(script: str, batches, lengths, extra=()) -> dict:
     must count each replay's launches as the eager steps' own. K1's weight
     pack, made before the steps, must follow the trained weights (equal to
     a pack made afresh), and K1's forced logits on the trained model agree
-    with the plain version's within TOL_LOGITS."""
+    with the plain version's within TOL_LOGITS. With a ``mesh`` every step
+    runs its collectives (the gradient's all-reduce), eager and captured in
+    the graphs."""
     from musicstyletransfer_torch.ops import counters
+    from musicstyletransfer_torch.parallel.mesh import use_mesh
     from musicstyletransfer_torch.ops import fused_decode as fd
     from musicstyletransfer_torch.training.graph import GraphedSteps
     from musicstyletransfer_torch.training.train_step import (TrainState, batch_tensors,
@@ -1451,7 +1482,7 @@ def graph_vs_eager(script: str, batches, lengths, extra=()) -> dict:
 
     runs = []
     for graphed in (False, True):
-        args, model, opt, loss_cfg = recipe_setup(script, extra)
+        args, model, opt, loss_cfg = recipe_setup(script, extra, mesh=mesh)
         stale = None if model.is_lstm else fd.pack_weights(model)
         state = TrainState(metric_names(model), "cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1459,14 +1490,15 @@ def graph_vs_eager(script: str, batches, lengths, extra=()) -> dict:
         counters.reset()
         graphs = GraphedSteps(model, opt, loss_cfg, state, gen, max(lengths)) if graphed else None
         done = 0
-        for n in lengths:
-            group = [tensors[(done + i) % len(tensors)] for i in range(n)]
-            done += n
-            if graphed:
-                graphs.run(group)
-            else:
-                for t in group:
-                    step_body(model, opt, loss_cfg, state, *t, generator=gen)
+        with use_mesh(mesh):
+            for n in lengths:
+                group = [tensors[(done + i) % len(tensors)] for i in range(n)]
+                done += n
+                if graphed:
+                    graphs.run(group)
+                else:
+                    for t in group:
+                        step_body(model, opt, loss_cfg, state, *t, generator=gen)
         torch.cuda.synchronize()
         runs.append({"params": opt.flat.clone(), **{f"opt.{k}": v.clone()
                                                     for k, v in opt.state.items()},
@@ -1507,7 +1539,8 @@ def graph_vs_eager(script: str, batches, lengths, extra=()) -> dict:
     worst = max(diffs.values())
     check(all(math.isfinite(d) for d in diffs.values()) and worst <= TOL_GRAPH_REL,
           f"{script} graphs of {lengths} vs eager: {diffs}")
-    log(f"graph vs eager, {script} {' '.join(extra)} (B={args.batch_size}, L={args.max_seq_len}"
+    log(f"graph vs eager, {script} {' '.join(extra)}{'' if mesh is None else f' on {mesh}'} "
+        f"(B={args.batch_size}, L={args.max_seq_len}"
         f", {args.dtype}), groups of {'+'.join(map(str, lengths))} steps: "
         + ("bit for bit identical" if worst == 0.0 else f"max rel diff {worst:.3g} ({diffs})")
         + f" (parameters, optimizer state, step, metric sums, generator); launches "
@@ -2065,6 +2098,243 @@ def serving_path(fd, decode, card: str) -> dict:
             "bf16_same": same16}
 
 
+RING_NS = (2, 4)  # ring sizes run in lock step on the one card
+
+
+def ring_path(fa, enc_lens) -> dict:
+    """Ring attention (ops/ring_attention.py) at train-vae-long.sh's widths:
+    the encoder (H=8, hd=64, T=2047, padded to the ring) and the decoder
+    (hd=32, T=2048, causal), B=4, bf16, the corpus batch's key lengths with
+    the last row cut to 300 keys (inside the first chunk: every later chunk
+    of that row has 0 visible keys). For n = 2 and 4 the ring's ranks run
+    in lock step on the card through the package's step code (the rotation
+    by list index); out, lse and dq/dk/dv are held against K4/K5 on the
+    whole T, and the ring's K4/K5 launches counted (n x n a direction, all on
+    the tensor-core kernels). Timed against the whole-T kernels."""
+    from musicstyletransfer_torch.ops import ring_attention as ra
+    from musicstyletransfer_torch.parallel.mesh import SeqShard
+
+    enc = [int(n) for n in enc_lens][:LONG_B - 1] + [300]
+    out = {"launches": {"K4": 0, "K5": 0}, "err": {"K4": 0.0, "K5": 0.0}, "lines": []}
+    dt = torch.bfloat16
+    for name, T, hd, causal in FLASH_SHAPES:
+        lens = enc if name == "encoder" else [n + 1 for n in enc]
+        q, k, v, dout, _ = flash_inputs(LONG_B, T, hd, dt, seed=T + hd + 1)
+        key_lens = torch.tensor(lens, dtype=torch.int32).cuda()
+        scale = hd ** -0.5
+        whole_out, whole_lse = fa.flash_forward(q, k, v, key_lens, causal, scale)
+        whole_grads = fa.flash_backward(q, k, v, key_lens, whole_lse, whole_out, dout, causal,
+                                        scale)
+        live = whole_lse > -1e29
+        for n in RING_NS:
+            chunks = [[SeqShard(T, n, r).local(x, 2).contiguous() for r in range(n)]
+                      for x in (q, k, v, dout)]
+            tag = f"{name} T={T} hd={hd} causal={causal} n={n}"
+            before = counts()
+            fwd = ra.ring_forward_lockstep(*chunks[:3], key_lens, causal, scale)
+            outs, lses = [o for o, _ in fwd], [l for _, l in fwd]
+            bwd = ra.ring_backward_lockstep(*chunks[:3], key_lens, outs, lses, chunks[3],
+                                            causal, scale)
+            torch.cuda.synchronize()
+            after = counts()
+            moved = {kk: after[kk] - before[kk] for kk in ("K4", "K4 tc", "K5", "K5 tc")}
+            check(moved == {"K4": n * n, "K4 tc": n * n, "K5": n * n, "K5 tc": n * n},
+                  f"ring {tag}: launches {moved}, expected {n * n} a direction on the "
+                  "tensor-core kernels")
+            for kk in ("K4", "K5"):
+                out["launches"][kk] += n * n
+            ring_out = torch.cat(outs, 2)[:, :, :T]
+            ring_lse = torch.cat(lses, 2)[:, :, :T]
+            check(bool(torch.isfinite(ring_out).all() and torch.isfinite(ring_lse).all()),
+                  f"ring {tag}: non-finite out or lse")
+            out_err = float((ring_out - whole_out.float()).abs().max())
+            lse_err = float((ring_lse - whole_lse)[live].abs().max())
+            check(bool(torch.equal(ring_lse <= -1e29, ~live)), f"ring {tag}: no-key rows differ")
+            check(out_err <= TOL_CTX[dt], f"ring {tag}: out max|err| {out_err} > {TOL_CTX[dt]}")
+            check(lse_err <= TOL_LSE[dt], f"ring {tag}: lse max|err| {lse_err} > {TOL_LSE[dt]}")
+            rels = []
+            for j, gname in enumerate("qkv"):
+                d = torch.cat([b[j] for b in bwd], 2)[:, :, :T]
+                check(bool(torch.isfinite(d).all()), f"ring {tag}: non-finite d{gname}")
+                err = float((d - whole_grads[j].float()).abs().max())
+                rels.append(err / max(float(whole_grads[j].float().abs().max()), 1e-30))
+                out["err"]["K5"] = max(out["err"]["K5"], err)
+            check(max(rels) <= TOL_DQKV_REL[dt], f"ring {tag}: rel errs {rels}")
+            out["err"]["K4"] = max(out["err"]["K4"], out_err)
+            saved = counts()
+            ms = {
+                "ring fwd": time_cuda(lambda: ra.ring_forward_lockstep(
+                    *chunks[:3], key_lens, causal, scale), 5),
+                "whole K4": time_cuda(lambda: fa.flash_forward(q, k, v, key_lens, causal,
+                                                               scale), 5),
+                "ring bwd": time_cuda(lambda: ra.ring_backward_lockstep(
+                    *chunks[:3], key_lens, outs, lses, chunks[3], causal, scale), 5),
+                "whole K5": time_cuda(lambda: fa.flash_backward(
+                    q, k, v, key_lens, whole_lse, whole_out, dout, causal, scale), 5),
+            }
+            from musicstyletransfer_torch.ops import counters
+
+            counters.write(saved)  # timing launches are not the path's
+            out[tag] = ms
+            line = (f"ring {tag}, key_lens={lens}: out max|err| {out_err:.3g} (tol "
+                    f"{TOL_CTX[dt]}), lse {lse_err:.3g} (tol {TOL_LSE[dt]}), dq/dk/dv rel "
+                    f"{max(rels):.3g} (tol {TOL_DQKV_REL[dt]}) against K4/K5 on the whole T; "
+                    f"{n * n} K4 + {n * n} K5 launches; ms: ring forward (n ranks in lock "
+                    f"step) {ms['ring fwd']:.4f} vs whole-T K4 {ms['whole K4']:.4f}, ring "
+                    f"backward {ms['ring bwd']:.4f} vs whole-T K5 {ms['whole K5']:.4f}")
+            log(line)
+    return out
+
+
+def dist_path(tmp: str, batches, card: str) -> dict:
+    """Multi-process training's entry point on the one card, a world of one
+    rank on NCCL: cli.main with scripts/train-distributed.sh's flags (B=32,
+    L=64, encoder 2x256/8 heads, latent 256, decoder 1x128, Adam with
+    clip_gradient 1.0, bf16) in groups of 8 steps for one epoch, once with
+    --dist-coordinator 127.0.0.1:<free port> --dist-num-processes 1
+    --dist-process-id 0 and once without: both end with the same
+    parameters and optimizer state bit for bit. In this process, a world of
+    one on NCCL: CUDA graphs of 8 and 3 steps with the gradient's
+    all-reduce captured against the same eager steps, bit for bit; the
+    graphed step's ms with and without the mesh; the all-reduce's ms on the
+    flat gradient (CUDA events)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from musicstyletransfer_torch.parallel import initialize_distributed, make_mesh, use_mesh
+    from musicstyletransfer_torch.training import checkpoint as ckpt
+    from musicstyletransfer_torch.training.graph import GraphedSteps
+    from musicstyletransfer_torch.training.train_step import TrainState, batch_tensors, metric_names
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    data = os.path.join(REPO, "work", "data", "guitar_bass")
+    folders = {}
+    for label, extra in (("dist", ["--dist-coordinator", f"127.0.0.1:{free_port()}",
+                                   "--dist-num-processes", "1", "--dist-process-id", "0"]),
+                         ("single", [])):
+        folder = os.path.join(tmp, f"distributed-{label}")
+        argv = recipe_argv("train-distributed.sh", data, folder, os.path.join(tmp, "out-dist"),
+                           required=("--batch-size", "--max-seq-len"))
+        t0 = time.perf_counter()
+        stdout = run_cli("main", argv + extra + [
+            "--steps-per-dispatch", "8", "--epochs", "1", "--checkpoint-frequency", "100000",
+            "--logdir", folder + "-log", "--log-every", "8"])
+        folders[label] = folder
+        check_train_log(train_lines(os.path.join(folder + "-log", "scalars.jsonl")),
+                        f"train-distributed.sh {label}", guarded=False)
+        log(f"dist path: cli.main train-distributed.sh ({label}) one epoch in "
+            f"{time.perf_counter() - t0:.1f} s" + (
+                ": " + next(x for x in stdout.splitlines() if "Mesh(" in x)
+                if label == "dist" else ""))
+    a, b = (ckpt.restore_checkpoint(folders[k], 1) for k in ("dist", "single"))
+    check(a["step"] == b["step"] > 0, f"dist path: steps {a['step']} vs {b['step']}")
+    check(torch.equal(a["params"], b["params"]), "dist path: parameters differ from the "
+          "run without --dist-*")
+    for k, v in b["optimizer"].items():
+        check(torch.equal(a["optimizer"][k], v), f"dist path: optimizer {k} differs")
+    log(f"dist path: world-1 NCCL run and the run without --dist-*: {a['step']} steps, "
+        "parameters and optimizer state bit for bit identical")
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(1, torch.device("cuda", 0))
+        graph_vs_eager("train-distributed.sh", batches, (8, 3), mesh=mesh)
+        res = {}
+        tensors = batch_tensors(batches[0], "cuda")
+        for label, m in (("no mesh", None), ("world-1 mesh", mesh)):
+            args, model, opt, loss_cfg = recipe_setup("train-distributed.sh", mesh=m)
+            state = TrainState(metric_names(model), "cuda")
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            graphs = GraphedSteps(model, opt, loss_cfg, state, gen, 8)
+            with use_mesh(m):
+                for _ in range(2):
+                    graphs.run([tensors] * 8)
+                res[label] = min(time_cuda(lambda: graphs.run([tensors] * 8), 3) / 8
+                                 for _ in range(2))
+        flat = torch.randn(opt.flat.numel(), device="cuda")
+        res["all_reduce"] = time_cuda(lambda: mesh.all_reduce_data_mean_(flat), 20)
+        log(f"dist path timings ({card}): graphed step (groups of 8, B=32, L=64, bf16) "
+            f"{res['no mesh']:.4f} ms without a mesh, {res['world-1 mesh']:.4f} ms on the "
+            f"world-1 NCCL mesh; the flat gradient's all-reduce ({flat.numel():,} float32) "
+            f"{res['all_reduce']:.4f} ms (CUDA events, mean of 20)")
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def multi_gpu_path(tmp: str) -> None:
+    """Two-process NCCL training, only where the host has 2 cards: DP=2
+    against one process on the global batch, tp=2 against tp=1 (both
+    train-distributed.sh's model in float32: the first step's loss within
+    1e-4), and --ring-attention --tp 2 at train-vae-long.sh's L=2046 (its
+    first step's loss within 2e-2 of one process, finite throughout). Not
+    run on one card, where NCCL refuses two ranks on one device."""
+    import socket
+
+    if torch.cuda.device_count() < 2:
+        log("multi_gpu_path: not run (1 card)")
+        return
+    data = os.path.join(REPO, "work", "data", "guitar_bass")
+
+    def run(label, script, extra, world, required):
+        folder = os.path.join(tmp, f"multi-{label}")
+        argv = recipe_argv(script, data, folder, os.path.join(tmp, "out-multi"),
+                           required=required)
+        argv += ["--epochs", "1", "--checkpoint-frequency", "100000", "--logdir",
+                 folder + "-log", "--log-every", "1", *extra]
+        cmd = [sys.executable, "-m", "musicstyletransfer_torch.cli.main", *argv]
+        if world == 1:
+            procs = [subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)]
+        else:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            procs = [subprocess.Popen(cmd + ["--dist-coordinator", f"127.0.0.1:{port}",
+                                             "--dist-num-processes", str(world),
+                                             "--dist-process-id", str(r)],
+                                      cwd=REPO, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for r in range(world)]
+        texts = []
+        for p in procs:
+            text, _ = p.communicate(timeout=900)
+            check(p.returncode == 0, f"multi_gpu_path {label}: exited {p.returncode}:\n"
+                  f"{text[-3000:]}")
+            texts.append(text)
+        lines = train_lines(os.path.join(folder + "-log", "scalars.jsonl"))
+        check_train_log(lines, f"multi_gpu_path {label}", guarded=script != "train-distributed.sh")
+        # the primary's log: updates/s since the start, and over each window
+        # between two log lines (one step each, its host read included)
+        total = re.findall(r"updates/sec: ([0-9.]+)", texts[0])
+        windows = [float(x) for x in re.findall(r"\(window: ([0-9.]+)\)", texts[0])]
+        log(f"multi_gpu_path {label}: {world} process(es), {len(lines)} scalar lines; "
+            f"updates/s {total[-1] if total else 'not logged'} since the start, median "
+            f"window {statistics.median(windows) if windows else 'not logged'} over "
+            f"{len(windows)} (logging every step)")
+        return next(x for x in lines if "ce_loss" in x)["ce_loss"]
+
+    small = ("--batch-size", "--max-seq-len")
+    f32 = ["--dtype", "float32"]
+    one = run("one", "train-distributed.sh", f32, 1, small)
+    for label, extra in (("dp2", f32), ("tp2", f32 + ["--tp", "2"])):
+        got = run(label, "train-distributed.sh", extra, 2, small)
+        check(abs(got - one) <= 1e-4 * abs(one), f"multi_gpu_path {label}: first ce_loss {got} "
+              f"vs {one} on one process")
+        log(f"multi_gpu_path {label}: first ce_loss {got:.6f} vs {one:.6f} on one process")
+    long_one = run("long-one", "train-vae-long.sh", [], 1, small)
+    ring = run("long-ring2", "train-vae-long.sh", ["--tp", "2"], 2, small)
+    check(abs(ring - long_one) <= 2e-2 * abs(long_one),
+          f"multi_gpu_path ring: first ce_loss {ring} vs {long_one}")
+    log(f"multi_gpu_path --ring-attention --tp 2 at L={LONG_L}: first ce_loss {ring:.6f} vs "
+        f"{long_one:.6f} on one process")
+
+
 def time_cuda(fn, n: int, queued: bool = False) -> float:
     """Mean ms per call over n calls, CUDA events, after one warm-up call.
     ``queued`` holds the card back (a spin kernel of ~10 ms) while the host
@@ -2235,6 +2505,9 @@ def main() -> int:
         canonical_path(tmp)
         lstm = lstm_path(tmp, canonical_batches, card)
         gan = gan_path(tmp, corpus_batches[:2 * GAN_K], card)
+        ring = ring_path(fa, long_batch.seq_lens)
+        dist_ms = dist_path(tmp, canonical_batches, card)
+        multi_gpu_path(tmp)
 
     numbers = measure(model, dataset, fd, decode)
     core = measure_core(ac, wide_batch)
@@ -2280,7 +2553,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "musicstyletransfer_torch/ops/csrc/flash_attention_tc.cu",
-            "replaces": replaces, "launches": long_counts[kid],
+            # the long training path's launches and the ring's (ring_path)
+            "replaces": replaces, "launches": long_counts[kid] + ring["launches"][kid],
             "max_abs_err": flash_err[kid], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
@@ -2295,6 +2569,11 @@ def main() -> int:
         f"{v['busy']:.3f})" for k, v in gan.items()))
     log(f"LSTM decode at B=64, T={T}: style_transfer_all_classes {lstm['transfer_ms']:.3f} ms, "
         f"decode_sampled {lstm['decode_ms']:.3f} ms")
+    log(f"ring path ({card}): K4 {ring['launches']['K4']} and K5 {ring['launches']['K5']} "
+        f"launches over n = {' and '.join(map(str, RING_NS))} at both long shapes, max|err| "
+        f"against the whole-T kernels K4 {ring['err']['K4']:.3g}, K5 {ring['err']['K5']:.3g}")
+    log(f"dist path ({card}): graphed step {dist_ms['world-1 mesh']:.4f} ms on the world-1 mesh "
+        f"vs {dist_ms['no mesh']:.4f} without; all-reduce {dist_ms['all_reduce']:.4f} ms")
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,15 +17,28 @@ group of ``--steps-per-dispatch`` steps is one CUDA-graph replay;
 ``--prefetch``, ``--grad-accum-steps``, ``--profile-dir`` (a
 ``torch.profiler`` trace of steps 10-20) and ``--log-param-grad-norms`` do
 what they do in the JAX CLI. ``--remat`` recomputes each layer in the
-backward. ``--ring-attention`` (with ``--tp 1``, as
-``scripts/train-vae-long.sh`` passes it) runs on one device as the JAX
-package does there: no ring, the flash route at T >= ``flash_min_seq_len``.
+backward. ``--ring-attention`` with ``--tp 1`` (as
+``scripts/train-vae-long.sh`` passes it by default) runs on one device as the
+JAX package does there: no ring, the flash route at T >= ``flash_min_seq_len``.
 ``--rng-impl`` is accepted and has no effect (randomness comes from one
 ``torch.Generator``). ``--decoder-type lstm`` trains the legacy LSTM
 decoder, its widths from ``--d-n-layers``, ``--d-rnn-hidden-dim`` and
 ``--d-dropout`` as in the JAX CLI (``--toy`` ignores it, as the JAX toy
-does). Refused until ported (ROADMAP queue 1, item 9): ``--tp`` > 1 and
-multi-process runs (``--dist-*``).
+does).
+
+Multi-process training runs one process per card, each with the same flags
+and its own ``--dist-process-id``::
+
+    python -m musicstyletransfer_torch.cli.main --dist-coordinator HOST:PORT \
+        --dist-num-processes N --dist-process-id I [--tp T] ...
+
+Process I uses ``cuda:(I % device_count)`` and NCCL (gloo with ``--cpu``).
+The N processes form a (N / T, T) mesh (``parallel/mesh.py``): data parallel
+over N / T, and over T either tensor parallelism (heads and FFN columns) or,
+with ``--ring-attention``, the time axis (ring attention). ``--tp`` > 1
+needs ``--dist-*``: the JAX CLI's single process would take every local
+device, a torch process drives one. ``--dist-num-cpu-devices`` (the JAX
+package's virtual CPU devices) has no meaning here and is refused.
 """
 
 from __future__ import annotations
@@ -33,11 +46,16 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import torch
+import torch.distributed as dist
+
 from ..data import Loader, ToyData, load_dataset
 from ..inference.sampler import get_sampler
 from ..models.config import (DecoderConfig, EncoderConfig, LSTMConfig, ModelConfig,
                              TransformerConfig)
 from ..models.vae import StyleVAE, init_params
+from ..parallel import ProcessShardedDataset, initialize_distributed, make_mesh
+from ..parallel.distributed import data_process_info
 from ..training.optimizer import OptimizerConfig
 from ..training.trainer import TrainConfig, Trainer
 from ..utils import resolve_device
@@ -146,14 +164,29 @@ def main_toy(args, epochs: int = 20000, model_folder: str = TOY_MODEL,
 
 
 def _refuse_unported(args) -> None:
-    unported = {
-        "--tp > 1": args.tp > 1,
-        "--dist-coordinator": args.dist_coordinator is not None,
-    }
-    for flag, asked in unported.items():
-        if asked:
-            raise SystemExit(f"train: {flag} is not ported to PyTorch yet "
-                             "(ROADMAP queue 1, item 9)")
+    if args.dist_num_cpu_devices is not None:
+        raise SystemExit("train: --dist-num-cpu-devices is not ported to PyTorch: a torch "
+                         "process drives one device, so a CPU world is --cpu processes, one a "
+                         "rank (gloo)")
+    if args.tp > 1 and args.dist_coordinator is None:
+        raise SystemExit(
+            f"train: --tp {args.tp} needs one process per card: launch {args.tp} (or a "
+            "multiple of it) cli.main processes with --dist-coordinator HOST:PORT "
+            "--dist-num-processes N --dist-process-id I")
+
+
+def setup_distributed(args, device: torch.device):
+    """Join the world of ``--dist-*`` and lay out its mesh: (device, mesh),
+    the device cuda:(process id % cards) on CUDA."""
+    if device.type == "cuda":
+        device = torch.device("cuda", args.dist_process_id % torch.cuda.device_count())
+    else:  # the world's processes share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.dist_num_processes))
+    initialize_distributed(args.dist_coordinator, args.dist_num_processes,
+                           args.dist_process_id, device)
+    mesh = make_mesh(args.tp, device)
+    print(f"Process {args.dist_process_id + 1}/{args.dist_num_processes}: {mesh}")
+    return device, mesh
 
 
 def main(argv=None) -> None:
@@ -166,7 +199,17 @@ def main(argv=None) -> None:
         main_toy(args, model_folder=TOY_MODEL)
         return
     device = resolve_device(gpu=args.gpu, cpu=args.cpu)
+    mesh = None
+    if args.dist_coordinator is not None:
+        device, mesh = setup_distributed(args, device)
+    try:
+        _train(args, device, mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
+
+def _train(args, device: torch.device, mesh) -> None:
     def loader(path):
         return Loader(path=path, max_sequence_length=args.max_seq_len,
                       slices_per_quarter_note=args.slices_per_quarter_note)
@@ -174,6 +217,10 @@ def main(argv=None) -> None:
     val_loader = loader(args.validation_data) if args.validation_data is not None else None
     train_dataset, valid_dataset = load_dataset(loader(args.data), args.batch_size,
                                                 args.validation_split, val_loader)
+    if mesh is not None:
+        # every process reads the same batches and keeps its data rank's rows;
+        # validation stays whole (Trainer._eval_pass slices it)
+        train_dataset = ProcessShardedDataset(train_dataset, data_process_info(mesh))
     os.makedirs(args.model_output, exist_ok=True)
     if args.out_samples:
         os.makedirs(args.out_samples, exist_ok=True)
@@ -185,8 +232,9 @@ def main(argv=None) -> None:
 
     # The reference hardcodes 'sampling' here (main.py:156) even though it
     # parses --sampling-type; the flag is honoured, as in the JAX CLI.
-    sampler = get_sampler(args.sampling_type, None, None, args, device, model=model)
-    trainer = Trainer(create_train_config(args), model, sampler=sampler)
+    sampler = (get_sampler(args.sampling_type, None, None, args, device, model=model)
+               if mesh is None else None)  # no in-training sampling under a mesh (as JAX)
+    trainer = Trainer(create_train_config(args), model, sampler=sampler, mesh=mesh)
     trainer.fit(dataset=train_dataset, validation_dataset=valid_dataset,
                 model_folder=args.model_output, epochs=args.epochs)
     print("Training finished.")

@@ -48,7 +48,7 @@ _logger = logging.getLogger(__name__)
 
 MESH_NOT_PORTED = (
     "mesh= is not ported yet: the sharded service waits for ROADMAP queue 1 "
-    "item 9 (multi-GPU, inference/sharded.py)"
+    "item 9b (sharded inference, inference/sharded.py)"
 )
 
 

@@ -7,12 +7,15 @@ the same field names and defaults. The JSON is written by
 (``training/checkpoint.py``); unknown keys are ignored on load, the way the
 JAX loader ignores unknown YAML keys.
 
-``ring_attention`` and ``sequence_sharding`` act only on a multi-device
-mesh, which the port does not have yet (``cli/main.py`` refuses ``--tp`` > 1
-and ``--dist-*``): on one device they are inert, as the JAX package's
-``_ring_eligible`` and ``_seq_shard`` are without a model axis > 1, except
-that ``ring_attention`` keeps the attention core out
-(``models/transformer.py``).
+``ring_attention`` acts on a mesh whose model axis is > 1
+(``parallel/mesh.py``; ``cli.main --ring-attention --tp N`` with ``--dist-*``):
+each rank runs the stacks on its chunk of the time axis and attention goes
+around the ring (``models/transformer.py``, ``ops/ring_attention.py``). The
+model axis then carries time, not heads, so no parameter is sliced over it.
+Without such a mesh it is inert, as the JAX package's ``_ring_eligible`` is,
+except that it keeps the attention core out. ``sequence_sharding`` is
+recorded for the JAX package's sake: the port shards time exactly where the
+ring runs, so the flag adds nothing of its own.
 """
 
 from __future__ import annotations

@@ -16,9 +16,22 @@ without ``ring_attention``, it runs the attention core
 (``ops/attention_core.py``: K2 forward, K3 backward) on the interleaved QKV
 projection; at or above ``flash_min_seq_len`` with ``use_flash_attention``
 the flash route (``ops/flash_attention.py``: K4 forward, K5 backward);
-otherwise dense attention (the canonical T=65 lands there). The ring route
-needs a mesh with a model axis > 1, which the port does not have yet, so
-``ring_attention`` only keeps the core out, as in the JAX package.
+otherwise dense attention (the canonical T=65 lands there).
+
+Under a mesh (``parallel/mesh.py``, read through ``current_mesh``):
+
+- tensor parallelism: a layer whose weights ``parallel.mesh.shard_model``
+  sliced holds H/tp heads and FF/tp hidden columns; ``copy_to_model`` sits in
+  front of w_q|w_k|w_v and ff1, and w_o and ff2 all-reduce their partial
+  products before their bias (``Dense``), one all-reduce per block each way.
+  K2/K3 and K4/K5 run on the local heads (the JAX ``attention_core_tp``);
+  the core also needs the heads to divide by tp (``_core_eligible``);
+- ring attention (``ring_attention`` on a model axis > 1): each rank runs
+  the stack on its chunk of the time axis (padded to the ring), with the
+  positions of the whole sequence, attention through
+  ``ops/ring_attention.py`` (K4/K5 on each visiting chunk), and the chunks
+  gathered at the stack's end, before the latent head's readout and the
+  output logits (where the JAX package's GSPMD would gather).
 
 Dropout sits where flax has it (after the FFN's ReLU, and on both residual
 branches) and applies only in training mode, drawing its masks from the
@@ -41,6 +54,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention_core import MAX_CORE_SEQ_LEN, attention_core, interleave_qkv_weights
 from ..ops.flash_attention import flash_attention
+from ..ops.ring_attention import ring_attention
+from ..parallel.collectives import copy_to_model, gather_seq, reduce_from_model, scatter_seq
+from ..parallel.mesh import SeqShard, current_mesh
 from .config import TransformerConfig
 
 NEG_INF = -1e9
@@ -68,7 +84,10 @@ def sqrt_in(value: int, dtype: torch.dtype) -> torch.Tensor:
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` with flax ``nn.Dense(dtype=...)`` numerics."""
+    """``nn.Linear`` with flax ``nn.Dense(dtype=...)`` numerics. A weight
+    whose input dim was sharded (row-parallel: w_o, ff2 under tensor
+    parallelism) gives partial products, all-reduced over the mesh's model
+    group before the bias is added once."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32):
@@ -77,7 +96,10 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        if self.weight.shape[1] != self.in_features:
+            y = reduce_from_model(y, current_mesh())
+        return y + self.bias.to(dt)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -106,17 +128,30 @@ class DrawnMasks:
         return self.masks[self.used - 1]
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool, generator) -> torch.Tensor:
+def keep_mask(shape, rate: float, generator, device, seq: Optional[SeqShard] = None,
+              cols: bool = False) -> torch.Tensor:
+    """A dropout keep mask of ``shape`` from ``generator``. Under a mesh it
+    is this rank's block of the mask drawn at the global shape (its rows,
+    its time chunk under ``seq``, its columns with ``cols``), so a sharded
+    run keeps the masks of one process on the whole batch."""
+    mesh = current_mesh()
+    if mesh is None:
+        return torch.rand(shape, generator=generator, device=device) >= rate
+    return mesh.draw(torch.rand, shape, generator, device, seq, cols) >= rate
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool, generator,
+            seq: Optional[SeqShard] = None, cols: bool = False) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate and scale by
     1 / (1 - rate), in x's dtype; the identity outside training or at rate
     0. The mask comes from ``generator`` (a ``torch.Generator`` on x's
-    device, or ``DrawnMasks``)."""
+    device, or ``DrawnMasks``), through ``keep_mask``."""
     if not training or rate <= 0.0:
         return x
     if isinstance(generator, DrawnMasks):
         keep = generator.next()
     else:
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+        keep = keep_mask(x.shape, rate, generator, x.device, seq, cols)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -130,9 +165,18 @@ class FeedForward(nn.Module):
         self.ff2 = Dense(hidden_size, model_size, dtype)
         self.rate = rate
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.ff2(dropout(F.relu(self.ff1(x)), self.rate, self.training, generator))
+    @property
+    def sharded(self) -> bool:
+        """Whether this rank holds a slice of the hidden columns (TP)."""
+        return self.ff1.weight.shape[0] != self.ff1.out_features
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
+        if self.sharded:
+            x = copy_to_model(x, current_mesh())
+        h = dropout(F.relu(self.ff1(x)), self.rate, self.training, generator, seq,
+                    cols=self.sharded)
+        return self.ff2(h)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -163,15 +207,29 @@ class MultiHeadSelfAttention(nn.Module):
                              persistent=False)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
-        return x.reshape(*x.shape[:-1], self.num_heads, self.head_dim)
+        return x.reshape(*x.shape[:-1], -1, self.head_dim)
 
-    def _core_eligible(self, T: int) -> bool:
-        """The JAX package's ``_core_eligible`` without its mesh clauses:
-        the window [core_min_seq_len, min(flash_min_seq_len, 1024)), and
-        never under ``ring_attention``."""
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank holds: all of them, or H/tp under TP."""
+        return self.w_q.weight.shape[0] // self.head_dim
+
+    def _core_eligible(self, T: int, mesh=None) -> bool:
+        """The JAX package's ``_core_eligible``: the window
+        [core_min_seq_len, min(flash_min_seq_len, 1024)), never under
+        ``ring_attention``, and on a model axis tp > 1 only where tp divides
+        the heads (each rank's kernel takes whole heads). Its batch clause
+        holds by construction: each rank holds its own rows."""
         lo = self.core_min_seq_len
+        mesh = mesh if mesh is not None else current_mesh()
         return (self.use_flash and not self.use_ring and 0 < lo <= T
-                and T < self.flash_min_seq_len and T <= MAX_CORE_SEQ_LEN)
+                and T < self.flash_min_seq_len and T <= MAX_CORE_SEQ_LEN
+                and (mesh is None or mesh.tp <= 1 or self.num_heads % mesh.tp == 0))
+
+    def _ring_eligible(self, mesh) -> bool:
+        """``ring_attention`` on a model axis > 1 (``_ring_eligible``); the
+        stack then hands this layer its time chunk."""
+        return self.use_ring and mesh is not None and mesh.tp > 1
 
     def _qkv_interleaved(self, x: torch.Tensor) -> torch.Tensor:
         """The QKV projection in the core's layout (column group h is
@@ -180,21 +238,29 @@ class MultiHeadSelfAttention(nn.Module):
         dt = self.compute_dtype
         w, b = interleave_qkv_weights(
             self.w_q.weight.t(), self.w_q.bias, self.w_k.weight.t(), self.w_k.bias,
-            self.w_v.weight.t(), self.w_v.bias, self.num_heads, self.head_dim)
+            self.w_v.weight.t(), self.w_v.bias, self.local_heads, self.head_dim)
         return F.linear(x.to(dt), w.t().to(dt)) + b.to(dt)
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
         """x: [B, T, D]; key_mask: [B, T] True at valid (non-PAD) keys, a
-        prefix of each row."""
+        prefix of each row. Under ring attention x is this rank's time chunk
+        [B, T/n, D] and key_mask the whole (padded) sequence's."""
         B, T, D = x.shape
         dt = self.compute_dtype
-        if self._core_eligible(T):
+        mesh = current_mesh()
+        if self.local_heads != self.num_heads:
+            x = copy_to_model(x, mesh)
+        if self._core_eligible(T, mesh):
             key_lens = key_mask.sum(-1, dtype=torch.int32)
-            ctx = attention_core(self._qkv_interleaved(x), key_lens, self.num_heads,
+            ctx = attention_core(self._qkv_interleaved(x), key_lens, self.local_heads,
                                  self.causal, xla_backward=self.core_xla_backward)
             return self.w_o(ctx)
         q, k, v = (self._heads(w(x)) for w in (self.w_q, self.w_k, self.w_v))
-        if self.use_flash and T >= self.flash_min_seq_len:
+        if self._ring_eligible(mesh):
+            key_lens = key_mask.sum(-1, dtype=torch.int32)
+            out = ring_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 key_lens, self.causal, mesh=mesh).transpose(1, 2)
+        elif self.use_flash and T >= self.flash_min_seq_len:
             # [B, H, T, hd] views, no copies. The flash kernels scale q by
             # sm_scale = 1/sqrt(hd) rounded to the compute dtype; the dense
             # route below divides by sqrt(hd) in it, which rounds otherwise
@@ -210,7 +276,7 @@ class MultiHeadSelfAttention(nn.Module):
             logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / self.scale
             probs = torch.softmax(logits + bias.to(dt), dim=-1)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.w_o(out.reshape(B, T, D))
+        return self.w_o(out.reshape(B, T, -1))
 
     def step(self, x_t: torch.Tensor, cache_k: torch.Tensor,
              cache_v: torch.Tensor, t: int) -> torch.Tensor:
@@ -266,15 +332,16 @@ class TransformerLayer(nn.Module):
         self.ln2 = LayerNorm(c.model_size, dtype)
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
         def drop(y):
-            return dropout(y, self.rate, self.training, generator)
+            return dropout(y, self.rate, self.training, generator, seq)
 
         if self.pre_ln:
             x = x + drop(self.attention(self.ln1(x), key_mask))
-            return x + drop(self.ff(self.ln2(x), generator))
+            return x + drop(self.ff(self.ln2(x), generator, seq))
         x = self.ln1(x + drop(self.attention(x, key_mask)))
-        return self.ln2(x + drop(self.ff(x, generator)))
+        return self.ln2(x + drop(self.ff(x, generator, seq)))
 
     def step(self, x_t: torch.Tensor, cache: LayerCache, t: int) -> torch.Tensor:
         if self.pre_ln:
@@ -317,14 +384,24 @@ class TransformerStack(nn.Module):
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, T, D] (before scaling); key_mask: [B, T] True at valid keys;
-        ``generator`` draws the dropout masks in training mode."""
+        ``generator`` draws the dropout masks in training mode. Under ring
+        attention on a model axis > 1 the layers run on this rank's time
+        chunk and the output is gathered whole."""
         x = self.scale * x + self.pos_table[: x.shape[1]]
+        mesh = current_mesh()
+        seq = None
+        if self.config.ring_attention and mesh is not None and mesh.tp > 1:
+            seq = SeqShard(x.shape[1], mesh.tp, mesh.model_rank)
+            x = scatter_seq(x, seq, mesh)
+            key_mask = seq.pad(key_mask)
         remat = self.config.remat and self.training and torch.is_grad_enabled()
         for layer in self.layers:
-            x = (_remat_layer(layer, x, key_mask, generator) if remat
-                 else layer(x, key_mask, generator))
+            x = (_remat_layer(layer, x, key_mask, generator, seq) if remat
+                 else layer(x, key_mask, generator, seq))
         if self.config.norm_scheme == "pre":
             x = self.final_ln(x)
+        if seq is not None:
+            x = gather_seq(x, seq, mesh)
         return x
 
     def step(self, x_t: torch.Tensor, cache: Cache, t: int) -> torch.Tensor:
@@ -357,7 +434,8 @@ class TransformerStack(nn.Module):
 
 
 def _remat_layer(layer: TransformerLayer, x: torch.Tensor, key_mask: torch.Tensor,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+                 generator: Optional[torch.Generator],
+                 seq: Optional[SeqShard] = None) -> torch.Tensor:
     """``layer`` under ``torch.utils.checkpoint`` (non-reentrant). The
     layer's dropout masks are drawn from ``generator`` before it runs, in the
     order and shapes the layer draws them (the attention branch [B, T, D],
@@ -368,12 +446,13 @@ def _remat_layer(layer: TransformerLayer, x: torch.Tensor, key_mask: torch.Tenso
     masks = []
     if layer.training and layer.rate > 0.0:
         B, T, D = x.shape
-        ff = layer.ff.ff1.out_features
-        masks = [torch.rand(shape, generator=generator, device=x.device) >= layer.rate
-                 for shape in ((B, T, D), (B, T, ff), (B, T, D))]
+        ff = layer.ff.ff1.weight.shape[0]
+        masks = [keep_mask(shape, layer.rate, generator, x.device, seq, cols)
+                 for shape, cols in (((B, T, D), False), ((B, T, ff), layer.ff.sharded),
+                                     ((B, T, D), False))]
 
     def run(x_, mask_):
-        return layer(x_, mask_, DrawnMasks(masks))
+        return layer(x_, mask_, DrawnMasks(masks), seq)
 
     return checkpoint(run, x, key_mask, use_reentrant=False, preserve_rng_state=False)
 

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..midi.vocab import PAD_ID
+from ..parallel.mesh import current_mesh
 
 from .config import DecoderConfig, EncoderConfig, ModelConfig
 from .lstm import LSTMCell, LSTMDecoder
@@ -162,7 +163,10 @@ class StyleVAE(nn.Module):
         z = mu
         if self.training:
             if eps is None:
-                eps = torch.randn(mu.shape, generator=generator, device=mu.device)
+                mesh = current_mesh()  # this rank's rows of the global batch's draw
+                eps = (torch.randn(mu.shape, generator=generator, device=mu.device)
+                       if mesh is None else
+                       mesh.draw(torch.randn, mu.shape, generator, mu.device))
             z = mu + eps * torch.exp(0.5 * logvar)
         return self.decoder(tokens, seq_lens, z, classes, generator), mu, logvar
 

@@ -62,8 +62,8 @@ from .loss import binary_cross_entropy
 from .optimizer import Optimizer, OptimizerConfig
 
 GAN_METRIC_KEYS = ("d_loss", "d_acc_real", "d_acc_fake", "g_loss", "d_r1")
-MESH_NOT_PORTED = ("mesh= (multi-device GAN training) is not ported to PyTorch yet "
-                   "(ROADMAP queue 1, item 9)")
+MESH_NOT_PORTED = ("mesh= (data-parallel GAN training) is not ported to PyTorch yet "
+                   "(ROADMAP queue 1, item 9c)")
 
 
 @dataclasses.dataclass(frozen=True)

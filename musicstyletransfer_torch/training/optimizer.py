@@ -33,6 +33,14 @@ replays it on the same tensors (``load_state_dict`` copies into them too).
 The parameters are re-pointed into one flat float32 buffer, and the state
 is flat buffers too: a step is a few whole-buffer operations whatever the
 number of tensors.
+
+Under a mesh (``sync``, a ``parallel.mesh.FlatSync``) the buffers hold this
+rank's parameters (its shards under tensor parallelism), and three things
+are made global: the gradient (``reduce_gradients``: summed over the model
+group where each rank saw a time chunk, averaged over the data group), the
+sum of squares behind ``clip_global_norm`` and the logged norms (sharded
+entries summed over the model group, whole ones counted once: optax's true
+global norm) and the non-finite guard's decision, the same on every rank.
 """
 
 from __future__ import annotations
@@ -70,8 +78,9 @@ class Optimizer:
     for ``accumulate_steps`` > 1, gradient accumulation."""
 
     def __init__(self, params: List[torch.nn.Parameter], config: OptimizerConfig,
-                 accumulate_steps: int = 1):
+                 accumulate_steps: int = 1, sync=None):
         extra = config.params_to_dict()
+        self.sync = sync
         self.name = config.optimizer.lower()
         if self.name not in OPTIMIZERS:
             raise ValueError(f"unsupported optimizer {config.optimizer!r}")
@@ -142,6 +151,25 @@ class Optimizer:
         return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
                           .reshape(-1).float() for p in self.params])
 
+    def reduce_gradients(self, grad: torch.Tensor) -> None:
+        """In place: the flat gradient made the global batch's (a no-op
+        without a mesh)."""
+        if self.sync is not None:
+            self.sync.reduce_(grad)
+
+    def sq_sum(self, u: torch.Tensor) -> torch.Tensor:
+        """The global sum of squares of a flat vector."""
+        if self.sync is not None:
+            return self.sync.sq_sum(u)
+        return torch.sum(u * u)
+
+    def param_norms(self, flat: torch.Tensor) -> torch.Tensor:
+        """The global norm of each parameter's piece of ``flat`` [P]."""
+        norms = torch.stack(torch._foreach_norm(self.views(flat)))
+        if self.sync is None:
+            return norms
+        return torch.sqrt(self.sync.param_sq_sums(norms * norms))
+
     def views(self, flat: torch.Tensor) -> List[torch.Tensor]:
         """``flat`` cut into one view per parameter, in parameter order."""
         return list(flat.split([p.numel() for p in self.params]))
@@ -179,6 +207,8 @@ class Optimizer:
         apply = None  # whether the guard lets the update through (None: always)
         if self.skip_nonfinite:
             finite = torch.isfinite(grad).all()
+            if self.sync is not None:
+                finite = self.sync.all_finite(finite)
             notfinite = torch.where(finite, 0, st["notfinite_count"] + 1)
             total = torch.where(finite, st["total_notfinite"], st["total_notfinite"] + 1)
             apply = finite | (notfinite > self.skip_nonfinite)
@@ -191,7 +221,7 @@ class Optimizer:
         if self.clip is not None:
             u = u.clamp(-self.clip, self.clip)
         if self.max_norm is not None:
-            norm = torch.sqrt(torch.sum(u * u))
+            norm = torch.sqrt(self.sq_sum(u))
             u = torch.where(norm < self.max_norm, u, u / norm * self.max_norm)
         if self.wd:
             u = u + self.wd * self.flat

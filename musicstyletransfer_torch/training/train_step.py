@@ -2,7 +2,10 @@
 ``musicstyletransfer_tpu/training/train_step.py:99-162, 347-401``).
 
 A step is forward (training mode: reparameterised z, dropout), ``vae_loss``,
-backward and one optimizer update. ``step_body`` runs it on a ``TrainState``
+backward, under a mesh the gradient's reduction (``Optimizer.reduce_gradients``:
+the mean over the data group, which is the global batch's gradient because
+the loss is a batch mean of per-sample terms over equal local batches), and
+one optimizer update. ``step_body`` runs it on a ``TrainState``
 whose every tensor lives on the device and is updated in place: the step
 count (the KL anneal's weight is computed from it on the device) and the
 (sum, count) metric accumulators. Nothing in a step reads the device on the
@@ -104,16 +107,17 @@ def step_body(model: StyleVAE, optimizer: Optimizer, loss_config: LossConfig,
         p.grad = None
     total.backward()
     grad = optimizer.flat_grad()
+    optimizer.reduce_gradients(grad)
     optimizer.step(grad)
     with torch.no_grad():
         metrics = step_metrics(logits.detach(), labels,
                                {k: v.detach() for k, v in scalars.items()})
         sums = [metrics[k][0].float() for k in METRIC_KEYS[:-1]]
         counts = [metrics[k][1].float() for k in METRIC_KEYS[:-1]]
-        norms = [torch.sqrt(torch.sum(grad * grad))]
+        norms = torch.sqrt(optimizer.sq_sum(grad)).reshape(1)
         if len(state.names) > len(METRIC_KEYS):
-            norms += list(torch._foreach_norm(optimizer.views(grad)))
-        sums = torch.cat([torch.stack(sums), torch.stack(norms)])
+            norms = torch.cat([norms, optimizer.param_norms(grad)])
+        sums = torch.cat([torch.stack(sums), norms])
         counts = torch.cat([torch.stack(counts), torch.ones(len(norms), device=grad.device)])
         state.sums.add_(sums)
         state.counts.add_(counts)

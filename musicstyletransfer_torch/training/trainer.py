@@ -18,10 +18,24 @@ device through ``data/prefetch.py`` (``prefetch`` deep, 0 disables),
 ``grad_accum_steps`` k applies the mean gradient of k steps every k-th step
 (``optax.MultiSteps``), ``log_param_grad_norms`` logs one gradient norm per
 parameter, and ``profile_dir`` gets a ``torch.profiler`` trace of the steps
-``[profile_start, profile_stop)``, snapped to group boundaries. Not ported
-yet (ROADMAP queue 1, item 9): meshes and multi-process runs; the port draws
-its random numbers from one ``torch.Generator`` whatever ``--rng-impl``
-says.
+``[profile_start, profile_stop)``, snapped to group boundaries. The port
+draws its random numbers from one ``torch.Generator`` whatever
+``--rng-impl`` says.
+
+With a ``mesh`` (``parallel/mesh.py``, one process per card) the trainer
+shards the model onto it (``shard_model``: tensor parallelism, or the time
+axis under ring attention), each step reduces the gradient
+(``Optimizer.reduce_gradients``) and runs the collectives inside the group's
+CUDA graph, the metric sums are reduced over the data group at log
+boundaries, and the validation pass evaluates this rank's rows and reduces
+them. A checkpoint gathers every sharded parameter and optimizer buffer to
+full tensors, which only the primary process writes (the others wait at a
+barrier), so any world, ``cli.sample`` included, restores it; resume loads
+the full state on every process, shards it and checks that every process
+resumed at the same step. Logs and scalars come from the primary; the
+generation-health probe and in-training sampling are off, as in the JAX
+package (``trainer.py:117-164, 226-227``). A stop signal takes effect at the
+next log boundary, where the processes agree on it.
 
 Resume restores the parameters, the optimizer's state, the step, the
 generator and, unlike the JAX package, the order of the training batches,
@@ -42,11 +56,14 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import Dataset
 from ..data.prefetch import DeviceBatch, PrefetchingDataset
 from ..midi.vocab import EOS_ID, PAD_ID
 from ..models.vae import StyleVAE
+from ..parallel.distributed import _slice_batch, assert_in_sync
+from ..parallel.mesh import FlatSync, gather_flat, shard_flat, shard_model, use_mesh
 from . import checkpoint as ckpt
 from .graph import GraphedSteps
 from .metrics import MetricAccumulator, accumulate
@@ -94,15 +111,26 @@ class TrainConfig:
 
 
 class Trainer:
-    def __init__(self, config: TrainConfig, model: StyleVAE, sampler=None):
-        """``model`` lives on the device it trains on; its parameters are
+    def __init__(self, config: TrainConfig, model: StyleVAE, sampler=None, mesh=None):
+        """``model`` lives on the device it trains on, whole (the same on
+        every process of a ``mesh``, which shards it); its parameters are
         re-pointed into the optimizer's flat buffer."""
         self.config = config
         self.model = model
-        self.sampler = sampler
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.is_primary
         self.device = model.device
+        sync = None
+        self.layout = None
+        if mesh is not None:
+            self.layout = shard_model(model, mesh)
+            sync = FlatSync(mesh, self.layout, self.device)
+            if sampler is not None:
+                print("Mesh run: in-training sampling disabled")
+                sampler = None
+        self.sampler = sampler
         self.optimizer = Optimizer(list(model.parameters()), config.optimizer,
-                                   accumulate_steps=config.grad_accum_steps)
+                                   accumulate_steps=config.grad_accum_steps, sync=sync)
         self.loss_config = LossConfig(
             kl_weight=config.kl_loss_weight,
             label_smoothing=config.label_smoothing,
@@ -134,7 +162,7 @@ class Trainer:
         self._dataset = dataset
         cfg = self.config
         self._health_batch = None
-        if cfg.gen_health_rows > 0:
+        if cfg.gen_health_rows > 0 and self.mesh is None:
             # Taken before the resume, which then restores the batch order
             # that this draw would otherwise shift (without validation data
             # the probe rows come from the training set).
@@ -144,7 +172,8 @@ class Trainer:
             n = min(cfg.gen_health_rows, int(b.tokens.shape[0]))
             self._health_batch = tuple(torch.as_tensor(x[:n]).long().to(self.device)
                                        for x in (b.tokens, b.seq_lens))
-        self._load_latest_checkpoint(model_folder)
+        with use_mesh(self.mesh):
+            self._load_latest_checkpoint(model_folder)
         self._batches_at_start = self.progress.n_batches
         self._last_log = None
         self._stop_requested = False
@@ -152,7 +181,8 @@ class Trainer:
             dataset = PrefetchingDataset(dataset, cfg.prefetch, self.device)
         restore_handlers = self._install_signal_handlers()
         try:
-            self._fit_loop(dataset, model_folder, epochs, validation_dataset, start_time)
+            with use_mesh(self.mesh):
+                self._fit_loop(dataset, model_folder, epochs, validation_dataset, start_time)
         finally:
             restore_handlers()
             if self._profiler is not None:  # training ended inside the window
@@ -167,7 +197,7 @@ class Trainer:
                 signal.signal(sig, handler)
 
         def _request_stop(signum, frame):
-            print(f"Signal {signum}: checkpointing and stopping after this batch.")
+            self._log(f"Signal {signum}: checkpointing and stopping after this batch.")
             self._stop_requested = True
             restore()
 
@@ -198,7 +228,7 @@ class Trainer:
             group = []
         if self.progress.n_batches != self._last_ckpt_batches:
             self._checkpoint(model_folder, validation_dataset)
-            print(f"Final checkpoint {self.progress.n_checkpoints} written.")
+            self._log(f"Final checkpoint {self.progress.n_checkpoints} written.")
 
     def _run_group(self, group, epoch, model_folder, validation_dataset,
                    start_time, dataset) -> bool:
@@ -221,17 +251,21 @@ class Trainer:
         self.progress.n_batches += len(group)
         nb = self.progress.n_batches
 
-        if self._stop_requested:
+        log_tick = nb // cfg.log_every > prev // cfg.log_every
+        stop = self._stop_requested
+        if self.mesh is not None:  # every process stops at one boundary, or none
+            stop = log_tick and self._agree(stop)
+        if stop:
             self._checkpoint(model_folder, validation_dataset)
-            print(f"Stopped on signal; checkpoint {self.progress.n_checkpoints} written.")
+            self._log(f"Stopped on signal; checkpoint {self.progress.n_checkpoints} written.")
             return True
-        if nb // cfg.log_every > prev // cfg.log_every:
+        if log_tick:
             self._periodic_log(epoch, start_time)
         if nb // cfg.checkpoint_frequency > prev // cfg.checkpoint_frequency:
             self._checkpoint(model_folder, validation_dataset)
             if (self.progress.num_checkpoints_not_improved
                     == cfg.num_checkpoints_not_improved):
-                print("Maximum checkpoints not improved reached. Stopping training.")
+                self._log("Maximum checkpoints not improved reached. Stopping training.")
                 return True
         if (self.sampler is not None and cfg.sampling_frequency > 0
                 and nb // cfg.sampling_frequency > prev // cfg.sampling_frequency):
@@ -244,12 +278,31 @@ class Trainer:
     def train_batches(self, group) -> None:
         """One training step per (tokens, seq_lens, classes, labels) of
         ``group``: one graph replay on CUDA, eager steps on the CPU."""
-        if self.graphs is not None:
-            self.graphs.run(group)
-            return
-        for tensors in group:
-            step_body(self.model, self.optimizer, self.loss_config, self.state, *tensors,
-                      generator=self.generator)
+        with use_mesh(self.mesh):
+            if self.graphs is not None:
+                self.graphs.run(group)
+                return
+            for tensors in group:
+                step_body(self.model, self.optimizer, self.loss_config, self.state, *tensors,
+                          generator=self.generator)
+
+    def _log(self, msg: str) -> None:
+        if self.primary:
+            print(msg)
+
+    def _agree(self, flag: bool) -> bool:
+        """Whether any process of the mesh raised ``flag``."""
+        x = torch.tensor([float(flag)], device=self.device)
+        dist.all_reduce(x)
+        return bool(x.item() > 0)
+
+    def _reduce_pairs(self, sums: torch.Tensor, counts: torch.Tensor):
+        """(sum, count) vectors summed over the data group (copies)."""
+        if self.mesh is None:
+            return sums, counts
+        both = torch.stack([sums, counts]).float()
+        self.mesh.all_reduce_data_sum_(both)
+        return both[0], both[1]
 
     @property
     def step(self) -> int:
@@ -268,10 +321,11 @@ class Trainer:
     def _stop_profiler(self) -> None:
         self._profiler.stop()
         os.makedirs(self.config.profile_dir, exist_ok=True)
-        path = os.path.join(self.config.profile_dir, "trace.json")
+        suffix = "" if self.mesh is None else f"-proc{self.mesh.rank}"  # a trace a process
+        path = os.path.join(self.config.profile_dir, f"trace{suffix}.json")
         self._profiler.export_chrome_trace(path)
         self._profiler = None
-        print(f"Profiler trace written to {path}")
+        self._log(f"Profiler trace written to {path}")
 
     @contextlib.contextmanager
     def _eval_mode(self):
@@ -284,67 +338,105 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _eval_pass(self, validation_dataset: Dataset) -> float:
+        """Every process iterates the whole validation set and evaluates its
+        data rank's rows; the (sum, count) pairs are summed over the data
+        group."""
         acc: Dict = {}
         with self._eval_mode():
             for batch in validation_dataset:
+                if self.mesh is not None:
+                    rows = batch.batch_size // self.mesh.dp
+                    lo = self.mesh.data_rank * rows
+                    batch = _slice_batch(batch, lo, lo + rows)
                 acc = accumulate(acc, eval_step(self.model, self.loss_config,
                                                 *batch_tensors(batch, self.device),
                                                 batch.num_valid))
+        names = list(acc)
+        sums, counts = self._reduce_pairs(torch.stack([acc[n][0] for n in names]),
+                                          torch.stack([acc[n][1] for n in names]))
         host = MetricAccumulator()
-        host.update(acc)
+        host.update({n: (sums[i], counts[i]) for i, n in enumerate(names)})
         vals = host.get()
         self._write_scalars({f"validation_{k}": v for k, v in vals.items()})
-        print("Validation: " + " ".join(f"{k}={v:.3f}" for k, v in sorted(vals.items())))
+        self._log("Validation: " + " ".join(f"{k}={v:.3f}" for k, v in sorted(vals.items())))
         # Under KL annealing the total's beta rises across checkpoints, so
         # track the beta-independent reconstruction CE (as the JAX package).
         if self.config.kl_anneal_steps > 0:
             return vals["ce_loss"]
         return vals["total_loss"]
 
+    def _full(self, flat: torch.Tensor) -> torch.Tensor:
+        """A flat buffer of this rank made the whole model's (a collective
+        over the model group under tensor parallelism)."""
+        if self.layout is None:
+            return flat
+        return gather_flat(flat, self.layout, self.mesh)
+
     def _checkpoint(self, model_folder: str, validation_dataset) -> None:
         self._last_ckpt_batches = self.progress.n_batches
         self.progress.n_checkpoints += 1
         n = self.progress.n_checkpoints
-        print(f"\nCheckpoint {n} reached.")
+        self._log(f"\nCheckpoint {n} reached.")
         data_rng = getattr(self._dataset, "_rng", None)
-        ckpt.save_checkpoint(model_folder, n, {
-            "params": self.optimizer.flat,
-            "optimizer": self.optimizer.state_dict(),
-            "step": self.step,
-            "generator": self.generator.get_state(),
-            "data_rng": data_rng.bit_generator.state if data_rng is not None else None,
-        })
-        ckpt.export_inference(model_folder, n, self.model)
-        self.progress.save(model_folder)
-        if self.config.keep_checkpoints > 0:
-            ckpt.prune_checkpoints(model_folder, self.config.keep_checkpoints)
+        local = self.optimizer.flat.numel()
+        params = self._full(self.optimizer.flat)
+        opt_state = {k: (self._full(v) if v.numel() == local else v)
+                     for k, v in self.optimizer.state_dict().items()}
+        if self.primary:
+            ckpt.save_checkpoint(model_folder, n, {
+                "params": params,
+                "optimizer": opt_state,
+                "step": self.step,
+                "generator": self.generator.get_state(),
+                "data_rng": data_rng.bit_generator.state if data_rng is not None else None,
+            })
+            ckpt.export_inference(model_folder, n, self._whole_model(params))
+            self.progress.save(model_folder)
+            if self.config.keep_checkpoints > 0:
+                ckpt.prune_checkpoints(model_folder, self.config.keep_checkpoints)
+        if self.mesh is not None:
+            dist.barrier()  # the files exist before any process reads them
         self.state.reset_metrics()  # reset running metrics (trainer.py:210)
 
         if self._health_batch is not None:
             vals = self._generation_health()
             self._write_scalars(vals)
-            print("Generation health: "
+            self._log("Generation health: "
                   + " ".join(f"{k}={v:.3f}" for k, v in sorted(vals.items())))
         if self.optimizer.skip_nonfinite:
             skipped = int(self.optimizer.state["total_notfinite"])
             if skipped:
-                print(f"Non-finite gradient updates skipped: {skipped}")
+                self._log(f"Non-finite gradient updates skipped: {skipped}")
             self._write_scalars({"nonfinite_updates_skipped": skipped})
 
         if validation_dataset is None:
             return
         loss = self._eval_pass(validation_dataset)
         if loss < self.progress.best_reconstruction_loss:
-            print(f"Loss improved from {self.progress.best_reconstruction_loss} to {loss}.")
+            self._log(f"Loss improved from {self.progress.best_reconstruction_loss} to {loss}.")
             self.progress.best_reconstruction_loss = loss
             self.progress.num_checkpoints_not_improved = 0
         else:
             self.progress.num_checkpoints_not_improved += 1
-            print(f"Loss did not improve. {self.progress.num_checkpoints_not_improved} "
-                  f"out of {self.config.num_checkpoints_not_improved} unsuccessful "
-                  "checkpoints")
-            print(f"Best loss thus far: {self.progress.best_reconstruction_loss}")
-        self.progress.save(model_folder)
+            self._log(f"Loss did not improve. {self.progress.num_checkpoints_not_improved} "
+                      f"out of {self.config.num_checkpoints_not_improved} unsuccessful "
+                      "checkpoints")
+            self._log(f"Best loss thus far: {self.progress.best_reconstruction_loss}")
+        if self.primary:
+            self.progress.save(model_folder)
+
+    def _whole_model(self, params: torch.Tensor) -> StyleVAE:
+        """The model whole, from the full flat parameters: the model itself
+        unless a mesh sliced it, else a copy on the CPU."""
+        if self.layout is None or all(s.dim is None for s in self.layout):
+            return self.model
+        whole = StyleVAE(self.model.config)
+        with torch.no_grad():
+            offset = 0
+            for p in whole.parameters():
+                p.copy_(params[offset:offset + p.numel()].view_as(p))
+                offset += p.numel()
+        return whole
 
     def _generation_health(self) -> Dict[str, float]:
         """Transfer the fixed probe rows into every class with the current
@@ -368,12 +460,12 @@ class Trainer:
     def _load_latest_checkpoint(self, model_folder: str) -> None:
         """Resume from the newest checkpoint that restores, falling back to
         older ones; start from scratch when none does."""
-        print(f"Looking into folder {model_folder} for a valid training.")
+        self._log(f"Looking into folder {model_folder} for a valid training.")
         indices = ckpt.checkpoint_indices(model_folder)
         if not indices:
-            print("No checkpoint was found. Starting training from scratch")
+            self._log("No checkpoint was found. Starting training from scratch")
         for idx in reversed(indices):
-            print(f"Checkpoint {idx} found. Resuming training.")
+            self._log(f"Checkpoint {idx} found. Resuming training.")
             try:
                 state = ckpt.restore_checkpoint(model_folder, idx)
                 self._restore(state)
@@ -387,17 +479,27 @@ class Trainer:
             except FileNotFoundError:
                 pass
             if self.progress.n_checkpoints > idx:
-                print(f"Bookkeeping ({self.progress.n_checkpoints}) is ahead of the "
-                      f"restored checkpoint ({idx}); reconciling.")
+                self._log(f"Bookkeeping ({self.progress.n_checkpoints}) is ahead of the "
+                          f"restored checkpoint ({idx}); reconciling.")
                 self.progress.n_checkpoints = idx
                 self.progress.n_batches = self.step
-            return
+            break
+        if self.mesh is not None:
+            # every process must resume at one step, or the run mixes states
+            assert_in_sync(self.mesh, float(self.step), "the resumed training step")
 
     def _restore(self, state) -> None:
+        """Copy a checkpoint's full state into this rank's tensors (its
+        slices of them under tensor parallelism)."""
         params = state["params"]
-        if params.shape != self.optimizer.flat.shape:
-            raise ValueError(f"{params.numel()} parameters in the checkpoint, "
-                             f"{self.optimizer.flat.numel()} in the model")
+        full = sum(s.numel for s in self.layout) if self.layout else self.optimizer.flat.numel()
+        if params.numel() != full:
+            raise ValueError(f"{params.numel()} parameters in the checkpoint, {full} in the model")
+        if self.layout is not None:
+            params = shard_flat(params, self.layout, self.mesh)
+            state = dict(state, optimizer={
+                k: (shard_flat(v, self.layout, self.mesh) if v.numel() == full else v)
+                for k, v in state["optimizer"].items()})
         self.optimizer.load_state_dict(state["optimizer"])
         with torch.no_grad():
             self.optimizer.flat.copy_(params)
@@ -411,6 +513,8 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _write_scalars(self, scalars: Dict[str, float]) -> None:
+        if not self.primary:
+            return
         os.makedirs(self.config.logdir, exist_ok=True)
         line = {"step": self.progress.n_batches}
         line.update({k: (v if math.isfinite(v) else str(v)) for k, v in scalars.items()})
@@ -418,8 +522,9 @@ class Trainer:
             f.write(json.dumps(line) + "\n")
 
     def _periodic_log(self, epoch: int, start_time: float) -> None:
+        sums, counts = self._reduce_pairs(self.state.sums, self.state.counts)
         host = MetricAccumulator()
-        host.update(self.state.metrics())
+        host.update({n: (sums[i], counts[i]) for i, n in enumerate(self.state.names)})
         self.state.reset_metrics()
         vals = host.get()
         self._write_scalars(vals)
@@ -432,6 +537,6 @@ class Trainer:
             window = f" (window: {wups:.1f})"
         self._last_log = (self.progress.n_batches, now)
         line = " ".join(f"{k}={v:.3f}" for k, v in sorted(vals.items()))
-        print(f"Epoch [{epoch}] Batch [{self.progress.n_batches}] "
+        self._log(f"Epoch [{epoch}] Batch [{self.progress.n_batches}] "
               f"updates/sec: {ups:.2f}{window} {line}")
 

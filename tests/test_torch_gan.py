@@ -441,8 +441,8 @@ def test_cli_gan_flags_match_the_jax_parser():
 
 
 def test_mesh_is_refused():
-    """``mesh=`` (multi-device GAN training) raises, naming ROADMAP item 9."""
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """``mesh=`` (data-parallel GAN training) raises, naming ROADMAP item 9c."""
+    with pytest.raises(NotImplementedError, match="item 9c"):
         GANTrainer(toy_config(), GANTrainConfig(), mesh=object())
 
 

@@ -875,3 +875,88 @@ def test_service_decodes_through_k1(cuda, tmp_path):
     assert torch.equal(seqs.reshape(6, -1), ref)
     results = svc._finish(seqs, 3)
     assert all(set(r.midi_by_class) == {0, 1} for r in results)
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """A world of one rank on NCCL in this process, and its (1, 1) mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    from musicstyletransfer_torch.parallel import initialize_distributed, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    device = torch.device("cuda", 0)
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0, device)
+    try:
+        yield make_mesh(1, device)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_graph_with_the_all_reduce_captured_equals_eager_steps(cuda, nccl_world):
+    """On a world-1 NCCL mesh every step all-reduces its gradient (and the
+    model and optimizer go through shard_model and FlatSync): two replays
+    of a graph of 3 steps, the collective captured, against 6 eager steps,
+    bit for bit; and both equal to the same steps without a mesh."""
+    from musicstyletransfer_torch.parallel import shard_model, use_mesh
+    from musicstyletransfer_torch.parallel.mesh import FlatSync
+
+    group = step_batches(cuda, 3)
+    out = []
+    for graphed, mesh in ((False, nccl_world), (True, nccl_world), (True, None)):
+        model, opt = tiny_recipe(False, cuda, True)
+        if mesh is not None:
+            opt.sync = FlatSync(mesh, shard_model(model, mesh), cuda)
+        with use_mesh(mesh):
+            out.append(run_groups(model, opt, [group, group], graphed, cuda))
+    (a, ga, ca), (b, gb, cb), (c, gc, cc) = out
+    assert all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(a, b, c))
+    assert torch.equal(ga, gb) and torch.equal(ga, gc) and ca == cb == cc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_lockstep_matches_whole_sequence_kernels(cuda, dtype, causal):
+    """Ring attention with 2 ranks in lock step on the card (K4/K5 per
+    visiting chunk, T=255 padded to the ring, one row's keys inside the
+    first chunk) against K4/K5 on the whole T: out and lse (K4's
+    tolerances), dq/dk/dv (K5's, relative to the largest magnitude)."""
+    from musicstyletransfer_torch.ops import counters
+    from musicstyletransfer_torch.ops import ring_attention as ra
+    from musicstyletransfer_torch.parallel.mesh import SeqShard
+
+    B, H, T, hd, n = 2, 2, 255, 32, 2
+    g = np.random.default_rng(9)
+    q, k, v, dout = (torch.as_tensor(g.normal(size=(B, T, H, hd)), dtype=torch.float32)
+                     .to(dtype).to(cuda).transpose(1, 2) for _ in range(4))
+    key_lens = torch.tensor([T, 100], dtype=torch.int32, device=cuda)
+    scale = hd ** -0.5
+    whole_out, whole_lse = fa.flash_forward(q, k, v, key_lens, causal, scale)
+    grads = fa.flash_backward(q, k, v, key_lens, whole_lse, whole_out, dout, causal, scale)
+    chunks = [[SeqShard(T, n, r).local(x, 2).contiguous() for r in range(n)]
+              for x in (q, k, v, dout)]
+    counters.reset()
+    fwd = ra.ring_forward_lockstep(*chunks[:3], key_lens, causal, scale)
+    bwd = ra.ring_backward_lockstep(*chunks[:3], key_lens, [o for o, _ in fwd],
+                                    [l for _, l in fwd], chunks[3], causal, scale)
+    torch.cuda.synchronize()
+    c = counters.read()
+    assert c["K4"] == c["K5"] == n * n and c["K4 plain"] == c["K5 plain"] == 0
+    tol_out, tol_lse, tol_rel = {torch.float32: (1e-5, 1e-4, 1e-4),
+                                 torch.bfloat16: (3e-2, 1e-3, 2e-2)}[dtype]
+    out = torch.cat([o for o, _ in fwd], 2)[:, :, :T]
+    lse = torch.cat([l for _, l in fwd], 2)[:, :, :T]
+    live = whole_lse > -1e29
+    assert float((out - whole_out.float()).abs().max()) <= tol_out
+    assert float((lse - whole_lse)[live].abs().max()) <= tol_lse
+    for j in range(3):
+        d = torch.cat([b[j] for b in bwd], 2)[:, :, :T]
+        assert torch.isfinite(d).all()
+        rel = (d - grads[j].float()).abs().max() / grads[j].float().abs().max()
+        assert float(rel) <= tol_rel, j

@@ -4,7 +4,7 @@ weights go into the port through its converter (``torch/params.npz``
 exported from the JAX checkpoint).
 
 ``test_mesh_sharded_service`` has no counterpart: the port has no mesh
-until ROADMAP queue 1 item 9, and ``mesh=`` raises naming that item
+until ROADMAP queue 1 item 9b, and ``mesh=`` raises naming that item
 (``test_mesh_is_not_ported``). The port decodes only a partial batch's real
 rows where the JAX package pads with its first request; the token layout
 of those rows is held to the JAX package's.
@@ -207,7 +207,7 @@ class TestService:
             svc.submit_midi(empty)
 
     def test_mesh_is_not_ported(self, model_folder):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="item 9b"):
             service(model_folder, mesh=object())
 
     def test_runs_on_cuda_unless_told_otherwise(self, model_folder, monkeypatch):

@@ -46,6 +46,7 @@ from musicstyletransfer_torch.models import StyleVAE
 from musicstyletransfer_torch.models import config as tconfig
 from musicstyletransfer_torch.ops import attention_core as ac
 from musicstyletransfer_torch.ops import fused_decode as fd
+from musicstyletransfer_torch.training import checkpoint as ckpt
 from musicstyletransfer_torch.training import loss as tloss
 from musicstyletransfer_torch.training import metrics as tmetrics
 from musicstyletransfer_torch.training.optimizer import OptimizerConfig, Optimizer
@@ -445,10 +446,36 @@ def test_cli_sample_reads_the_ports_own_checkpoints(tiny_corpus, tmp_path):
         assert (out / name).read_bytes() == (ref / name).read_bytes(), name
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--dist-coordinator", "localhost:1234"]])
-def test_cli_refuses_unported(flag, tmp_path):
-    with pytest.raises(SystemExit, match="not ported"):
+@pytest.mark.parametrize("flag,message", [
+    (["--tp", "2"], "one process per card"),
+    (["--dist-coordinator", "127.0.0.1:1", "--dist-num-cpu-devices", "2"], "not ported")])
+def test_cli_refuses_unported(flag, message, tmp_path):
+    """--tp 2 without --dist-* names the one-process-per-card launch (a
+    torch process drives one device); --dist-num-cpu-devices, the JAX
+    package's virtual CPU devices, has no torch meaning. Both raise before
+    anything starts."""
+    with pytest.raises(SystemExit, match=message):
         cli_main.main(["--cpu", "--data", CORPUS, "--model-output", str(tmp_path), *flag])
+
+
+def test_cli_trains_as_a_one_process_gloo_world(tiny_corpus, tmp_path):
+    """--dist-* with --dist-num-processes 1 --cpu joins a gloo world of one
+    rank, trains on its (1, 1) mesh, checkpoints and leaves no process group
+    behind."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    model = str(tmp_path / "m")
+    cli_main.main(train_argv(tiny_corpus, model, str(tmp_path / "log"), 1) + [
+        "--dist-coordinator", f"127.0.0.1:{port}", "--dist-num-processes", "1",
+        "--dist-process-id", "0"])
+    assert not dist.is_initialized()
+    state = ckpt.restore_checkpoint(model, ckpt.checkpoint_indices(model)[-1])
+    assert state["step"] == 3 and torch.isfinite(state["params"]).all()
 
 
 @pytest.mark.parametrize("flag", ["--grad-accum-steps", "--profile-dir",
