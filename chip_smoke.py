@@ -124,8 +124,24 @@
    with the gradient's all-reduce captured against eager steps, bit for
    bit; the graphed step with and without the mesh and the all-reduce's ms.
    multi_gpu_path (2-process NCCL: DP=2, tp=2, --ring-attention --tp 2 at
-   L=2046) runs only where torch.cuda.device_count() >= 2, and otherwise
-   prints "multi_gpu_path: not run (1 card)".
+   L=2046; a 2-process sharded greedy transfer against one process's, token
+   for token; 2-process GAN DP in float32 against one process's first
+   metric means, 1e-4) runs only where torch.cuda.device_count() >= 2, and
+   otherwise prints "multi_gpu_path: not run (1 card)".
+13. Sharded inference (sharded_path, the shipped model, bf16, a world-1
+   NCCL mesh laid out by make_mesh without a device): the sharded
+   all-classes transfer of 32 corpus sources x 2 classes at greedy equals
+   the unsharded call token for token with one K1 launch a data shard; K1
+   greedy on each half of the 64 rows equals the whole batch's launch;
+   StyleTransferService(mesh=) and StreamingTransferEngine(mesh=) at greedy
+   equal mesh=None on 16 corpus requests; ms of the sharded call against
+   the unsharded one and of the rows' all-gather. GAN data parallelism
+   (gan_dp, train-gan.sh's model, world-1 NCCL mesh): graphed D/G groups
+   with the gradients' all-reduce captured equal eager steps and the
+   graphed run without a mesh bit for bit; updates/s with and without the
+   mesh. The port's examples (examples/torch_style_transfer.py,
+   examples/torch_gan_generation.py for one epoch) as processes: every MIDI
+   file they write parses back.
 
 Exits non-zero on any failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -133,6 +149,7 @@ Exits non-zero on any failure. The last line of standard output is
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import math
@@ -937,9 +954,9 @@ def gan_argv(data: str, model_output: str, out_samples: str):
                        module="gan")
 
 
-def gan_setup(r1_gamma: float, seed: int = 0):
+def gan_setup(r1_gamma: float, seed: int = 0, mesh=None, dtype: str = "bfloat16"):
     """train-gan.sh's GAN (seeded weights, on the card) as cli.gan builds
-    it, with ``r1_gamma``: (args, GANSteps)."""
+    it, with ``r1_gamma`` (on ``mesh``, in ``dtype``): (args, GANSteps)."""
     from musicstyletransfer_torch.cli import gan as cli_gan
     from musicstyletransfer_torch.midi.vocab import NUM_EVENTS
     from musicstyletransfer_torch.models.gan import init_gan_params
@@ -953,9 +970,10 @@ def gan_setup(r1_gamma: float, seed: int = 0):
     import dataclasses
 
     tc = dataclasses.replace(tc, r1_gamma=r1_gamma)
+    config = dataclasses.replace(config, dtype=dtype)
     gen, disc = init_gan_params(config, seed)
     steps = GANSteps(config, tc, gen.cuda(), disc.cuda(),
-                     torch.Generator(device="cuda").manual_seed(seed))
+                     torch.Generator(device="cuda").manual_seed(seed), mesh)
     return args, steps
 
 
@@ -965,32 +983,37 @@ def gan_graph_vs_eager(batches) -> None:
     CUDA graph (GraphedGANGroups), at r1_gamma 0.1 and 0: both models'
     parameters, Adam state, the metric sums and the noise generator bit for
     bit."""
-    from musicstyletransfer_torch.training.gan_trainer import (GraphedGANGroups, batch_tensors,
-                                                               group_pattern)
-
     for r1 in (0.1, 0.0):
-        runs = []
-        for graphed in (False, True):
-            _, steps = gan_setup(r1)
-            tensors = [batch_tensors(b, "cuda") for b in batches[:2 * GAN_K]]
-            graphs = GraphedGANGroups(steps, GAN_K) if graphed else None
-            for i in range(2):
-                group = tensors[i * GAN_K:(i + 1) * GAN_K]
-                pattern = group_pattern(i * GAN_K, GAN_K, GAN_K)
-                if graphed:
-                    graphs.run(group, pattern)
-                else:
-                    steps.run_group(group, pattern)
-            torch.cuda.synchronize()
-            runs.append([t.clone() for t in steps.tensors()]
-                        + [steps.generator.get_state().to(torch.int64).cuda()])
-            counts = (int(steps.d_opt.state["count"]), int(steps.g_opt.state["count"]))
-            check(counts == (2 * GAN_K, 2), f"GAN updates {counts}, expected (10, 2)")
+        runs = [gan_groups(r1, graphed, batches) for graphed in (False, True)]
         same = [torch.equal(a, b) for a, b in zip(*runs)]
         check(all(same), f"GAN r1_gamma={r1}: graphed groups differ from eager steps: {same}")
         log(f"GAN graph vs eager (train-gan.sh: B=32, L=64, bf16, G/D 1x256), r1_gamma {r1}: "
             "2 groups (10 D, 2 G updates) bit for bit identical (G and D parameters, Adam "
             "moments and counts, metric sums, noise generator)")
+
+
+def gan_groups(r1: float, graphed: bool, batches, mesh=None):
+    """Two groups of train-gan.sh's steps (10 D and 2 G updates) from the
+    seeded state, eager or as CUDA-graph replays, on ``mesh``: every tensor
+    the steps update and the noise generator's state, afterwards."""
+    from musicstyletransfer_torch.training.gan_trainer import (GraphedGANGroups, batch_tensors,
+                                                               group_pattern)
+
+    _, steps = gan_setup(r1, mesh=mesh)
+    tensors = [batch_tensors(b, "cuda") for b in batches[:2 * GAN_K]]
+    graphs = GraphedGANGroups(steps, GAN_K) if graphed else None
+    for i in range(2):
+        group = tensors[i * GAN_K:(i + 1) * GAN_K]
+        pattern = group_pattern(i * GAN_K, GAN_K, GAN_K)
+        if graphed:
+            graphs.run(group, pattern)
+        else:
+            steps.run_group(group, pattern)
+    torch.cuda.synchronize()
+    counts = (int(steps.d_opt.state["count"]), int(steps.g_opt.state["count"]))
+    check(counts == (2 * GAN_K, 2), f"GAN updates {counts}, expected (10, 2)")
+    return ([t.clone() for t in steps.tensors()]
+            + [steps.generator.get_state().to(torch.int64).cuda()])
 
 
 def run_cli(module: str, argv, timeout: float = 600):
@@ -2198,19 +2221,12 @@ def dist_path(tmp: str, batches, card: str) -> dict:
     all-reduce captured against the same eager steps, bit for bit; the
     graphed step's ms with and without the mesh; the all-reduce's ms on the
     flat gradient (CUDA events)."""
-    import socket
-
     import torch.distributed as dist
 
     from musicstyletransfer_torch.parallel import initialize_distributed, make_mesh, use_mesh
     from musicstyletransfer_torch.training import checkpoint as ckpt
     from musicstyletransfer_torch.training.graph import GraphedSteps
     from musicstyletransfer_torch.training.train_step import TrainState, batch_tensors, metric_names
-
-    def free_port():
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            return s.getsockname()[1]
 
     data = os.path.join(REPO, "work", "data", "guitar_bass")
     folders = {}
@@ -2333,6 +2349,324 @@ def multi_gpu_path(tmp: str) -> None:
           f"multi_gpu_path ring: first ce_loss {ring} vs {long_one}")
     log(f"multi_gpu_path --ring-attention --tp 2 at L={LONG_L}: first ce_loss {ring:.6f} vs "
         f"{long_one:.6f} on one process")
+    multi_gpu_inference(tmp)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_world1():
+    """A world of one rank on NCCL in this process, and its (1, 1) mesh,
+    laid out without a device (``make_mesh`` follows the backend)."""
+    import torch.distributed as dist
+
+    from musicstyletransfer_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, torch.device("cuda", 0))
+    try:
+        mesh = make_mesh(1)
+        check(mesh.device == torch.device("cuda", 0), f"make_mesh on NCCL: {mesh.device}")
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_path(fd, decode, card: str) -> dict:
+    """Sharded inference on the shipped model (bf16) over a world-1 NCCL
+    mesh, 32 corpus sources x 2 classes, L=64, max_len 130, greedy:
+
+    1. sharded_style_transfer_all_classes equals style_transfer_all_classes
+       token for token and score for score, with one K1 launch (one a data
+       shard) and no plain loop; a sampled sharded call launches K1 once
+       too and gives finite scores;
+    2. the split of rows into shards on the card: K1 greedy on each half of
+       the 64 rows equals the whole batch's launch token for token;
+    3. StyleTransferService(mesh=) and StreamingTransferEngine(mesh=) at
+       greedy equal mesh=None on 16 corpus requests; the service's
+       micro-batch is one K1 launch;
+    4. CUDA-event ms of the sharded call against the unsharded call, and of
+       the rows' all-gather.
+    Returns the K1 launches of 1 and 3 (the phase's main path) and the
+    numbers."""
+    from musicstyletransfer_torch.data import Loader, MelodyDataset
+    from musicstyletransfer_torch.inference import (StreamingTransferEngine, StyleTransferService,
+                                                    sharded_style_transfer_all_classes)
+    from musicstyletransfer_torch.inference.sampler import load_inference_model
+    from musicstyletransfer_torch.inference.sharded import gather_rows
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    batch = next(iter(MelodyDataset(32, L, Loader(os.path.join(REPO, "work", "data",
+                                                               "guitar_bass"), L).melodies)))
+    tokens = torch.as_tensor(batch.tokens, dtype=torch.long, device=cuda)
+    seq_lens = torch.as_tensor(batch.seq_lens, dtype=torch.long, device=cuda)
+    model = load_inference_model(MODEL, -1, cuda)
+    requests = corpus_requests(16)
+    res = {"launches": 0}
+    with nccl_world1() as mesh:
+        def sharded(greedy=True, seed=0):
+            return sharded_style_transfer_all_classes(
+                model, tokens, seq_lens, T, 2, torch.Generator().manual_seed(seed), mesh,
+                greedy=greedy, params_on_mesh=True)
+
+        want, want_scores = decode.style_transfer_all_classes(model, tokens, seq_lens, T, 2, 0,
+                                                              greedy=True)
+        counts(reset=True)
+        got, got_scores = sharded()
+        sampled, sampled_scores = sharded(greedy=False)
+        torch.cuda.synchronize()
+        c = counts()
+        check(c["K1"] == 2 and c["K1 plain"] == 0,
+              f"sharded calls: {c['K1']} K1 launches (expected 2), {c['K1 plain']} plain loops")
+        res["launches"] += c["K1"]
+        check(torch.equal(got, want) and torch.equal(got_scores, want_scores),
+              "sharded greedy transfer differs from the unsharded one")
+        check(bool(torch.isfinite(sampled_scores).all()) and sampled.shape == want.shape,
+              "sharded sampled transfer: non-finite scores or a wrong shape")
+        log(f"sharded path: sharded_style_transfer_all_classes on a world-1 NCCL mesh "
+            f"({mesh}), 32x2 rows, T={T}, bf16: greedy equal to the unsharded call token for "
+            f"token and score for score; one K1 launch a call (a data shard), no plain loop")
+
+        with torch.inference_mode():
+            classes = torch.arange(2, device=cuda).repeat_interleave(32)
+            z = decode._encode_deterministic(model, tokens.repeat(2, 1), seq_lens.repeat(2),
+                                             classes)
+            x0 = model.decode_init(z, classes).contiguous()
+        launches = fd.fused_decode.launches
+        whole, _ = fd.fused_decode(model, x0, T, 0, mode="greedy")
+        halves = [fd.fused_decode(model, x0[h:h + 32].contiguous(), T, 0, mode="greedy")[0]
+                  for h in (0, 32)]
+        fd.fused_decode.launches = launches  # checks, not the main path
+        same = torch.equal(torch.cat(halves), whole)
+        rows_same = int((torch.cat(halves) == whole).all(-1).sum())
+        check(same, f"K1 on each half of the rows differs from the whole batch's launch: "
+              f"{rows_same} of 64 rows equal")
+        log(f"sharded path: K1 greedy on rows 0-31 and 32-63 (plan "
+            f"{fd.plan_for(model, 32, T)}) equals the launch on all 64 (plan "
+            f"{fd.plan_for(model, 64, T)}) token for token")
+
+        svc = {label: StyleTransferService(MODEL, -1, batch_size=16, max_seq_len=L,
+                                           greedy=True, mesh=m)
+               for label, m in (("plain", None), ("mesh", mesh))}
+        toks = [svc["plain"]._tokens_from_midi(m) for m in requests]
+        plain = svc["plain"].transfer_tokens(toks)
+        counts(reset=True)
+        meshed = svc["mesh"].transfer_tokens(toks)
+        torch.cuda.synchronize()
+        c = counts()
+        svc["mesh"].stop()  # the stop header (to this one rank)
+        check(c["K1"] == 1, f"sharded service micro-batch: {c['K1']} K1 launches")
+        res["launches"] += c["K1"]
+        for i, (a, b) in enumerate(zip(plain, meshed)):
+            for cls in a.tokens_by_class:
+                check(np.array_equal(a.tokens_by_class[cls], b.tokens_by_class[cls]),
+                      f"service(mesh=) request {i} class {cls} differs from mesh=None")
+        engines = [StreamingTransferEngine(MODEL, -1, slots=SLOTS, segment_steps=SEGMENT,
+                                           greedy=True, mesh=m) for m in (None, mesh)]
+        rows = [engine_rows(e, requests) for e in engines]
+        engines[1].stop()
+        for i in rows[0]:
+            for cls in rows[0][i]:
+                check(np.array_equal(rows[0][i][cls], rows[1][i][cls]),
+                      f"engine(mesh=) request {i} class {cls} differs from mesh=None")
+        log(f"sharded path: StyleTransferService(mesh=) (one K1 launch a micro-batch) and "
+            f"StreamingTransferEngine(mesh=) ({SLOTS} slots, graph replays "
+            f"{engines[1].graph_replays}) equal mesh=None on {len(requests)} corpus "
+            f"requests, greedy, token for token")
+
+        saved = counts()
+        res["unsharded_ms"] = time_cuda(
+            lambda: decode.style_transfer_all_classes(model, tokens, seq_lens, T, 2, 0,
+                                                      greedy=True), 20)
+        res["sharded_ms"] = time_cuda(sharded, 20)
+        res["unsharded_ms2"] = time_cuda(
+            lambda: decode.style_transfer_all_classes(model, tokens, seq_lens, T, 2, 0,
+                                                      greedy=True), 20)
+        res["sharded_ms2"] = time_cuda(sharded, 20)
+        local = got.reshape(64, T)
+        res["gather_ms"] = time_cuda(lambda: gather_rows(local, mesh), 50)
+        from musicstyletransfer_torch.ops import counters
+        counters.write(saved)  # timing launches are not the main path's
+    log(f"sharded path timings ({card}): style_transfer_all_classes 32x2 rows, T={T}, bf16, "
+        f"greedy, CUDA events, mean of 20: unsharded {res['unsharded_ms']:.4f} / "
+        f"{res['unsharded_ms2']:.4f} ms, sharded on the world-1 mesh {res['sharded_ms']:.4f} / "
+        f"{res['sharded_ms2']:.4f} ms; the rows' all-gather ([64, {T}] int32) "
+        f"{res['gather_ms']:.4f} ms (mean of 50); phase {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def gan_dp(batches, card: str) -> dict:
+    """GAN data parallelism over a world-1 NCCL mesh at train-gan.sh's model
+    (bf16, r1_gamma 0.1): two groups (10 D, 2 G updates) eager and as
+    CUDA-graph replays with the gradients' all-reduce captured, bit for bit,
+    and both equal to the graphed run without a mesh; updates/s of graphed
+    groups of 5 with and without the mesh (CUDA events)."""
+    from musicstyletransfer_torch.training.gan_trainer import (GraphedGANGroups, batch_tensors,
+                                                               group_pattern)
+
+    t_phase = time.perf_counter()
+    res = {}
+    with nccl_world1() as mesh:
+        runs = {"eager mesh": gan_groups(0.1, False, batches, mesh),
+                "graphed mesh": gan_groups(0.1, True, batches, mesh),
+                "graphed": gan_groups(0.1, True, batches)}
+        for key in ("graphed mesh", "graphed"):
+            same = [torch.equal(a, b) for a, b in zip(runs["eager mesh"], runs[key])]
+            check(all(same), f"GAN DP: {key} differs from eager steps on the mesh: {same}")
+        log("GAN DP (train-gan.sh, bf16, r1_gamma 0.1, world-1 NCCL mesh): 2 groups (10 D, 2 G "
+            "updates) with the D and G gradients' all-reduce captured in the graphs equal the "
+            "eager steps on the mesh and the graphed steps without it, bit for bit")
+        batch = batch_tensors(batches[0], "cuda")
+        pattern = group_pattern(0, GAN_K, GAN_K)
+        for label, m in (("no mesh", None), ("world-1 mesh", mesh), ("no mesh 2", None),
+                         ("world-1 mesh 2", mesh)):
+            _, steps = gan_setup(0.1, mesh=m)
+            graphs = GraphedGANGroups(steps, GAN_K)
+            ms = time_cuda(lambda: graphs.run([batch] * GAN_K, pattern), 10)
+            res[label] = GAN_K / (ms / 1e3)
+    log(f"GAN DP timings ({card}): graphed groups of {GAN_K} (r1_gamma 0.1, CUDA events, 10 "
+        f"groups): {res['no mesh']:.2f} / {res['no mesh 2']:.2f} updates/s without a mesh, "
+        f"{res['world-1 mesh']:.2f} / {res['world-1 mesh 2']:.2f} on the world-1 NCCL mesh; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def examples_path(tmp: str) -> None:
+    """The port's two examples as processes on the card:
+    examples/torch_style_transfer.py (one corpus file into both classes)
+    and examples/torch_gan_generation.py for one epoch (its samples and the
+    shipped generator's); every MIDI file they write parses back."""
+    t0 = time.perf_counter()
+    corpus = os.path.join(REPO, "work", "data", "guitar_bass")
+    first = sorted(glob.glob(os.path.join(corpus, "*", "*.mid")))[0]
+    runs = (("torch_style_transfer.py", [first, MODEL, os.path.join(tmp, "ex-transfer")],
+             [os.path.join(tmp, "ex-transfer")]),
+            ("torch_gan_generation.py", [corpus, os.path.join(tmp, "ex-gan"), "1"],
+             [os.path.join(tmp, "ex-gan", d) for d in ("samples", "shipped")]))
+    for script, argv, outs in runs:
+        proc = subprocess.run([sys.executable, os.path.join(REPO, "examples", script), *argv],
+                              cwd=REPO, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"{script} exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        for out in outs:
+            names, notes = parse_midi_dir(out)
+            check(len(names) >= 2 and notes > 0, f"{script}: {len(names)} files, {notes} notes "
+                  f"in {out}")
+        log(f"examples: {script} {' '.join(argv[-1:])}: " + "; ".join(
+            f"{len(parse_midi_dir(o)[0])} MIDI files in {os.path.basename(o)} parsed back"
+            for o in outs))
+    log(f"examples: {time.perf_counter() - t0:.1f} s")
+
+
+def multi_rank(kind: str, rank: int, world: int, port: int, out: str) -> None:
+    """One rank of multi_gpu_path's sharded-inference and GAN runs (a
+    process of its own, card ``rank``): ``sharded`` writes the sharded
+    greedy transfer of sharded_path's batch, ``gan`` the metric means after
+    the first D step and after the first group of train-gan.sh's model in
+    float32 with GANSteps(mesh=) on its rows."""
+    import torch.distributed as dist
+
+    from musicstyletransfer_torch.data import Loader, MelodyDataset
+    from musicstyletransfer_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, torch.device("cuda"))
+    try:
+        mesh = make_mesh(1)
+        batches = list(MelodyDataset(32, L, Loader(os.path.join(REPO, "work", "data",
+                                                                "guitar_bass"), L).melodies))
+        result = (multi_sharded(batches[0], mesh) if kind == "sharded"
+                  else multi_gan(batches, mesh))
+        if rank == 0:
+            np.savez(out, **result)
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_sharded(batch, mesh) -> dict:
+    """The sharded (``mesh``) or unsharded greedy transfer of ``batch`` into
+    both classes on the shipped model."""
+    from musicstyletransfer_torch.inference import decode, sharded_style_transfer_all_classes
+    from musicstyletransfer_torch.inference.sampler import load_inference_model
+
+    dev = torch.device("cuda") if mesh is None else mesh.device
+    model = load_inference_model(MODEL, -1, dev)
+    tokens = torch.as_tensor(batch.tokens, dtype=torch.long, device=dev)
+    seq_lens = torch.as_tensor(batch.seq_lens, dtype=torch.long, device=dev)
+    if mesh is None:
+        seqs, scores = decode.style_transfer_all_classes(model, tokens, seq_lens, T, 2, 0,
+                                                         greedy=True)
+    else:
+        seqs, scores = sharded_style_transfer_all_classes(model, tokens, seq_lens, T, 2,
+                                                          torch.Generator(), mesh, greedy=True)
+    return {"seqs": seqs.cpu().numpy(), "scores": scores.float().cpu().numpy()}
+
+
+def multi_gan(batches, mesh) -> dict:
+    """train-gan.sh's model in float32 (r1_gamma 0.1), on ``mesh`` each rank
+    its rows of each global batch: the metric means after the first D step
+    and after the first group (5 D, 1 G updates), eager."""
+    from musicstyletransfer_torch.parallel import shard_batch
+    from musicstyletransfer_torch.training.gan_trainer import batch_tensors, group_pattern
+
+    _, steps = gan_setup(0.1, mesh=mesh, dtype="float32")
+    tensors = [batch_tensors(b, "cuda") for b in batches[:GAN_K]]
+    if mesh is not None:
+        tensors = [shard_batch(t, mesh) for t in tensors]
+    steps.d_step(*tensors[0])
+    first = steps.metrics()
+    steps.reset_metrics()
+    steps.run_group(tensors, group_pattern(0, GAN_K, GAN_K))
+    group = steps.metrics()
+    out = {f"first/{k}": np.asarray(v) for k, v in first.items()}
+    out.update({f"group/{k}": np.asarray(v) for k, v in group.items()})
+    return out
+
+
+def multi_gpu_inference(tmp: str) -> None:
+    """multi_gpu_path's inference and GAN halves on 2 cards: a 2-process
+    sharded greedy transfer equals one process's token for token (scores
+    within 1e-3), and 2-process GAN DP equals one process's first means
+    (1e-4 relative, as the 2-process training checks above)."""
+    from musicstyletransfer_torch.data import Loader, MelodyDataset
+
+    batches = list(MelodyDataset(32, L, Loader(os.path.join(REPO, "work", "data",
+                                                            "guitar_bass"), L).melodies))
+    one = {"sharded": multi_sharded(batches[0], None), "gan": multi_gan(batches, None)}
+    for kind in ("sharded", "gan"):
+        out = os.path.join(tmp, f"multi-{kind}.npz")
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke."
+                                   f"multi_rank({kind!r}, {r}, 2, {port}, {out!r})"],
+                                  cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for r in range(2)]
+        for p in procs:
+            text, _ = p.communicate(timeout=600)
+            check(p.returncode == 0, f"multi_gpu_path {kind}: exited {p.returncode}:\n"
+                  f"{text[-3000:]}")
+        with np.load(out) as z:
+            got = {k: z[k] for k in z.files}
+        want = one[kind]
+        check(set(got) == set(want), f"multi_gpu_path {kind}: keys {sorted(got)}")
+        if kind == "sharded":
+            check(np.array_equal(got["seqs"], want["seqs"]),
+                  "multi_gpu_path: the 2-process sharded transfer differs from one process's")
+            check(np.allclose(got["scores"], want["scores"], atol=1e-3),
+                  "multi_gpu_path: sharded scores differ")
+        else:
+            for k, v in want.items():
+                check(abs(float(got[k]) - float(v)) <= 1e-4 * abs(float(v)),
+                      f"multi_gpu_path GAN DP=2 {k}: {float(got[k])} vs {float(v)}")
+        log(f"multi_gpu_path {kind}: 2 processes equal one process "
+            f"({time.perf_counter() - t0:.1f} s)" + (
+                "" if kind == "sharded" else ": " + ", ".join(
+                    f"{k} {float(got[k]):.6f}/{float(v):.6f}" for k, v in sorted(want.items()))))
 
 
 def time_cuda(fn, n: int, queued: bool = False) -> float:
@@ -2499,12 +2833,15 @@ def main() -> int:
     counts(reset=True)
     model, dataset, launches = main_path(fd, device)
     serving = serving_path(fd, decode, card)
+    sharded = sharded_path(fd, decode, card)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = train_path(ac, fd, tmp)
         long_counts = long_path(tmp)
         canonical_path(tmp)
         lstm = lstm_path(tmp, canonical_batches, card)
         gan = gan_path(tmp, corpus_batches[:2 * GAN_K], card)
+        gan_dp_rates = gan_dp(corpus_batches[:2 * GAN_K], card)
+        examples_path(tmp)
         ring = ring_path(fa, long_batch.seq_lens)
         dist_ms = dist_path(tmp, canonical_batches, card)
         multi_gpu_path(tmp)
@@ -2529,7 +2866,7 @@ def main() -> int:
         "name": "fused_decode", "route": "cuda",
         "source": "musicstyletransfer_torch/ops/csrc/fused_decode.cu",
         "replaces": "musicstyletransfer_tpu/ops/fused_decode.py:494",
-        "launches": launches + serving["launches"],
+        "launches": launches + serving["launches"] + sharded["launches"],
         "max_abs_err": max(k1_errs),
         "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
         "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
@@ -2574,6 +2911,9 @@ def main() -> int:
         f"against the whole-T kernels K4 {ring['err']['K4']:.3g}, K5 {ring['err']['K5']:.3g}")
     log(f"dist path ({card}): graphed step {dist_ms['world-1 mesh']:.4f} ms on the world-1 mesh "
         f"vs {dist_ms['no mesh']:.4f} without; all-reduce {dist_ms['all_reduce']:.4f} ms")
+    log(f"sharded path ({card}): sharded transfer {sharded['sharded_ms']:.4f} ms vs "
+        f"{sharded['unsharded_ms']:.4f} unsharded, all-gather {sharded['gather_ms']:.4f} ms; "
+        f"GAN DP {gan_dp_rates['world-1 mesh']:.2f} vs {gan_dp_rates['no mesh']:.2f} updates/s")
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -107,16 +107,18 @@ def sample_sequences(model: StyleVAE, tokens: torch.Tensor, seq_lens: torch.Tens
 def style_transfer_all_classes(model: StyleVAE, tokens: torch.Tensor,
                                seq_lens: torch.Tensor, max_len: int, num_classes: int,
                                seed: int, temperature: float = 1.0, top_k: int = 0,
-                               top_p: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                               top_p: float = 0.0, greedy: bool = False
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Transfer a batch into every target class in one encode and one decode
     of C*B rows (the target class also conditions the encoder, as in the
-    reference). Returns (seqs [C, B, max_len], scores [C, B])."""
+    reference); ``greedy`` takes the argmax. Returns (seqs [C, B, max_len],
+    scores [C, B])."""
     B = tokens.shape[0]
     C = num_classes
     classes = torch.arange(C, dtype=torch.long, device=tokens.device).repeat_interleave(B)
     seqs, scores = sample_sequences(
         model, tokens.repeat(C, 1), seq_lens.repeat(C), classes, max_len, seed,
-        temperature, top_k=top_k, top_p=top_p,
+        temperature, top_k=top_k, top_p=top_p, greedy=greedy,
     )
     return seqs.reshape(C, B, max_len), scores.reshape(C, B)
 

@@ -2,7 +2,10 @@
 (counterpart of ``musicstyletransfer_tpu/inference/sampler.py``).
 
 Same output names as the reference (``out-{i}.original.mid`` and
-``out-{i}.class-{c}.mid``). The configuration is read from
+``out-{i}.class-{c}.mid``); with ``visualize`` (``--visualize-samples``) a
+piano-roll ``<file>.mid.png`` is written beside each MIDI file
+(``utils.visualize_melody``, matplotlib optional). Every entry point runs on
+the card unless it is given a device (``utils.resolve_device``). The configuration is read from
 ``<model>/torch/config.json``; the parameters from the port's own checkpoint
 ``params.N.pt`` where the folder holds one (written by ``cli.main``), else
 from the export ``<model>/torch/params.npz`` (``scripts/export-torch-weights.py``).
@@ -24,19 +27,22 @@ from ..convert import load_npz, params_from_jax
 from ..models.config import load_config
 from ..models.vae import StyleVAE
 from ..training.checkpoint import checkpoint_indices, restore_checkpoint
+from ..utils import resolve_device, visualize_melody
 from .decode import beam_search, sample_sequences, style_transfer_all_classes
 
 
 def load_inference_model(model_folder: str, checkpoint: Optional[int],
-                         device: torch.device = torch.device("cpu")) -> StyleVAE:
-    """The model of ``<model_folder>/torch/config.json`` on ``device``, in
-    eval mode, with checkpoint ``checkpoint``'s parameters (-1: the latest;
-    None keeps freshly initialized weights).
+                         device: Optional[torch.device] = None) -> StyleVAE:
+    """The model of ``<model_folder>/torch/config.json`` on ``device`` (None:
+    CUDA, raising without a card), in eval mode, with checkpoint
+    ``checkpoint``'s parameters (-1: the latest; None keeps freshly
+    initialized weights).
 
     A folder that ``cli.main`` trained holds ``params.N.pt``: its flat
     float32 ``"params"`` (the optimizer's buffer, in the order of
     ``model.parameters()``) are loaded. A folder with only the export
     ``torch/params.npz`` serves the exported checkpoint alone."""
+    device = torch.device(device) if device is not None else resolve_device()
     export = os.path.join(model_folder, "torch")
     config, exported = load_config(os.path.join(export, "config.json"))
     model = StyleVAE(config)
@@ -73,17 +79,20 @@ def load_flat_params(model: StyleVAE, flat: torch.Tensor) -> None:
 
 
 def get_sampler(type: str, model_folder: Optional[str], checkpoint: Optional[int], args,
-                device: torch.device = torch.device("cpu"),
+                device: Optional[torch.device] = None,
                 model: Optional[StyleVAE] = None) -> "SamplerBase":
+    """The sampler ``type`` names (``--sampling-type``), with ``args``'
+    sampling flags and ``--visualize-samples``."""
+    visualize = getattr(args, "visualize_samples", False)
     if type == "sampling":
         return Sampling(model_folder, checkpoint, device=device, model=model,
-                        seed=getattr(args, "seed", 0),
+                        visualize=visualize, seed=getattr(args, "seed", 0),
                         temperature=getattr(args, "temperature", 1.0),
                         top_k=getattr(args, "top_k", 0),
                         top_p=getattr(args, "top_p", 0.0))
     if type == "beam-search":
         return BeamSearchSampler(model_folder, checkpoint, device=device, model=model,
-                                 beam_size=args.beam_size,
+                                 visualize=visualize, beam_size=args.beam_size,
                                  length_penalty=getattr(args, "length_penalty", 0.0))
     raise ValueError(f"Sampler {type} is not implemented")
 
@@ -91,14 +100,18 @@ def get_sampler(type: str, model_folder: Optional[str], checkpoint: Optional[int
 class SamplerBase:
     """Loads the model (or shares a given one, as the trainer's in-training
     sampling does) and writes a dataset's transfers as MIDI files;
-    subclasses say how a batch is transferred into every class."""
+    subclasses say how a batch is transferred into every class. ``device``
+    None is a given model's device, else CUDA (raising without a card)."""
 
     def __init__(self, model_folder: Optional[str], checkpoint: Optional[int],
-                 device: torch.device = torch.device("cpu"),
-                 model: Optional[StyleVAE] = None):
-        self.device = device
+                 device: Optional[torch.device] = None,
+                 model: Optional[StyleVAE] = None, visualize: bool = False):
+        if device is None:
+            device = model.device if model is not None else resolve_device()
+        self.device = torch.device(device)
+        self.visualize = visualize
         self.model = (model if model is not None
-                      else load_inference_model(model_folder, checkpoint, device))
+                      else load_inference_model(model_folder, checkpoint, self.device))
 
     def process_dataset(self, dataset: Dataset, output_suffix: str) -> None:
         """Write originals + per-target-class transfers for every batch."""
@@ -122,16 +135,20 @@ class SamplerBase:
     def _write_batch(self, batch: Batch, output_suffix: str, num_classes: int,
                      writer: MelodyWriter, index_offset: int) -> None:
         for i, row in enumerate(np.asarray(batch.tokens)):
-            writer.write_to_file(
-                os.path.join(output_suffix, f"out-{index_offset + i}.original.mid"),
-                melody_from_ids(row))
+            self._write_melody(writer, melody_from_ids(row), os.path.join(
+                output_suffix, f"out-{index_offset + i}.original.mid"))
         all_sequences = self.sample_all_classes(batch, num_classes)
         for class_idx in range(num_classes):
             for i, row in enumerate(all_sequences[class_idx]):
-                writer.write_to_file(
-                    os.path.join(output_suffix,
-                                 f"out-{index_offset + i}.class-{class_idx}.mid"),
-                    melody_from_ids(row))
+                self._write_melody(writer, melody_from_ids(row), os.path.join(
+                    output_suffix, f"out-{index_offset + i}.class-{class_idx}.mid"))
+
+    def _write_melody(self, writer: MelodyWriter, melody, path: str) -> None:
+        """The MIDI file, and with ``visualize`` its piano roll beside it
+        (``sampler.py:157-163`` of the JAX package)."""
+        writer.write_to_file(path, melody)
+        if self.visualize and len(melody):
+            visualize_melody(melody, path + ".png")
 
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=torch.long, device=self.device)
@@ -153,10 +170,10 @@ class Sampling(SamplerBase):
     the kernel's Philox key from a ``torch.Generator`` seeded with ``seed``."""
 
     def __init__(self, model_folder: Optional[str], checkpoint: Optional[int],
-                 device: torch.device = torch.device("cpu"), seed: int = 0,
+                 device: Optional[torch.device] = None, seed: int = 0,
                  temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
-                 model: Optional[StyleVAE] = None):
-        super().__init__(model_folder, checkpoint, device, model)
+                 model: Optional[StyleVAE] = None, visualize: bool = False):
+        super().__init__(model_folder, checkpoint, device, model, visualize)
         self._generator = torch.Generator().manual_seed(seed)
         self.temperature = temperature
         self.top_k = int(top_k)
@@ -189,9 +206,10 @@ class BeamSearchSampler(SamplerBase):
     max_len twice the source's length."""
 
     def __init__(self, model_folder: Optional[str], checkpoint: Optional[int],
-                 device: torch.device = torch.device("cpu"), beam_size: int = 5,
-                 length_penalty: float = 0.0, model: Optional[StyleVAE] = None):
-        super().__init__(model_folder, checkpoint, device, model)
+                 device: Optional[torch.device] = None, beam_size: int = 5,
+                 length_penalty: float = 0.0, model: Optional[StyleVAE] = None,
+                 visualize: bool = False):
+        super().__init__(model_folder, checkpoint, device, model, visualize)
         self.beam_size = beam_size
         self.length_penalty = length_penalty
         self.max_length_factor = 2.0

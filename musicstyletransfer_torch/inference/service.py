@@ -12,6 +12,16 @@ The JAX package pads a partial batch with its first request, so that every
 call has one static shape (the TPU's idiom). K1 takes any row count, so the
 port decodes only the real rows: a batch of n requests is n * C rows.
 
+With a ``mesh`` (``parallel/mesh.py``, one process per card) each
+micro-batch is one ``sharded_style_transfer_all_classes`` call: its rows are
+split over the data axis, each data rank decodes its share (one K1 launch on
+the card) and the rows are gathered back. The primary rank owns the queue,
+the callbacks, tokenizing and detokenizing; for each micro-batch it
+broadcasts a header (rows, bucket, the batch's seed, or stop) and the
+padded tokens and lengths over the world, and every rank then makes the
+sharded call. The other ranks run ``serve_follower`` (``start`` runs it on a
+thread there) until the primary's ``stop`` sends the stop header.
+
 Programmatic use:
 
     svc = StyleTransferService(model_folder, checkpoint=-1)
@@ -36,20 +46,31 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..midi import smf
 from ..midi.codec import MelodyWriter, melody_from_ids, tokenize_track
 from ..midi.vocab import PAD_ID, SOS_ID, note_on_id
-from ..utils import resolve_device
+from ..parallel.mesh import mesh_device
 from .decode import style_transfer_all_classes
 from .sampler import load_inference_model
+from .sharded import prepare_params, sharded_style_transfer_all_classes
 
 _logger = logging.getLogger(__name__)
 
-MESH_NOT_PORTED = (
-    "mesh= is not ported yet: the sharded service waits for ROADMAP queue 1 "
-    "item 9b (sharded inference, inference/sharded.py)"
-)
+
+def use_card(device: torch.device) -> None:
+    """Make ``device`` this thread's current card where it names one (a
+    mesh's ``cuda:N``: NCCL's calls on a thread that did not set it would go
+    to card 0); a bare ``cuda`` is the current card already."""
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+
+
+def to_signed(value: int) -> int:
+    """A 64-bit unsigned value as the int64 that holds its bits."""
+    value &= (1 << 64) - 1
+    return value - (1 << 64) if value >= 1 << 63 else value
 
 
 @dataclasses.dataclass
@@ -161,6 +182,7 @@ class StyleTransferService:
         mesh=None,
         buckets: Optional[List[int]] = None,
         device: Optional[torch.device] = None,
+        greedy: bool = False,
     ):
         """``buckets``: ascending sequence-length buckets; each micro-batch
         runs at the smallest bucket >= its longest request, with a
@@ -168,14 +190,24 @@ class StyleTransferService:
         ``max_seq_len``. None serves every batch at ``max_seq_len``.
 
         ``seed``: each micro-batch's K1 Philox key is the seed in the high
-        32 bits and a counter, taken under a lock, in the low ones.
+        32 bits and a counter, taken under a lock, in the low ones; under a
+        ``mesh`` that value seeds the generator the data shards' keys are
+        drawn from (``inference/sharded.py``).
 
-        ``device``: where the model runs; None is CUDA, raising without a
-        card (``utils.resolve_device``)."""
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        self.device = torch.device(device) if device is not None else resolve_device()
+        ``mesh``: serve every micro-batch sharded over its data axis (the
+        module docstring); every rank constructs the service alike.
+
+        ``device``: where the model runs; None is the mesh's device, else
+        CUDA, raising without a card (``utils.resolve_device``).
+
+        ``greedy``: decode the argmax instead of sampling (the port's; the
+        JAX service samples)."""
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.model = load_inference_model(model_folder, checkpoint, self.device)
+        if mesh is not None:
+            prepare_params(self.model, mesh)
+        self.greedy = bool(greedy)
         self.num_classes = self.model.config.decoder_config.num_classes
         self.batch_size = batch_size
         self.max_seq_len = max_seq_len
@@ -198,6 +230,15 @@ class StyleTransferService:
         self._queue: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
         self._running = False
+        # Under a mesh the primary's micro-batches (the loop's and direct
+        # callers') go out one at a time: every rank must see the same
+        # sequence of broadcasts.
+        self._mesh_lock = threading.Lock()
+        self._stopped = False
+
+    @property
+    def is_primary(self) -> bool:
+        return self.mesh is None or self.mesh.is_primary
 
     # -- request preparation -------------------------------------------
 
@@ -244,13 +285,65 @@ class StyleTransferService:
             raise ValueError(f"{len(token_lists)} requests for a batch of {self.batch_size}")
         bucket = self._pick_bucket(token_lists)
         tokens, seq_lens = self._make_batch(token_lists, bucket)
+        if self.mesh is not None:
+            if not self.is_primary:
+                raise RuntimeError("only the mesh's primary rank takes requests; the "
+                                   "others run serve_follower()")
+            with self._mesh_lock:
+                if self._stopped:
+                    raise RuntimeError("the sharded service was stopped")
+                packed = np.concatenate([tokens, seq_lens[:, None]], axis=1)
+                return self._sharded(*self._broadcast(
+                    len(token_lists), bucket, self._next_seed(), packed))
         seqs, _scores = style_transfer_all_classes(
             self.model,
             torch.as_tensor(tokens, device=self.device),
             torch.as_tensor(seq_lens, device=self.device),
-            2 * (bucket + 1), self.num_classes, self._next_seed(),
+            2 * (bucket + 1), self.num_classes, self._next_seed(), greedy=self.greedy,
         )
         return seqs
+
+    # -- the mesh: the primary's broadcasts and every rank's sharded call ----
+
+    def _broadcast(self, rows: int = 0, bucket: int = 0, seed: int = 0,
+                   packed: Optional[np.ndarray] = None, stop: bool = False):
+        """One micro-batch's header [rows, bucket, seed, stop] and its packed
+        [rows, bucket + 2] tokens and lengths, from the primary to every
+        rank (a follower passes nothing and receives them). Returns (packed
+        device tensor, bucket, seed), or None on the stop header."""
+        header = torch.tensor([rows, bucket, to_signed(seed), int(stop)], dtype=torch.int64,
+                              device=self.device)
+        dist.broadcast(header, src=0)
+        rows, bucket, seed, stop = header.tolist()
+        if stop:
+            return None
+        if packed is None:
+            batch = torch.empty((rows, bucket + 2), dtype=torch.int64, device=self.device)
+        else:
+            batch = torch.as_tensor(packed, dtype=torch.int64).to(self.device)
+        dist.broadcast(batch, src=0)
+        return batch, bucket, seed & ((1 << 64) - 1)
+
+    def _sharded(self, batch: torch.Tensor, bucket: int, seed: int) -> torch.Tensor:
+        """Every rank's share of one micro-batch: [C, n, 2 * (bucket + 1)]."""
+        generator = torch.Generator().manual_seed(seed)
+        seqs, _scores = sharded_style_transfer_all_classes(
+            self.model, batch[:, :-1], batch[:, -1], 2 * (bucket + 1), self.num_classes,
+            generator, self.mesh, params_on_mesh=True, greedy=self.greedy)
+        return seqs
+
+    def serve_follower(self) -> None:
+        """A non-primary rank's loop: receive each micro-batch the primary
+        broadcasts and make its share of the sharded call, until the stop
+        header."""
+        if self.mesh is None or self.is_primary:
+            raise RuntimeError("serve_follower runs on the mesh's non-primary ranks")
+        use_card(self.device)
+        while True:
+            message = self._broadcast()
+            if message is None:
+                return
+            self._sharded(*message)
 
     def _finish(self, seqs: torch.Tensor, n_requests: int) -> List[TransferResult]:
         seqs = seqs.cpu().numpy()  # [C, n, T]; waits for the device
@@ -266,17 +359,30 @@ class StyleTransferService:
     def start(self) -> None:
         """Warm up with a one-note request (on CUDA: K1's weight pack, the
         libraries' handles; ~2 s that the first requests would otherwise
-        wait), then start the serving loop."""
+        wait), then start the serving loop. On a non-primary rank of a mesh:
+        start ``serve_follower`` on a thread."""
+        if not self.is_primary:
+            self._thread = threading.Thread(target=self.serve_follower, daemon=True)
+            self._thread.start()
+            return
         self.transfer_tokens([np.asarray([note_on_id(60)])])
         self._running = True
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
     def stop(self) -> None:
+        """End the serving loop. On a mesh's primary also send the stop
+        header, which ends every follower; a follower's ``stop`` waits for
+        it."""
         self._running = False
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None and self.is_primary:
+            with self._mesh_lock:
+                if not self._stopped:
+                    self._stopped = True
+                    self._broadcast(stop=True)
 
     def is_serving(self) -> bool:
         """True while the threaded loop is alive (liveness probes)."""
@@ -326,6 +432,7 @@ class StyleTransferService:
     def _loop(self) -> None:
         """Collect a micro-batch, dispatch, deliver. A request's latency is
         queue wait + device + detokenize."""
+        use_card(self.device)
         while self._running:
             batch = self._collect_batch()
             if not batch:

@@ -48,6 +48,21 @@ unit is past its budget's completion bound (``_Unit.max_done_cycle``).
 Semantics match the service: each request goes into every target class,
 deterministic encode (z = mu), EOS ends a row, and the generation budget is
 2 x (the request's length + 1) positions including SOS.
+
+With a ``mesh`` (``parallel/mesh.py``, one process per card; the JAX
+``StreamingTransferEngine(mesh=)``, ``streaming.py:417-493``) the slots ride
+the data axis: data rank d holds slots [d * S/dp, (d + 1) * S/dp) and runs
+its cycles as above (under tp > 1 on the model the tensor-parallel rules
+split, whose ragged step holds the rank's heads). The primary rank owns the
+queue, the admissions and the harvest: before each cycle it broadcasts one
+message over the world, the cycle's kind (admit, no admission, stop) and
+the packed admission with global slot ids, which each rank splices where a
+slot is its own. After the replay the ranks' readouts are gathered over
+the data group (``sharded.gather_rows``) into the primary's readout ring.
+Sampling noise is drawn at the global slot count and each rank keeps its
+rows (``Mesh.draw``), so a sharded engine draws what one engine would. The
+other ranks run ``serve_follower`` (``start`` runs it on a thread there)
+until the primary's ``stop``.
 """
 
 from __future__ import annotations
@@ -62,20 +77,23 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..midi.codec import MelodyWriter
 from ..midi.vocab import EOS_ID, PAD_ID, SOS_ID
 from ..models.transformer import Cache
-from ..utils import resolve_device
+from ..parallel.mesh import AXIS_DATA, Mesh, mesh_device, use_mesh
 from .decode import _filter_logits
 from .sampler import load_inference_model
-from .service import MESH_NOT_PORTED, ServiceStats, TransferResult, result_of, tokens_from_midi
+from .service import ServiceStats, TransferResult, result_of, tokens_from_midi, use_card
+from .sharded import gather_rows, prepare_params
 
 _logger = logging.getLogger(__name__)
 
 READOUT_RING = 2  # pinned host buffers for readouts in flight: cycles run ahead
 UPLOAD_RING = 2  # pinned host buffers for admission uploads
 WARMUP_CYCLES = 2  # eager cycles before a capture (libraries, workspaces)
+NO_ADMIT, ADMIT, STOP = 0, 1, 2  # a cycle's kind, element 0 of its message
 
 
 class EngineOverloaded(RuntimeError):
@@ -88,7 +106,7 @@ class EngineOverloaded(RuntimeError):
 class SlotState:
     """The engine's device state, updated in place by every cycle."""
 
-    cache: Cache  # per layer (k, v): [S, T_cache, H, hd]
+    cache: Cache  # per layer (k, v): [S, T_cache, H, hd] (this rank's slots and heads)
     seqs: torch.Tensor  # [S, T_gen] int64; position 0 = SOS
     scores: torch.Tensor  # [S] float32, accumulated -log p
     t: torch.Tensor  # [S] int64, next cache position to write
@@ -184,11 +202,25 @@ class StreamingTransferEngine:
         ``harvest_delay_s``: None harvests a readout as soon as its copy's
         event completes; a value also waits until the readout is that old.
 
-        ``device``: None is CUDA, raising without a card."""
+        ``mesh``: run sharded, the slots over its data axis (the module
+        docstring); every rank constructs the engine alike. Refused unless it
+        is a ``parallel.mesh.Mesh`` whose data axis divides ``slots``.
+
+        ``device``: None is the mesh's device, else CUDA, raising without a
+        card."""
         if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        self.device = torch.device(device) if device is not None else resolve_device()
+            shape = getattr(mesh, "shape", None) or {}
+            if not isinstance(mesh, Mesh) or AXIS_DATA not in shape:
+                raise ValueError(f"streaming engine mesh must have a {AXIS_DATA!r} axis "
+                                 f"(slots ride it); got axes {tuple(shape)}")
+            if int(slots) % mesh.dp:
+                raise ValueError(f"slots ({slots}) must divide evenly over the mesh's data "
+                                 f"axis ({mesh.dp})")
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.model = load_inference_model(model_folder, checkpoint, self.device)
+        if mesh is not None:
+            prepare_params(self.model, mesh)
         if self.model.is_lstm:
             raise ValueError(
                 "streaming engine requires the transformer decoder "
@@ -197,6 +229,10 @@ class StreamingTransferEngine:
             )
         self.num_classes = self.model.config.decoder_config.num_classes
         self.slots = int(slots)
+        # this rank's slots [slot_lo, slot_lo + local_slots)
+        dp = 1 if mesh is None else mesh.dp
+        self.local_slots = self.slots // dp
+        self.slot_lo = 0 if mesh is None else mesh.data_rank * self.local_slots
         self.max_seq_len = int(max_seq_len)
         self.segment_steps = int(segment_steps)
         self.admit_size = int(admit_size) if admit_size else self.slots
@@ -235,6 +271,11 @@ class StreamingTransferEngine:
         self.cycles_dispatched = 0
         self.graph_replays = 0
         self.ring_waits = 0
+        self._stopped = False  # the stop message went out (a mesh's primary)
+
+    @property
+    def is_primary(self) -> bool:
+        return self.mesh is None or self.mesh.is_primary
 
     # -- request preparation (the service's) --------------------------------
 
@@ -278,28 +319,58 @@ class StreamingTransferEngine:
     def start(self) -> None:
         """Build the device state (on CUDA: capture both cycle graphs) here,
         so that a capture that fails raises to the caller and no request
-        waits for it, then start the serving loop."""
+        waits for it, then start the serving loop (``serve_follower`` on a
+        mesh's other ranks)."""
         self._ensure_state()
         self._running = True
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        target = self._loop if self.is_primary else self.serve_follower
+        self._thread = threading.Thread(target=target, daemon=True)
         self._thread.start()
 
     def stop(self) -> None:
+        """End the serving loop; on a mesh's primary also send the stop
+        message, which ends every follower (a follower's ``stop`` waits for
+        it)."""
         self._running = False
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None and self.is_primary and not self._stopped:
+            self._stopped = True
+            self._ensure_state()
+            self._send_stop()
+
+    @torch.inference_mode()
+    def serve_follower(self) -> None:
+        """A non-primary rank's loop: receive each cycle's message, run the
+        cycle on this rank's slots and give its readout to the gather, until
+        the stop message."""
+        if self.is_primary:
+            raise RuntimeError("serve_follower runs on the mesh's non-primary ranks")
+        use_card(self.device)
+        self._ensure_state()
+        while True:
+            with self._on_stream():
+                self._message(None)
+                kind = int(self._msg[0])
+                if kind == STOP:
+                    return
+                self._run_cycle(kind == ADMIT)
+                gather_rows(self._readout, self.mesh)
 
     def is_serving(self) -> bool:
         return self._thread is not None and self._thread.is_alive()
 
     # -- device state and the cycle ------------------------------------------
 
+    def _on_stream(self):
+        return torch.cuda.stream(self._stream) if self._stream is not None else nullcontext()
+
     @torch.inference_mode()
     def _ensure_state(self) -> None:
         if self._state is not None:
             return
-        S, dev = self.slots, self.device
+        S, dev = self.local_slots, self.device
         cuda = dev.type == "cuda"
         long = dict(dtype=torch.int64, device=dev)
         sos_row = torch.full((self.t_gen,), PAD_ID, **long)
@@ -315,14 +386,16 @@ class StreamingTransferEngine:
             occupied=torch.zeros(S, dtype=torch.bool, device=dev),
             classes=torch.zeros(S, **long),
         )
-        empty = torch.from_numpy(self._pack_admission([]))
-        self._adm = empty.to(dev)  # static input: the packed admission
+        empty = self._message_of(NO_ADMIT, self._pack_admission([]))
+        # static input: the cycle's message, the packed admission after its kind
+        self._msg = torch.from_numpy(empty).to(dev)
+        self._adm = self._msg[1:].view(self.admit_size, self.max_seq_len + 5)
         self._temp = torch.tensor(self.temperature, dtype=torch.float32, device=dev)
         self._readout = torch.zeros((S, 1 + self.t_gen), dtype=torch.int16, device=dev)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(self._seed)
-        self._ring = [torch.empty((S, 1 + self.t_gen), dtype=torch.int16, pin_memory=cuda)
-                      for _ in range(READOUT_RING)]
+        self._ring = [torch.empty((self.slots, 1 + self.t_gen), dtype=torch.int16,
+                                  pin_memory=cuda) for _ in range(READOUT_RING)]
         self._ring_free = list(range(READOUT_RING))
         self._uploads = [torch.empty(empty.shape, dtype=torch.int32, pin_memory=cuda)
                          for _ in range(UPLOAD_RING)]
@@ -346,7 +419,7 @@ class StreamingTransferEngine:
         rng = self._gen.get_state()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), use_mesh(self.mesh):
             for _ in range(WARMUP_CYCLES):
                 self._cycle_body(admit)
         torch.cuda.current_stream(self.device).wait_stream(side)
@@ -357,7 +430,8 @@ class StreamingTransferEngine:
         graph.register_generator_state(self._gen)
         # thread_local: other threads (HTTP handlers, a second engine) may
         # use CUDA meanwhile
-        with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        with (torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"),
+              use_mesh(self.mesh)):
             self._cycle_body(admit)
         return graph
 
@@ -365,17 +439,18 @@ class StreamingTransferEngine:
         """Encode the admission's units and splice them into their slots:
         position 0's K/V from a 1-position prefill, and the slot's token
         row, score, position, budget, done and class reset
-        (``streaming.py:216-281`` of the JAX package). Padding rows (slot
-        -1) write into a scratch entry S that is dropped."""
-        st, adm, S = self._state, self._adm, self.slots
+        (``streaming.py:216-281`` of the JAX package). Slots are global: a
+        row whose slot is not this rank's (padding rows: slot -1) writes
+        into a scratch entry S that is dropped."""
+        st, adm, S = self._state, self._adm, self.local_slots
         L1 = self.max_seq_len + 1
         tokens = adm[:, :L1].long()
         classes = adm[:, L1 + 1].long()
         budgets = adm[:, L1 + 2].long()
-        slot = adm[:, L1 + 3].long()
+        slot = adm[:, L1 + 3].long() - self.slot_lo
         mu, _ = self.model.encode(tokens, adm[:, L1].long(), classes)
         small = self.model.decode_prefill(mu, classes, 1)
-        dest = torch.where(slot >= 0, slot, S)
+        dest = torch.where((slot >= 0) & (slot < S), slot, S)
         A = adm.shape[0]
         src = torch.zeros(S + 1, dtype=torch.int64, device=adm.device).scatter_(
             0, dest, torch.arange(A, device=adm.device))[:S]
@@ -403,8 +478,11 @@ class StreamingTransferEngine:
         filtered = _filter_logits(logits / self._temp, self.top_k, self.top_p)
         if not self.greedy:
             # Gumbel-max over the filtered logits, noise from the registered
-            # generator; u = 0 is clamped so every draw is finite.
-            u = torch.rand(filtered.shape, generator=self._gen, device=filtered.device)
+            # generator (under a mesh this rank's rows of the draw at the
+            # global slot count); u = 0 is clamped so every draw is finite.
+            u = (torch.rand(filtered.shape, generator=self._gen, device=filtered.device)
+                 if self.mesh is None else
+                 self.mesh.draw(torch.rand, filtered.shape, self._gen, filtered.device))
             filtered = filtered - torch.log(-torch.log(u.clamp_(min=1e-30)))
         nxt = filtered.argmax(-1)
         tok_logp = torch.log_softmax(logits, -1).gather(1, nxt[:, None])[:, 0]
@@ -424,21 +502,54 @@ class StreamingTransferEngine:
         self._readout[:, 0].copy_(self._state.done)
         self._readout[:, 1:].copy_(self._state.seqs)
 
-    def _upload(self, pack: np.ndarray) -> None:
-        """Copy the packed admission into its static device buffer through
-        a pinned buffer that is rewritten only after its last copy ran."""
+    def _message_of(self, kind: int, pack: Optional[np.ndarray]) -> np.ndarray:
+        """A cycle's message: its kind, then the packed admission (zeros
+        where the cycle has none)."""
+        msg = np.zeros(1 + self.admit_size * (self.max_seq_len + 5), np.int32)
+        msg[0] = kind
+        if pack is not None:
+            msg[1:] = pack.reshape(-1)
+        return msg
+
+    def _upload(self, msg: np.ndarray) -> None:
+        """Copy a cycle's message into its static device buffer through a
+        pinned buffer that is rewritten only after its last copy ran."""
         if self._stream is None:
-            self._adm.copy_(torch.from_numpy(pack))
+            self._msg.copy_(torch.from_numpy(msg))
             return
         j = self._upload_next
         self._upload_next = (j + 1) % UPLOAD_RING
         if self._upload_events[j] is not None:
             self._upload_events[j].synchronize()
-        self._uploads[j].numpy()[:] = pack
-        self._adm.copy_(self._uploads[j], non_blocking=True)
+        self._uploads[j].numpy()[:] = msg
+        self._msg.copy_(self._uploads[j], non_blocking=True)
         ev = torch.cuda.Event()
         ev.record(self._stream)
         self._upload_events[j] = ev
+
+    def _message(self, msg: Optional[np.ndarray]) -> None:
+        """The cycle's message into ``_msg``: uploaded where ``msg`` is given
+        (the primary), then under a mesh broadcast from the primary to
+        every rank."""
+        if msg is not None:
+            self._upload(msg)
+        if self.mesh is not None:
+            dist.broadcast(self._msg, src=0)
+
+    @torch.inference_mode()
+    def _send_stop(self) -> None:
+        """The primary's stop message, which ends every follower."""
+        with self._on_stream():
+            self._message(self._message_of(STOP, None))
+
+    def _run_cycle(self, admit: bool) -> None:
+        """The cycle on this rank's slots: a graph replay, or eager."""
+        if self._graphs:
+            self._graphs[admit].replay()
+            self.graph_replays += 1
+        else:
+            with use_mesh(self.mesh):
+                self._cycle_body(admit)
 
     def _take_buffer(self) -> int:
         """A free readout buffer. ``_cycle`` harvests before it dispatches;
@@ -457,15 +568,12 @@ class StreamingTransferEngine:
         packed array of ``_register``) and start its readout's copy."""
         admit = admission is not None
         j = self._take_buffer()
-        with torch.cuda.stream(self._stream) if self._stream is not None else nullcontext():
-            if admit:
-                self._upload(admission)
-            if self._graphs:
-                self._graphs[admit].replay()
-                self.graph_replays += 1
-            else:
-                self._cycle_body(admit)
-            self._ring[j].copy_(self._readout, non_blocking=self._stream is not None)
+        with self._on_stream():
+            if admit or self.mesh is not None:
+                self._message(self._message_of(ADMIT if admit else NO_ADMIT, admission))
+            self._run_cycle(admit)
+            readout = self._readout if self.mesh is None else gather_rows(self._readout, self.mesh)
+            self._ring[j].copy_(readout, non_blocking=self._stream is not None)
             event = None
             if self._stream is not None:
                 event = torch.cuda.Event()
@@ -595,6 +703,8 @@ class StreamingTransferEngine:
         readout ring) until every unit is past its completion bound.
         Returns True when any work happened; blocks briefly for arrivals
         only when nothing is in flight."""
+        if self._stopped:
+            raise RuntimeError("the sharded engine was stopped")
         self._ensure_state()
         if not self._ring_free:
             # Every readout buffer is in flight: wait for the oldest copy,
@@ -619,7 +729,9 @@ class StreamingTransferEngine:
     def _fail_all(self, exc: Exception) -> None:
         """A failed cycle: fail every in-flight and queued request (each
         request's callback fires once) and drop the device state; the next
-        cycle builds and captures it anew."""
+        cycle builds and captures it anew. Under a mesh the followers hold
+        state this rank no longer tracks: the engine stops (the stop
+        message, if the world still carries it) and later cycles raise."""
         failed = {id(u.request): u.request for u in self._unit_by_slot.values()}
         for req in failed.values():
             req.pending_units = -1
@@ -634,6 +746,13 @@ class StreamingTransferEngine:
                 self._stream.synchronize()  # no copy may still write a buffer
             except RuntimeError:
                 _logger.exception("engine stream failed to synchronize")
+        if self.mesh is not None and not self._stopped:
+            self._stopped = True
+            self._running = False
+            try:
+                self._send_stop()
+            except Exception:
+                _logger.exception("the stop message to the followers failed")
         self._state = None
         self._pending.clear()
         while True:
@@ -658,6 +777,7 @@ class StreamingTransferEngine:
                 time.sleep(0.001)
 
     def _loop(self) -> None:
+        use_card(self.device)
         while self._running:
             try:
                 self._cycle(block=True)

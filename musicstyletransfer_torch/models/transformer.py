@@ -281,9 +281,12 @@ class MultiHeadSelfAttention(nn.Module):
     def step(self, x_t: torch.Tensor, cache_k: torch.Tensor,
              cache_v: torch.Tensor, t: int) -> torch.Tensor:
         """One cached decode position. x_t: [B, D]; cache_{k,v}:
-        [B, T_max, H, hd], written at ``t`` in place (the JAX package
-        returns new arrays; updating in place saves a cache copy a step)."""
+        [B, T_max, H, hd] (H the ``local_heads``: H/tp under tensor
+        parallelism), written at ``t`` in place (the JAX package returns new
+        arrays; updating in place saves a cache copy a step)."""
         B = x_t.shape[0]
+        if self.local_heads != self.num_heads:
+            x_t = copy_to_model(x_t, current_mesh())
         q = self._heads(self.w_q(x_t))  # [B, H, hd]
         cache_k[:, t] = self._heads(self.w_k(x_t)).to(cache_k.dtype)
         cache_v[:, t] = self._heads(self.w_v(x_t)).to(cache_v.dtype)
@@ -304,8 +307,10 @@ class MultiHeadSelfAttention(nn.Module):
         row shares t: the same products over the whole cache, the same
         masked positions."""
         S, T = x_t.shape[0], cache_k.shape[1]
+        if self.local_heads != self.num_heads:
+            x_t = copy_to_model(x_t, current_mesh())
         q = self._heads(self.w_q(x_t))  # [S, H, hd]
-        at = t.view(S, 1, 1, 1).expand(S, 1, self.num_heads, self.head_dim)
+        at = t.view(S, 1, 1, 1).expand(S, 1, self.local_heads, self.head_dim)
         cache_k.scatter_(1, at, self._heads(self.w_k(x_t)).to(cache_k.dtype)[:, None])
         cache_v.scatter_(1, at, self._heads(self.w_v(x_t)).to(cache_v.dtype)[:, None])
         logits = torch.einsum("bhd,bkhd->bhk", q, cache_k) / self.scale
@@ -423,14 +428,16 @@ class TransformerStack(nn.Module):
         return x_t
 
     def init_cache(self, batch_size: int, max_len: int) -> Cache:
-        c = self.config
-        shape = (batch_size, max_len, c.num_heads, c.model_size // c.num_heads)
+        """Zero (k, v) per layer, [batch, max_len, heads, head_dim], at the
+        heads each layer holds (H/tp under tensor parallelism)."""
         dev = self.pos_table.device
-        return [
-            (torch.zeros(shape, dtype=self.compute_dtype, device=dev),
-             torch.zeros(shape, dtype=self.compute_dtype, device=dev))
-            for _ in range(c.num_layers)
-        ]
+        cache = []
+        for layer in self.layers:
+            att = layer.attention
+            shape = (batch_size, max_len, att.local_heads, att.head_dim)
+            cache.append((torch.zeros(shape, dtype=self.compute_dtype, device=dev),
+                          torch.zeros(shape, dtype=self.compute_dtype, device=dev)))
+        return cache
 
 
 def _remat_layer(layer: TransformerLayer, x: torch.Tensor, key_mask: torch.Tensor,

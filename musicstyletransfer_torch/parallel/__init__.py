@@ -1,8 +1,10 @@
-"""Multi-process training: the (data, model) mesh and its tensor-parallel
-rules (``mesh.py``), the conjugate collectives of tensor and sequence
-parallelism (``collectives.py``) and the process layer (``distributed.py``).
-Counterpart of ``musicstyletransfer_tpu/parallel/``; pipeline parallelism is
-not ported yet."""
+"""Multi-process runs: the (data, model) mesh and its tensor-parallel rules
+(``mesh.py``), the conjugate collectives of tensor and sequence parallelism
+(``collectives.py``) and the process layer (``distributed.py``), used by
+training, sharded inference (``inference/sharded.py``, the service and the
+engine) and the GAN trainer. Counterpart of
+``musicstyletransfer_tpu/parallel/``; pipeline parallelism is not ported
+yet."""
 
 from .distributed import (ProcessInfo, ProcessShardedDataset, assert_in_sync,
                           initialize_distributed, make_global_batch, mesh_process_info)

@@ -28,12 +28,18 @@ def initialize_distributed(coordinator: str, num_processes: int, process_id: int
                            device: Optional[torch.device] = None) -> None:
     """``init_process_group`` over ``tcp://<coordinator>`` (host:port of
     process 0), NCCL when ``device`` is a CUDA device (made this process's
-    current device), else gloo. Raises when the world cannot form."""
+    current device; ``cuda`` without an index is card ``LOCAL_RANK``, or the
+    process id modulo the cards), else gloo. Raises when the world cannot
+    form."""
     device = torch.device(device if device is not None else "cpu")
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process id {process_id} outside a world of {num_processes}")
     kwargs = {}
     if device.type == "cuda":
+        if device.index is None:
+            local = os.environ.get("LOCAL_RANK")
+            device = torch.device("cuda", int(local) if local is not None
+                                  else process_id % torch.cuda.device_count())
         torch.cuda.set_device(device)
         # The NCCL collectives of a training group are captured in its CUDA
         # graph (training/graph.py), which PyTorch's capture notes ask to

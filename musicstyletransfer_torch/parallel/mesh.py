@@ -177,11 +177,43 @@ class Mesh:
         return x
 
 
+def default_device(backend: str) -> torch.device:
+    """A mesh's device when none is given, from its world's backend: this
+    process's card on NCCL (``initialize_distributed`` made it current), the
+    CPU on gloo."""
+    if backend == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    if backend == "gloo":
+        return torch.device("cpu")
+    raise ValueError(f"no mesh device for the {backend!r} backend")
+
+
 def make_mesh(tp: int = 1, device: Optional[torch.device] = None) -> Mesh:
     """The (data, model) mesh of the world with ``tp``-way model axis; the
     rest of the ranks form the data axis. Raises when tp does not divide the
-    world (``make_mesh``'s assert)."""
-    return Mesh(tp, device if device is not None else torch.device("cpu"))
+    world (``make_mesh``'s assert). ``device`` None follows the world's
+    backend (``default_device``)."""
+    if device is None:
+        if not dist.is_initialized():
+            raise RuntimeError("a Mesh needs torch.distributed initialised "
+                               "(parallel.distributed.initialize_distributed)")
+        device = default_device(dist.get_backend())
+    return Mesh(tp, device)
+
+
+def mesh_device(mesh: Optional[Mesh], device: Optional[torch.device]) -> torch.device:
+    """An entry point's device: the given one, else the mesh's, else CUDA
+    (raising without a card, ``utils.resolve_device``); a given device must
+    be the mesh's."""
+    if mesh is None:
+        if device is not None:
+            return torch.device(device)
+        from ..utils import resolve_device
+
+        return resolve_device()
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh.device
 
 
 _MESH = threading.local()

@@ -26,9 +26,24 @@ package counts). On CUDA the batches go in groups, one CUDA-graph replay a
 group (``GraphedGANGroups``): a group ends where n reaches a multiple of
 discriminator_update_steps, a log, checkpoint or sampling boundary, or the
 end of an epoch, so every tick falls where the JAX loop has it; the CPU runs
-the same steps eagerly. Metrics are read on the host only at ``log_every``
-and appended to ``<logdir>/scalars.jsonl`` (the JAX package writes
-TensorBoard files).
+the same steps eagerly. Metrics are read on the host only at ``log_every``,
+appended to ``<logdir>/scalars.jsonl`` and, where tensorboardX imports,
+written to TensorBoard under the JAX trainer's ``gan/<name>`` tags
+(``metrics.ScalarLog``).
+
+With a ``mesh`` (``parallel/mesh.py``, one process per card; the JAX
+``make_gan_steps(mesh=)``, ``gan_trainer.py:227-246``) every process reads the
+same global batches and keeps its data rank's rows
+(``ProcessShardedDataset``). The noise is drawn at the global shape from the
+one seeded generator and each rank keeps its rows (``Mesh.draw``), the R1
+term and the losses are means over the rank's rows, and the D and G flat
+gradients are averaged over the data group (``FlatSync``) inside the steps,
+so inside the CUDA graphs too: a data-parallel run equals one process on the
+global batch. The GAN's parameter names match none of the tensor-parallel
+rules, so under a model axis every parameter stays whole and the ranks of
+one data index see the same rows, as JAX's ``shard_train_state`` replicates
+them. The metric sums are averaged over the data group at log boundaries;
+only the primary process prints, writes scalars, checkpoints and samples.
 
 Checkpoint N of a folder is ``generator/params.N.pt`` (the generator's flat
 parameters, its Adam state and the noise generator's state) and
@@ -42,7 +57,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -55,15 +69,15 @@ from ..convert import params_to_jax
 from ..midi.vocab import EOS_ID, PAD_ID
 from ..models.config import GANConfig
 from ..models.gan import Discriminator, Generator, generate_tokens, init_gan_params
-from ..utils import resolve_device
+from ..parallel.distributed import ProcessShardedDataset, assert_in_sync, data_process_info
+from ..parallel.mesh import FlatSync, mesh_device, shard_model
 from . import checkpoint as ckpt
 from .graph import GraphedGroups
 from .loss import binary_cross_entropy
+from .metrics import ScalarLog
 from .optimizer import Optimizer, OptimizerConfig
 
 GAN_METRIC_KEYS = ("d_loss", "d_acc_real", "d_acc_fake", "g_loss", "d_r1")
-MESH_NOT_PORTED = ("mesh= (data-parallel GAN training) is not ported to PyTorch yet "
-                   "(ROADMAP queue 1, item 9c)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,19 +109,26 @@ class GANSteps:
     """The D and G updates of ``gen`` and ``disc`` (on one device), every
     effect in place: parameters, Adam state, the noise generator, and the
     metric sums and counts (``sums``/``counts``, in ``GAN_METRIC_KEYS``
-    order)."""
+    order). With a ``mesh`` the models are whole on every rank, the batches
+    are the rank's rows, the noise is its rows of the global draw and each
+    gradient is averaged over the data group before its update."""
 
     def __init__(self, config: GANConfig, train_config: GANTrainConfig, gen: Generator,
-                 disc: Discriminator, generator: torch.Generator):
+                 disc: Discriminator, generator: torch.Generator, mesh=None):
         self.config = config
         self.train_config = train_config
         self.gen = gen.train()
         self.disc = disc.train()
         self.generator = generator
+        self.mesh = mesh
+        syncs = ((None, None) if mesh is None else
+                 tuple(FlatSync(mesh, shard_model(m, mesh), mesh.device) for m in (gen, disc)))
         self.g_opt = Optimizer(list(gen.parameters()),
-                               OptimizerConfig("adam", "", train_config.g_learning_rate))
+                               OptimizerConfig("adam", "", train_config.g_learning_rate),
+                               sync=syncs[0])
         self.d_opt = Optimizer(list(disc.parameters()),
-                               OptimizerConfig("adam", "", train_config.d_learning_rate))
+                               OptimizerConfig("adam", "", train_config.d_learning_rate),
+                               sync=syncs[1])
         dev = self.g_opt.flat.device
         self.sums = torch.zeros(len(GAN_METRIC_KEYS), device=dev)
         self.counts = torch.zeros(len(GAN_METRIC_KEYS), device=dev)
@@ -120,9 +141,13 @@ class GANSteps:
                 *self.d_opt.state.values(), self.sums, self.counts]
 
     def noise(self, batch: int) -> torch.Tensor:
+        """[batch, L, noise_dim]: under a mesh this rank's rows of the
+        global batch's draw."""
         gc = self.config.generator_config
-        return torch.randn((batch, gc.max_seq_len, gc.noise_dim), generator=self.generator,
-                           device=self.sums.device)
+        shape = (batch, gc.max_seq_len, gc.noise_dim)
+        if self.mesh is not None:
+            return self.mesh.draw(torch.randn, shape, self.generator, self.sums.device)
+        return torch.randn(shape, generator=self.generator, device=self.sums.device)
 
     def fake_dists(self, classes: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """Soft generated sequences [B, L, V]: softmax(logits / temperature),
@@ -155,9 +180,7 @@ class GANSteps:
             pred, label, label_smoothing=tc.label_smoothing,
             negative_label_downweighting=tc.negative_label_downweighting).mean()
         loss = loss + 0.5 * tc.r1_gamma * r1
-        params = self.d_opt.params
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        self.d_opt.step(_flat_grads(grads, params))
+        self._update(self.d_opt, loss)
         with torch.no_grad():
             zero = torch.zeros((), device=loss.device)
             self.sums.add_(torch.stack([loss.detach(), (pred_real > 0.0).float().mean(),
@@ -170,12 +193,19 @@ class GANSteps:
         pred = self.disc(self.fake_dists(classes, noise), classes)
         loss = binary_cross_entropy(pred, torch.ones_like(pred),
                                     negative_label_downweighting=False).mean()
-        params = self.g_opt.params
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        self.g_opt.step(_flat_grads(grads, params))
+        self._update(self.g_opt, loss)
         with torch.no_grad():
             self.sums.add_(F.pad(loss.detach()[None], (3, 1)))
             self.counts.add_(self._g_count)
+
+    @staticmethod
+    def _update(opt: Optimizer, loss: torch.Tensor) -> None:
+        """One Adam step of ``opt``'s parameters on ``loss``'s gradient,
+        averaged over the data group under a mesh."""
+        grads = torch.autograd.grad(loss, opt.params, allow_unused=True)
+        grad = _flat_grads(grads, opt.params)
+        opt.reduce_gradients(grad)
+        opt.step(grad)
 
     def run_group(self, batches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                   g_after: Sequence[bool]) -> None:
@@ -187,8 +217,12 @@ class GANSteps:
                 self.g_step(classes)
 
     def metrics(self) -> Dict[str, float]:
-        """The means since the last reset (a host read), for keys with a count."""
-        sums, counts = self.sums.tolist(), self.counts.tolist()
+        """The means since the last reset (a host read), for keys with a count;
+        under a mesh averaged over the data group (a collective)."""
+        sums = self.sums
+        if self.mesh is not None:
+            sums = self.mesh.all_reduce_data_mean_(sums.clone())
+        sums, counts = sums.tolist(), self.counts.tolist()
         return {k: s / c for k, s, c in zip(GAN_METRIC_KEYS, sums, counts) if c > 0}
 
     def reset_metrics(self) -> None:
@@ -223,27 +257,30 @@ def group_pattern(start: int, n: int, k: int) -> List[bool]:
 
 class GANTrainer:
     """The epoch loop alternating D and G updates (D : G =
-    discriminator_update_steps : 1) on ``device``: None is CUDA, raising
-    where there is no card."""
+    discriminator_update_steps : 1) on ``device``: None is the mesh's device,
+    else CUDA, raising where there is no card. ``mesh``: data-parallel
+    training, one process a rank (the module docstring)."""
 
     def __init__(self, config: GANConfig, train_config: GANTrainConfig,
                  out_samples: Optional[str] = None,
                  device: Optional[torch.device] = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
         self.config = config
         self.train_config = train_config
         self.out_samples = out_samples
-        # None is CUDA, raising without a card (``utils.resolve_device``)
-        self.device = torch.device(device) if device is not None else resolve_device()
+        self.mesh = mesh
+        self.primary = mesh is None or mesh.is_primary
+        self.device = mesh_device(mesh, device)
         self.steps: Optional[GANSteps] = None
         self.graphs: Optional[GraphedGANGroups] = None
+        self.scalars = (ScalarLog(train_config.logdir, prefix="gan/")
+                        if train_config.logdir else None)
 
     def _build(self) -> None:
         tc = self.train_config
         gen, disc = init_gan_params(self.config, tc.seed)
         noise = torch.Generator(device=self.device).manual_seed(tc.seed)
-        self.steps = GANSteps(self.config, tc, gen.to(self.device), disc.to(self.device), noise)
+        self.steps = GANSteps(self.config, tc, gen.to(self.device), disc.to(self.device), noise,
+                              self.mesh)
         k = max(1, tc.discriminator_update_steps)
         self.graphs = (GraphedGANGroups(self.steps, k) if self.device.type == "cuda" else None)
 
@@ -254,6 +291,14 @@ class GANTrainer:
     # -- checkpoints: {folder}/generator/params.N.pt + {folder}/discriminator/params.N.pt
 
     def _save(self, folder: str, index: int) -> None:
+        """The pair and the export, written by the primary process (every
+        rank holds the same state); the others wait for it."""
+        if self.primary:
+            self._write(folder, index)
+        if self.mesh is not None:
+            torch.distributed.barrier()
+
+    def _write(self, folder: str, index: int) -> None:
         s = self.steps
         for sub, opt, extra in (("generator", s.g_opt, {"noise": s.generator.get_state()}),
                                 ("discriminator", s.d_opt, {})):
@@ -289,10 +334,23 @@ class GANTrainer:
         return idx
 
     def fit(self, dataset, model_folder: str, epochs: int) -> Dict[str, float]:
-        cfg = self.train_config
+        """Train for ``epochs`` over ``dataset`` (under a mesh, the global
+        batches: each rank keeps its rows) and return the last logged means."""
         os.makedirs(model_folder, exist_ok=True)
         self._build()
         ckpt_idx = self._try_resume(model_folder)
+        if self.mesh is not None:
+            assert_in_sync(self.mesh, ckpt_idx, "the resumed GAN checkpoint")
+            if not isinstance(dataset, ProcessShardedDataset):
+                dataset = ProcessShardedDataset(dataset, data_process_info(self.mesh))
+        try:
+            return self._fit(dataset, model_folder, epochs, ckpt_idx)
+        finally:
+            if self.scalars is not None:
+                self.scalars.close()
+
+    def _fit(self, dataset, model_folder: str, epochs: int, ckpt_idx: int) -> Dict[str, float]:
+        cfg = self.train_config
         k = max(1, cfg.discriminator_update_steps)
         ticks = [f for f in (cfg.log_every, cfg.checkpoint_frequency,
                              cfg.sampling_frequency if self.out_samples else 0) if f > 0]
@@ -322,7 +380,7 @@ class GANTrainer:
                 if cfg.checkpoint_frequency > 0 and n_batches % cfg.checkpoint_frequency == 0:
                     ckpt_idx += 1
                     self._save(model_folder, ckpt_idx)
-                if (self.out_samples and cfg.sampling_frequency > 0
+                if (self.out_samples and self.primary and cfg.sampling_frequency > 0
                         and n_batches % cfg.sampling_frequency == 0):
                     self.sample_to_midi(os.path.join(self.out_samples, f"step-{n_batches}"))
                 if batch is None:
@@ -344,15 +402,12 @@ class GANTrainer:
     def _log(self, epoch: int, n_batches: int, t0: float) -> Dict[str, float]:
         vals = self.steps.metrics()
         self.steps.reset_metrics()
-        line = " ".join(f"{k}={v:.4f}" for k, v in sorted(vals.items()))
-        rate = n_batches / max(time.time() - t0, 1e-9)
-        print(f"[gan] epoch {epoch} batch {n_batches} {line} ({rate:.1f} updates/s)")
-        if self.train_config.logdir:
-            os.makedirs(self.train_config.logdir, exist_ok=True)
-            row = {"step": n_batches}
-            row.update({k: (v if math.isfinite(v) else str(v)) for k, v in vals.items()})
-            with open(os.path.join(self.train_config.logdir, "scalars.jsonl"), "a") as f:
-                f.write(json.dumps(row) + "\n")
+        if self.primary:
+            line = " ".join(f"{k}={v:.4f}" for k, v in sorted(vals.items()))
+            rate = n_batches / max(time.time() - t0, 1e-9)
+            print(f"[gan] epoch {epoch} batch {n_batches} {line} ({rate:.1f} updates/s)")
+            if self.scalars is not None:
+                self.scalars.write(n_batches, vals)
         return vals
 
     def generate_class_rows(self, gen: Optional[Generator] = None) -> Dict[int, list]:

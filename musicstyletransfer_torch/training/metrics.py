@@ -1,11 +1,13 @@
 """PAD-ignoring training metrics as (sum, count) pairs that stay on the
 device (counterpart of ``musicstyletransfer_tpu/training/metrics.py``):
 perplexity, accuracy and top-5 accuracy; ``MetricAccumulator`` adds them up
-on the host at log boundaries."""
+on the host at log boundaries; ``ScalarLog`` writes the logged scalars."""
 
 from __future__ import annotations
 
+import json
 import math
+import os
 from typing import Dict, Tuple
 
 import torch
@@ -96,3 +98,49 @@ class MetricAccumulator:
                 mean = math.exp(min(mean, 50.0))
             out[name] = mean
         return out
+
+
+class ScalarLog:
+    """Scalars of a run under ``logdir``: one JSON object a write appended to
+    ``scalars.jsonl`` (the batch count under ``"step"``, a non-finite value
+    as its string), and TensorBoard event files through tensorboardX where
+    it imports, as the JAX trainers write them (``trainer.py:190-204``,
+    ``gan_trainer.py:271-281``), each tag ``prefix`` + the scalar's name.
+    tensorboardX is optional there and here: without it only the JSON lines
+    are written."""
+
+    def __init__(self, logdir: str, prefix: str = ""):
+        self.logdir = logdir
+        self.prefix = prefix
+        self._writer = None
+        self._opened = False
+
+    def _tensorboard(self):
+        if not self._opened:
+            self._opened = True
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                print("tensorboardX not installed; TensorBoard scalars disabled "
+                      f"({self.logdir}/scalars.jsonl is written)")
+            else:
+                self._writer = SummaryWriter(logdir=self.logdir)
+        return self._writer
+
+    def write(self, step: int, scalars: Dict[str, float]) -> None:
+        os.makedirs(self.logdir, exist_ok=True)
+        line = {"step": int(step)}
+        line.update({k: (v if math.isfinite(v) else str(v)) for k, v in scalars.items()})
+        with open(os.path.join(self.logdir, "scalars.jsonl"), "a") as f:
+            f.write(json.dumps(line) + "\n")
+        writer = self._tensorboard()
+        if writer is not None:
+            for k, v in scalars.items():
+                writer.add_scalar(self.prefix + k, v, global_step=int(step))
+            writer.flush()
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()
+            self._writer = None
+        self._opened = False

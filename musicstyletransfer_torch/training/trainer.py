@@ -5,9 +5,10 @@ probe and early stopping after ``num_checkpoints_not_improved`` checkpoints
 without a better validation loss, in-training sampling, and resume from the
 newest checkpoint that restores.
 
-Scalars are printed and appended to ``<logdir>/scalars.jsonl``, one JSON
-object per write with the batch count under ``"step"`` (the JAX package
-writes TensorBoard files; the port needs no tensorboard package).
+Scalars are printed, appended to ``<logdir>/scalars.jsonl`` (one JSON
+object per write, the batch count under ``"step"``) and, where tensorboardX
+imports, written to TensorBoard event files under the JAX trainer's tags
+(``metrics.ScalarLog``).
 
 ``steps_per_dispatch`` groups N batches, with the log, checkpoint and
 sampling ticks at group boundaries as in the JAX package, whose N steps run
@@ -48,8 +49,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import json
-import math
 import os
 import signal
 import time
@@ -66,7 +65,7 @@ from ..parallel.distributed import _slice_batch, assert_in_sync
 from ..parallel.mesh import FlatSync, gather_flat, shard_flat, shard_model, use_mesh
 from . import checkpoint as ckpt
 from .graph import GraphedSteps
-from .metrics import MetricAccumulator, accumulate
+from .metrics import MetricAccumulator, ScalarLog, accumulate
 from .optimizer import Optimizer, OptimizerConfig
 from .train_step import (LossConfig, TrainState, batch_tensors, eval_step, metric_names,
                          step_body)
@@ -144,6 +143,7 @@ class Trainer:
                                     self.generator, max(1, config.steps_per_dispatch))
                        if self.device.type == "cuda" else None)
         self.progress = ckpt.TrainingProgress()
+        self.scalars = ScalarLog(config.logdir)
         self._profiler = None
         self._health_batch = None
         self._health_classes = 0
@@ -185,6 +185,7 @@ class Trainer:
                 self._fit_loop(dataset, model_folder, epochs, validation_dataset, start_time)
         finally:
             restore_handlers()
+            self.scalars.close()
             if self._profiler is not None:  # training ended inside the window
                 self._stop_profiler()
 
@@ -513,13 +514,8 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _write_scalars(self, scalars: Dict[str, float]) -> None:
-        if not self.primary:
-            return
-        os.makedirs(self.config.logdir, exist_ok=True)
-        line = {"step": self.progress.n_batches}
-        line.update({k: (v if math.isfinite(v) else str(v)) for k, v in scalars.items()})
-        with open(os.path.join(self.config.logdir, "scalars.jsonl"), "a") as f:
-            f.write(json.dumps(line) + "\n")
+        if self.primary:
+            self.scalars.write(self.progress.n_batches, scalars)
 
     def _periodic_log(self, epoch: int, start_time: float) -> None:
         sums, counts = self._reduce_pairs(self.state.sums, self.state.counts)

@@ -80,7 +80,7 @@ def shipped():
     jparams = traverse_util.unflatten_dict({
         tuple(k.split("/")): jnp.asarray(v)
         for k, v in load_npz(os.path.join(MODEL, "torch", "params.npz")).items()})
-    exported = load_inference_model(MODEL, -1)
+    exported = load_inference_model(MODEL, -1, torch.device("cpu"))
     model = StyleVAE(dataclasses.replace(exported.config, dtype="float32"))
     model.load_state_dict(exported.state_dict())
     return make_model(cfg), jparams, model.eval()

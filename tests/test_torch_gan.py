@@ -28,6 +28,7 @@ noise and draws (CPU, float32 unless stated):
 import dataclasses
 import json
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +42,7 @@ from musicstyletransfer_tpu.models import gan as jgan
 from musicstyletransfer_tpu.training.gan_trainer import GANTrainConfig as JaxGANTrainConfig
 from musicstyletransfer_tpu.training.gan_trainer import init_gan_metric_acc, make_gan_steps
 from musicstyletransfer_tpu.training.loss import binary_cross_entropy as jax_bce
-from musicstyletransfer_tpu.training.train_step import create_train_state
+from musicstyletransfer_tpu.training.train_step import create_train_state, shard_train_state
 from musicstyletransfer_torch.cli import gan as cli_gan
 from musicstyletransfer_torch.convert import load_npz, params_from_jax, params_to_jax
 from musicstyletransfer_torch.data import Loader, ToyData
@@ -441,9 +442,125 @@ def test_cli_gan_flags_match_the_jax_parser():
 
 
 def test_mesh_is_refused():
-    """``mesh=`` (data-parallel GAN training) raises, naming ROADMAP item 9c."""
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        GANTrainer(toy_config(), GANTrainConfig(), mesh=object())
+    """A mesh is taken (``test_dp_mesh_matches_single_device``); a device
+    other than the mesh's is refused."""
+    with pytest.raises(ValueError, match="is not the mesh's"):
+        GANTrainer(toy_config(), GANTrainConfig(), device=CPU,
+                   mesh=types.SimpleNamespace(device=torch.device("meta"), is_primary=True))
+
+
+def test_tp_rules_match_no_gan_parameter(tiny):
+    """Under a model axis the GAN stays whole: none of the tensor-parallel
+    rules' names (w_q|w_k|w_v|ff1, w_o|ff2) is a GAN parameter's, as the
+    JAX ``shard_train_state`` replicates what its rules do not match."""
+    from musicstyletransfer_torch.parallel.mesh import shard_dims
+
+    cfg, g_params, d_params = tiny
+    _, gen, disc = port_models(cfg, g_params, d_params)
+    for model in (gen, disc):
+        dims = shard_dims({k: tuple(v.shape) for k, v in model.state_dict().items()}, 2)
+        assert dims and all(d is None for d in dims.values()), dims
+
+
+def jax_gan_run(cfg, g_params, d_params, tc, tokens, classes, mesh=None):
+    """Two D steps and a G step of the JAX trainer (on ``mesh``): its states,
+    metric means and the noise each step drew."""
+    d_step, g_step, g_tx, d_tx = make_gan_steps(cfg, tc, mesh=mesh)
+    g_state = create_train_state(g_params, g_tx, jax.random.key(1))
+    d_state = create_train_state(d_params, d_tx, jax.random.key(2))
+    if mesh is not None:
+        g_state, d_state = shard_train_state(g_state, mesh), shard_train_state(d_state, mesh)
+    acc, noise = init_gan_metric_acc(), {}
+    shape = (tokens.shape[0], L, N)
+    for i in range(2):
+        noise[f"noise_d{i}"] = step_noise(d_state, shape)
+        d_state, acc = d_step(d_state, acc, g_state.params, jnp.asarray(tokens),
+                              jnp.asarray(classes))
+    noise["noise_g"] = step_noise(g_state, shape)
+    g_state, acc = g_step(g_state, acc, d_state.params, jnp.asarray(classes))
+    means = {k: float(s) / float(c) for k, (s, c) in acc.items() if float(c) > 0}
+    return d_state, g_state, means, noise
+
+
+def test_dp_mesh_matches_single_device(tiny, tmp_path, cpu_devices):
+    """Data-parallel GAN steps on two gloo ranks (``GANSteps(mesh=)``, each
+    rank its 4 rows of 8 and of the JAX trainer's noise, the gradients
+    averaged over the data group) equal one process and the JAX trainer on
+    a mesh of 8 CPU devices: parameters within 1e-5, metric means 1e-4
+    relative (``tests/test_gan.py::test_dp_mesh_matches_single_device``).
+    ``GANTrainer(mesh=)`` fitting global batches equals one process's fit
+    (1e-5), and only the primary writes scalars: its TensorBoard scalars
+    equal its ``scalars.jsonl`` (ROADMAP queue 3, fault 3)."""
+    from musicstyletransfer_tpu.parallel import make_mesh as jax_make_mesh
+    from tests.test_torch_sharded import run_workers
+    from tests.torch_dist_worker import Batches
+
+    cfg, g_params, d_params = tiny
+    rng = np.random.default_rng(0)
+    tokens, classes = rng.integers(3, V, (8, L)), np.arange(8) % 3
+    jtc = JaxGANTrainConfig(d_learning_rate=1e-3, g_learning_rate=1e-3)
+    jd, jg, jm, noise = jax_gan_run(cfg, g_params, d_params, jtc, tokens, classes,
+                                    jax_make_mesh(cpu_devices[:8], tp=1))
+    fit_tokens = np.concatenate([np.ones((32, 1), np.int64), rng.integers(3, V, (32, L))], 1)
+    x = dict(noise, tokens=tokens, classes=classes, fit_tokens=fit_tokens,
+             fit_classes=np.arange(32) % C, vocab=np.asarray(V))
+    np.savez(tmp_path / "gan_inputs.npz", **x)
+    (tmp_path / "gan_config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+    for name, tree in (("gan_g", g_params), ("gan_d", d_params)):
+        np.savez(tmp_path / f"{name}.npz", **{k: _np(v) for k, v in
+                                             traverse_util.flatten_dict(tree, sep="/").items()})
+    got = run_workers(str(tmp_path), ["gan_dp"])["gan_dp"]
+
+    pcfg, pgen, pdisc = port_models(cfg, g_params, d_params)
+    steps = GANSteps(pcfg, GANTrainConfig(d_learning_rate=1e-3, g_learning_rate=1e-3), pgen,
+                     pdisc, torch.Generator().manual_seed(0))
+    for i in range(2):
+        steps.d_step(torch.tensor(tokens), torch.tensor(classes),
+                     noise=torch.tensor(noise[f"noise_d{i}"]))
+    steps.g_step(torch.tensor(classes), noise=torch.tensor(noise["noise_g"]))
+    one = steps.metrics()
+    for prefix, model, jstate in (("g/", pgen, jg), ("d/", pdisc, jd)):
+        want = traverse_util.flatten_dict(jstate.params, sep="/")
+        for k, v in params_to_jax(model).items():
+            np.testing.assert_allclose(got[prefix + k], v, atol=1e-5, err_msg=prefix + k)
+            np.testing.assert_allclose(got[prefix + k], _np(want[k]), atol=1e-5,
+                                       err_msg=prefix + k)
+    for k, v in jm.items():
+        assert float(got["m/" + k]) == pytest.approx(v, rel=1e-4), k
+        assert float(got["m/" + k]) == pytest.approx(one[k], rel=1e-4), k
+
+    trainer = GANTrainer(pcfg, GANTrainConfig(discriminator_update_steps=2, log_every=2,
+                                              checkpoint_frequency=0, sampling_frequency=0),
+                         device=CPU)
+    want_fit = trainer.fit(Batches({k: torch.tensor(v) for k, v in x.items()}, 8),
+                           str(tmp_path / "one_fit"), epochs=2)
+    for k, v in params_to_jax(trainer.gen).items():
+        np.testing.assert_allclose(got["fit_g/" + k], v, atol=1e-5, err_msg=k)
+    for k, v in want_fit.items():
+        assert float(got["fit_m/" + k]) == pytest.approx(v, rel=1e-4), k
+
+    event_accumulator = pytest.importorskip(
+        "tensorboard.backend.event_processing.event_accumulator")
+    logdir = tmp_path / "gan_fit_log"
+    assert len(list(logdir.glob("events.out.tfevents.*"))) == 1
+    assert_tensorboard_equals_jsonl(event_accumulator, logdir)
+
+
+def assert_tensorboard_equals_jsonl(event_accumulator, logdir):
+    """Every scalar of ``logdir``'s event file equals its line of
+    ``scalars.jsonl`` (tags the JAX trainer's: ``gan/<name>`` here), and
+    every line's scalars are in the event file."""
+    acc = event_accumulator.EventAccumulator(str(logdir))
+    acc.Reload()
+    events = {(tag, e.step): e.value for tag in acc.Tags()["scalars"]
+              for e in acc.Scalars(tag)}
+    lines = [json.loads(x) for x in (logdir / "scalars.jsonl").read_text().splitlines()]
+    assert lines
+    want = {(f"gan/{k}", line["step"]): v for line in lines for k, v in line.items()
+            if k != "step"}
+    assert set(events) == set(want)
+    for key, v in want.items():
+        assert events[key] == pytest.approx(v, rel=1e-6), key
 
 
 def test_trainer_needs_a_card_or_a_device():

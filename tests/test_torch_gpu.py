@@ -960,3 +960,38 @@ def test_ring_lockstep_matches_whole_sequence_kernels(cuda, dtype, causal):
         assert torch.isfinite(d).all()
         rel = (d - grads[j].float()).abs().max() / grads[j].float().abs().max()
         assert float(rel) <= tol_rel, j
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_on_each_shards_rows_equals_the_whole_batch(cuda, nccl_world, dtype):
+    """The split of rows into data shards on the card: K1 greedy on each
+    half of 64 rows (as two data ranks would launch it) equals the launch
+    on all 64 token for token, and the sharded call on a world-1 mesh
+    launches K1 once and equals the unsharded decode."""
+    import dataclasses
+
+    from musicstyletransfer_torch.inference import decode, sharded_sample_sequences
+
+    model = seeded_model("post", "initial", cuda)
+    if dtype == "bfloat16":
+        model = StyleVAE(dataclasses.replace(model.config, dtype=dtype)).to(cuda).eval()
+    rng = np.random.default_rng(4)
+    z = torch.as_tensor(rng.normal(size=(64, 32)), dtype=torch.float32, device=cuda)
+    classes = torch.as_tensor(rng.integers(0, 2, 64), device=cuda)
+    with torch.inference_mode():
+        x0 = model.decode_init(z, classes).contiguous()
+    whole, _ = fd.fused_decode(model, x0, 40, 0, mode="greedy", classes=classes)
+    halves = [fd.fused_decode(model, x0[h:h + 32].contiguous(), 40, 0, mode="greedy",
+                              classes=classes[h:h + 32])[0] for h in (0, 32)]
+    assert torch.equal(torch.cat(halves), whole)
+
+    tokens = torch.as_tensor(np.concatenate([np.ones((64, 1)), rng.integers(3, 293, (64, 16))],
+                                            1), dtype=torch.long, device=cuda)
+    seq_lens = torch.full((64,), 17, device=cuda)
+    want, _ = decode.sample_sequences(model, tokens, seq_lens, classes, 40, 0, greedy=True)
+    launches = fd.fused_decode.launches
+    got, _ = sharded_sample_sequences(model, tokens, seq_lens, classes, 40, torch.Generator(),
+                                      nccl_world, greedy=True)
+    assert fd.fused_decode.launches == launches + 1
+    assert torch.equal(got, want)

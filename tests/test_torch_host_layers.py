@@ -134,8 +134,12 @@ def imported_modules(path):
             yield node.module
 
 
+EXAMPLES = [os.path.join(REPO, "examples", f) for f in ("torch_style_transfer.py",
+                                                         "torch_gan_generation.py")]
+
+
 def test_no_jax_import_statement():
-    sources = [os.path.join(REPO, "chip_smoke.py")] + [
+    sources = [os.path.join(REPO, "chip_smoke.py")] + EXAMPLES + [
         os.path.join(root, f) for root, _, files in os.walk(PORT) for f in files
         if f.endswith(".py")]
     for path in sources:
@@ -145,8 +149,9 @@ def test_no_jax_import_statement():
 
 def test_port_and_chip_smoke_import_without_jax():
     """In a process where JAX and the JAX package cannot be imported, every
-    port module (the serving modules named among them) and every import of
-    chip_smoke.py succeeds."""
+    port module (the serving, sharding and MIDI CLI modules named among
+    them), every import of chip_smoke.py and the port's two examples
+    succeed."""
     code = textwrap.dedent(f"""
         import ast, importlib, importlib.abc, pkgutil, sys
         FORBIDDEN = {FORBIDDEN!r}
@@ -168,10 +173,15 @@ def test_port_and_chip_smoke_import_without_jax():
             if isinstance(node, (ast.Import, ast.ImportFrom)):
                 exec(compile(ast.Module([node], []), "chip_smoke.py", "exec"), {{}})
         import chip_smoke
+        import importlib.util
+        for i, path in enumerate({EXAMPLES!r}):
+            spec = importlib.util.spec_from_file_location(f"example{{i}}", path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
         assert not bad, bad
         serving = ("models.transformer", "inference.service", "inference.streaming",
-                   "cli.serve")
+                   "cli.serve", "inference.sharded", "midi.roundtrip", "midi.splitter",
+                   "utils")
         missing = [m for m in serving if "musicstyletransfer_torch." + m not in sys.modules]
         assert not missing, missing
         print("ok")

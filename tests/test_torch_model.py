@@ -107,7 +107,8 @@ def shipped():
     """The shipped guitar_bass weights, float32 compute, on both sides."""
     cfg = Config.load(os.path.join(MODEL, "config")).copy(dtype="float32")
     jparams = jax_params_from_npz(os.path.join(EXPORT, "params.npz"))
-    tmodel = torch_model(cfg, load_inference_model(MODEL, -1).state_dict())
+    tmodel = torch_model(cfg,
+                         load_inference_model(MODEL, -1, torch.device("cpu")).state_dict())
     return make_model(cfg), jparams, tmodel
 
 
@@ -144,7 +145,7 @@ class TestConvert:
             assert torch.equal(a[k], b[k])
 
     def test_loads_into_model_strictly(self):
-        model = load_inference_model(MODEL, -1)
+        model = load_inference_model(MODEL, -1, torch.device("cpu"))
         assert model.config.dtype == "bfloat16"
         assert model.config.decoder_config.transformer_config.model_size == 128
         n = sum(p.numel() for p in model.parameters())
@@ -156,7 +157,7 @@ class TestConvert:
 
     def test_checkpoint_mismatch_raises(self):
         with pytest.raises(ValueError, match="holds checkpoint 6"):
-            load_inference_model(MODEL, 3)
+            load_inference_model(MODEL, 3, torch.device("cpu"))
 
 
 class TestExport:
@@ -207,7 +208,7 @@ class TestParity:
         and PyTorch round different float32 sums; a bf16 ulp is 0.4%."""
         cfg = Config.load(os.path.join(MODEL, "config"))
         jp = jax_params_from_npz(os.path.join(EXPORT, "params.npz"))
-        tm = load_inference_model(MODEL, -1)
+        tm = load_inference_model(MODEL, -1, torch.device("cpu"))
         (jl, jmu, _), (tl, tmu, _) = run_both(make_model(cfg), jp, tm, *source_batch(1))
         np.testing.assert_allclose(tmu, jmu, atol=0.05)
         np.testing.assert_allclose(tl, jl, atol=0.5)

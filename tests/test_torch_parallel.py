@@ -455,12 +455,12 @@ def test_tp2_checkpoint_restored_by_one_process(cli_runs, tmp_path):
     root, corpus, _ = cli_runs
     folder = root / "tp2_2"
     state = final_params(folder)
-    model = load_inference_model(str(folder), -1)
+    model = load_inference_model(str(folder), -1, torch.device("cpu"))
     flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
     assert torch.equal(flat, state["params"])
     export = tmp_path / "export"
     shutil.copytree(folder / ckpt.EXPORT_DIR, export / ckpt.EXPORT_DIR)
-    exported = load_inference_model(str(export), -1)
+    exported = load_inference_model(str(export), -1, torch.device("cpu"))
     assert all(torch.equal(a, b) for a, b in zip(exported.parameters(), model.parameters()))
     out = tmp_path / "samples"
     cli_sample.main(["--cpu", "--model-output", str(folder), "--data", str(corpus),

@@ -105,7 +105,7 @@ def test_greedy_transfer_matches_jax_float32(first_batch):
     jseqs, jscores = jax_sample_sequences(
         make_model(cfg), jparams, jnp.asarray(b.tokens), jnp.asarray(b.seq_lens),
         jnp.asarray(classes), T, jax.random.key(0), greedy=True, use_fused=False)
-    shipped = load_inference_model(MODEL, -1)
+    shipped = load_inference_model(MODEL, -1, torch.device("cpu"))
     model = StyleVAE(dataclasses.replace(shipped.config, dtype="float32"))
     model.load_state_dict(shipped.state_dict())
     tseqs, tscores = decode.sample_sequences(
@@ -118,7 +118,7 @@ def test_greedy_transfer_matches_jax_float32(first_batch):
 class TestSampling:
     @pytest.fixture(scope="class")
     def model(self):
-        return load_inference_model(MODEL, -1)
+        return load_inference_model(MODEL, -1, torch.device("cpu"))
 
     def test_style_transfer_all_classes_invariants(self, model, short_batch):
         b = short_batch
@@ -138,15 +138,17 @@ class TestSampling:
 
     def test_same_seed_same_samples(self, short_batch):
         args = get_config(["--seed", "3", "--temperature", "0.9"])
-        first = get_sampler("sampling", MODEL, -1, args)
+        first = get_sampler("sampling", MODEL, -1, args, torch.device("cpu"))
         a = first.sample_all_classes(short_batch, 2)
-        b = get_sampler("sampling", MODEL, -1, args).sample_all_classes(short_batch, 2)
+        b = get_sampler("sampling", MODEL, -1, args,
+                        torch.device("cpu")).sample_all_classes(short_batch, 2)
         np.testing.assert_array_equal(a, b)
         assert not np.array_equal(a, first.sample_all_classes(short_batch, 2))
 
     def test_sample_one_batch(self, short_batch):
         """Sampling.sample transfers a batch into its own classes: [B, T]."""
-        sampler = get_sampler("sampling", MODEL, -1, get_config(["--top-k", "10"]))
+        sampler = get_sampler("sampling", MODEL, -1, get_config(["--top-k", "10"]),
+                              torch.device("cpu"))
         seqs = sampler.sample(short_batch)
         assert seqs.shape == (8, 2 * short_batch.tokens.shape[1])
         assert (seqs[:, 0] == SOS_ID).all() and ((seqs >= 0) & (seqs < 293)).all()

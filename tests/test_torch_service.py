@@ -3,11 +3,11 @@ counterparts of ``tests/test_service.py`` on the same tiny model, whose
 weights go into the port through its converter (``torch/params.npz``
 exported from the JAX checkpoint).
 
-``test_mesh_sharded_service`` has no counterpart: the port has no mesh
-until ROADMAP queue 1 item 9b, and ``mesh=`` raises naming that item
-(``test_mesh_is_not_ported``). The port decodes only a partial batch's real
-rows where the JAX package pads with its first request; the token layout
-of those rows is held to the JAX package's.
+``test_mesh_sharded_service`` serves through a mesh of two gloo ranks
+(``tests/torch_dist_worker.py``, scenario ``service_dp``) and holds the
+answers to the service's without a mesh, at greedy. The port decodes only a
+partial batch's real rows where the JAX package pads with its first
+request; the token layout of those rows is held to the JAX package's.
 
 Every wait, join and HTTP request carries a timeout; services and servers
 stop in ``finally``; the HTTP server binds port 0.
@@ -20,6 +20,7 @@ import os
 import sys
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 
@@ -207,8 +208,41 @@ class TestService:
             svc.submit_midi(empty)
 
     def test_mesh_is_not_ported(self, model_folder):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            service(model_folder, mesh=object())
+        """A mesh is taken (``test_mesh_sharded_service``); a device other
+        than the mesh's is refused."""
+        with pytest.raises(ValueError, match="is not the mesh's"):
+            service(model_folder, mesh=types.SimpleNamespace(device=torch.device("meta")))
+
+    def test_thread_card_is_set_only_where_named(self, monkeypatch):
+        """The serving threads make a mesh's ``cuda:N`` their current card;
+        a bare ``cuda`` (no mesh) and the CPU set nothing."""
+        from musicstyletransfer_torch.inference.service import use_card
+
+        set_to = []
+        monkeypatch.setattr(torch.cuda, "set_device", set_to.append)
+        for device in (torch.device("cuda"), CPU, torch.device("cuda", 1)):
+            use_card(device)
+        assert set_to == [torch.device("cuda", 1)]
+
+    def test_mesh_sharded_service(self, model_folder):
+        """mesh= (dp=2, two gloo ranks) serves a micro-batch of three
+        requests and one through the threaded loop: each answer equals the
+        service's without a mesh at greedy, token for token; the follower
+        made as many sharded calls as the primary and ended at its stop."""
+        from tests.test_torch_sharded import REQUESTS, run_workers, write_spec
+
+        write_spec(model_folder)
+        got = run_workers(model_folder, ["service_dp"])["service_dp"]
+        svc = service(model_folder, greedy=True)
+        want = svc.transfer_tokens([svc._tokens_from_midi(m) for m in REQUESTS])
+        for i, result in enumerate(want):
+            assert set(result.tokens_by_class) == {0, 1, 2}
+            for c, tokens in result.tokens_by_class.items():
+                np.testing.assert_array_equal(got[f"r{i}_c{c}"], tokens, err_msg=f"{i} {c}")
+        for c in range(3):
+            np.testing.assert_array_equal(got[f"loop_r0_c{c}"], want[0].tokens_by_class[c])
+        calls = got["calls"].tolist()
+        assert calls[0] == calls[1] >= 3, calls
 
     def test_runs_on_cuda_unless_told_otherwise(self, model_folder, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

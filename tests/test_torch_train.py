@@ -420,13 +420,13 @@ def test_cli_sample_reads_the_ports_own_checkpoints(tiny_corpus, tmp_path):
     load_flat_params(want, flat[1])
     want.eval()
 
-    got = load_inference_model(u, 1)
+    got = load_inference_model(u, 1, torch.device("cpu"))
     for a, b in zip(got.parameters(), want.parameters()):
         assert torch.equal(a, b)
-    latest = load_inference_model(u, -1)
+    latest = load_inference_model(u, -1, torch.device("cpu"))
     assert torch.equal(torch.cat([p.reshape(-1) for p in latest.parameters()]), flat[2])
     with pytest.raises(ValueError, match=r"holds checkpoints \[1, 2\], not 5"):
-        load_inference_model(u, 5)
+        load_inference_model(u, 5, torch.device("cpu"))
 
     batch = next(iter(MelodyDataset(3, 8, Loader(tiny_corpus, 8).melodies)))
     args = [torch.as_tensor(np.asarray(x), dtype=torch.long)
@@ -508,7 +508,7 @@ def test_cli_runs_the_flags_the_jax_cli_has(flag, tiny_corpus, tmp_path):
         assert os.listdir(value[flag]) == ["trace.json"]
     elif flag == "--log-param-grad-norms":
         names = {k[len("grad_norm/"):] for k in train[0] if k.startswith("grad_norm/")}
-        assert names == set(flax_names(load_inference_model(model, -1)))
+        assert names == set(flax_names(load_inference_model(model, -1, torch.device("cpu"))))
         assert all(x[f"grad_norm/{n}"] >= 0 for x in train for n in names)
     elif flag == "--steps-per-dispatch":
         assert [x["step"] for x in train] == [2, 3, 5, 6]

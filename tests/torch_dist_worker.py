@@ -4,14 +4,16 @@
 
 ``SPEC.json`` names the scenarios to run, in order, and the folder of their
 inputs and outputs; each scenario builds the mesh it needs over the one
-world and writes ``<name>.npz`` from rank 0. ``tests/test_torch_parallel.py``
-and ``tests/test_torch_ring_attention.py`` launch two of these and hold the
-results against the JAX package and against one process.
+world and writes ``<name>.npz`` from rank 0. ``tests/test_torch_parallel.py``,
+``tests/test_torch_ring_attention.py``, ``tests/test_torch_sharded.py`` and
+``tests/test_torch_gan.py`` launch two of these and hold the results against
+the JAX package and against one process.
 """
 
 import json
 import os
 import sys
+import time
 
 import numpy as np
 import torch
@@ -19,8 +21,20 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-from musicstyletransfer_torch.convert import load_npz, params_from_jax  # noqa: E402
+from musicstyletransfer_torch.convert import (load_npz, params_from_jax,  # noqa: E402
+                                              params_to_jax)
 from musicstyletransfer_torch.data import Loader, MelodyDataset  # noqa: E402
+from musicstyletransfer_torch.data.dataset import Batch, Dataset  # noqa: E402
+from musicstyletransfer_torch.inference import service as service_mod  # noqa: E402
+from musicstyletransfer_torch.inference import sharded as sharded_mod  # noqa: E402
+from musicstyletransfer_torch.inference.decode import decode_stepwise  # noqa: E402
+from musicstyletransfer_torch.inference.sampler import load_inference_model  # noqa: E402
+from musicstyletransfer_torch.inference.service import StyleTransferService  # noqa: E402
+from musicstyletransfer_torch.inference.sharded import (  # noqa: E402
+    prepare_params, sharded_sample_sequences, sharded_style_transfer_all_classes)
+from musicstyletransfer_torch.inference.streaming import StreamingTransferEngine  # noqa: E402
+from musicstyletransfer_torch.models.config import GANConfig  # noqa: E402
+from musicstyletransfer_torch.models.gan import make_discriminator, make_generator  # noqa: E402
 from musicstyletransfer_torch.models import StyleVAE  # noqa: E402
 from musicstyletransfer_torch.models.config import ModelConfig  # noqa: E402
 from musicstyletransfer_torch.ops.ring_attention import ring_attention_sharded  # noqa: E402
@@ -32,6 +46,8 @@ from musicstyletransfer_torch.parallel import (ProcessShardedDataset,  # noqa: E
 from musicstyletransfer_torch.parallel.distributed import data_process_info  # noqa: E402
 from musicstyletransfer_torch.parallel.mesh import (FlatSync, gather_flat,  # noqa: E402
                                                     shard_flat)
+from musicstyletransfer_torch.training.gan_trainer import (GANSteps,  # noqa: E402
+                                                           GANTrainConfig, GANTrainer)
 from musicstyletransfer_torch.training.loss import vae_loss  # noqa: E402
 from musicstyletransfer_torch.training.optimizer import Optimizer, OptimizerConfig  # noqa: E402
 from musicstyletransfer_torch.training.trainer import TrainConfig, Trainer  # noqa: E402
@@ -169,8 +185,219 @@ def process_layer(folder, rank):
             "caught": np.asarray(caught)}
 
 
-SCENARIOS = {f.__name__: f for f in (tp_grads, tp_grads_core, tp_grads_flash, clip, dp_train, tp_train, ring_train, ring_op,
-                                     process_layer)}
+# ---- sharded inference (inference/sharded.py, the service, the engine) ----
+
+CPU = torch.device("cpu")
+
+
+def sharded_spec(folder):
+    with open(os.path.join(folder, "sharded.json")) as f:
+        spec = json.load(f)
+    with np.load(os.path.join(folder, "sharded_inputs.npz")) as z:
+        inputs = {k: torch.as_tensor(z[k]) for k in z.files}
+    return spec, inputs
+
+
+def counting(module, name):
+    """Count the calls of ``module.name`` (into the returned list)."""
+    calls = []
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    return calls
+
+
+def _decode_cases(spec, x, model, mesh, cases):
+    args = (model, x["tokens"], x["seq_lens"], x["classes"], spec["max_len"])
+    out = {}
+    for name, kw in cases:
+        seqs, scores = sharded_sample_sequences(*args, torch.Generator().manual_seed(1), mesh,
+                                                **kw)
+        out[f"{name}_seqs"], out[f"{name}_scores"] = seqs.numpy(), scores.numpy()
+    return out
+
+
+def sharded_dp(folder, rank):
+    """dp=2: greedy through the route the CPU picks (the step loop), K1's
+    plain version forced and the loop forced; sampled; the all-classes
+    transfer greedy; K1 calls a rank a call."""
+    spec, x = sharded_spec(folder)
+    model = load_inference_model(spec["model"], -1, CPU)
+    mesh = make_mesh(1)
+    k1 = counting(sharded_mod, "fused_decode")
+    out = {}
+    for name, kw in (("auto", {}), ("fused", {"use_fused": True}),
+                     ("loop", {"use_fused": False})):
+        before = len(k1)
+        out.update(_decode_cases(spec, x, model, mesh, [(name, dict(kw, greedy=True))]))
+        out[f"{name}_k1"] = np.asarray(len(k1) - before)
+    out.update(_decode_cases(spec, x, model, mesh, [("sampled", {}),
+                                                    ("sampled_fused", {"use_fused": True})]))
+    seqs, scores = sharded_style_transfer_all_classes(
+        model, x["tokens"], x["seq_lens"], spec["max_len"], spec["classes"],
+        torch.Generator().manual_seed(2), mesh, greedy=True, params_on_mesh=True)
+    out["all_seqs"], out["all_scores"] = seqs.numpy(), scores.numpy()
+    out["divides_seqs"] = _decode_cases(
+        spec, {k: v[:4] for k, v in x.items()}, model, mesh, [("d", {})])["d_seqs"]
+    return out
+
+
+def sharded_tp(folder, rank):
+    """tp=2: the model split by the TP rules; greedy decode through the
+    sharded call and teacher-forced logits of the cached step (its cache at
+    the rank's heads); use_fused=True refused."""
+    spec, x = sharded_spec(folder)
+    model = load_inference_model(spec["model"], -1, CPU)
+    mesh = make_mesh(2)
+    prepare_params(model, mesh)
+    out = _decode_cases(spec, x, model, mesh, [("greedy", {"greedy": True,
+                                                            "params_on_mesh": True})])
+    with use_mesh(mesh), torch.inference_mode():
+        z, _ = model.encode(x["tokens"], x["seq_lens"], x["classes"])
+        _, _, logits = decode_stepwise(model, z, x["classes"], spec["max_len"], 0, mode="forced",
+                                       forced_tokens=x["forced"])
+    out["forced_logits"] = logits.numpy()
+    out["local_heads"] = np.asarray(model.decoder.decoder.layers[0].attention.local_heads)
+    try:
+        sharded_sample_sequences(model, x["tokens"], x["seq_lens"], x["classes"],
+                                 spec["max_len"], torch.Generator(), mesh, use_fused=True)
+        out["refused"] = np.asarray("")
+    except ValueError as e:
+        out["refused"] = np.asarray(str(e))
+    return out
+
+
+def _requests(spec):
+    return [bytes.fromhex(h) for h in spec["requests"]]
+
+
+def _tokens_by_class(results):
+    return {f"r{i}_c{c}": np.asarray(t) for i, r in enumerate(results)
+            for c, t in r.tokens_by_class.items()}
+
+
+def service_dp(folder, rank):
+    """dp=2: StyleTransferService(mesh=, greedy=True): a direct micro-batch
+    of every request, then one request through the threaded loop; the
+    follower runs start()/stop(). Sharded calls a rank."""
+    spec, _ = sharded_spec(folder)
+    mesh = make_mesh(1)
+    calls = counting(service_mod, "sharded_style_transfer_all_classes")
+    svc = StyleTransferService(spec["model"], checkpoint=-1, batch_size=4, max_seq_len=8,
+                               mesh=mesh, greedy=True)
+    out = {}
+    if rank == 0:
+        requests = _requests(spec)
+        out.update(_tokens_by_class(svc.transfer_tokens(
+            [svc._tokens_from_midi(m) for m in requests])))
+        svc.start()
+        got = []
+        svc.enqueue(requests[0], got.append)
+        deadline = time.time() + 60
+        while not got and time.time() < deadline:
+            time.sleep(0.01)
+        svc.stop()
+        out.update({f"loop_{k}": v for k, v in _tokens_by_class(got).items()})
+    else:
+        svc.start()
+        svc.stop()
+    counts = [torch.tensor([len(calls)])]
+    parts = [torch.zeros(1, dtype=torch.int64) for _ in range(mesh.world)]
+    torch.distributed.all_gather(parts, counts[0])
+    out["calls"] = torch.cat(parts).numpy()
+    return out
+
+
+def _engine_run(spec, mesh, rank, **kw):
+    eng = StreamingTransferEngine(spec["model"], checkpoint=-1, slots=8, max_seq_len=8,
+                                  segment_steps=4, admit_size=4, mesh=mesh, **kw)
+    if rank != 0:
+        eng.serve_follower()
+        return {}
+    results = [eng.submit_midi(m) for m in _requests(spec)]
+    eng.stop()
+    return _tokens_by_class(results)
+
+
+def engine_dp(folder, rank):
+    """dp=2: the engine's slots over the data axis, greedy and sampled."""
+    spec, _ = sharded_spec(folder)
+    mesh = make_mesh(1)
+    out = {f"greedy_{k}": v for k, v in _engine_run(spec, mesh, rank, greedy=True).items()}
+    out.update({f"sampled_{k}": v for k, v in _engine_run(spec, mesh, rank, seed=3).items()})
+    return out
+
+
+def engine_tp(folder, rank):
+    """tp=2: the engine's ragged step on each rank's heads, greedy."""
+    spec, _ = sharded_spec(folder)
+    return _engine_run(spec, make_mesh(2), rank, greedy=True)
+
+
+# ---- GAN data parallelism (training/gan_trainer.py) ------------------------
+
+
+class Batches(Dataset):
+    def __init__(self, x, n):
+        super().__init__(n)
+        self.x, self.n = x, n
+
+    def num_classes(self):
+        return 3
+
+    def num_tokens(self):
+        return int(self.x["vocab"])
+
+    def __iter__(self):
+        for i in range(self.x["fit_tokens"].shape[0] // self.n):
+            t = self.x["fit_tokens"][i * self.n:(i + 1) * self.n].numpy()
+            c = self.x["fit_classes"][i * self.n:(i + 1) * self.n].numpy()
+            yield Batch(t, np.full(self.n, t.shape[1], np.int32), c, t)
+
+
+def gan_models(folder):
+    with open(os.path.join(folder, "gan_config.json")) as f:
+        config = GANConfig.from_dict(json.load(f))
+    gen, disc = make_generator(config), make_discriminator(config)
+    gen.load_state_dict(params_from_jax(load_npz(os.path.join(folder, "gan_g.npz"))))
+    disc.load_state_dict(params_from_jax(load_npz(os.path.join(folder, "gan_d.npz"))))
+    return config, gen, disc
+
+
+def gan_dp(folder, rank):
+    """dp=2: two D steps and a G step on the rank's rows of the global batch
+    and of the JAX trainer's noise (GANSteps(mesh=)); then GANTrainer(mesh=)
+    fit on global batches."""
+    with np.load(os.path.join(folder, "gan_inputs.npz")) as z:
+        x = {k: torch.as_tensor(z[k]) for k in z.files}
+    mesh = make_mesh(1)
+    config, gen, disc = gan_models(folder)
+    tc = GANTrainConfig(d_learning_rate=1e-3, g_learning_rate=1e-3)
+    steps = GANSteps(config, tc, gen, disc, torch.Generator().manual_seed(0), mesh)
+    tokens, classes = shard_batch([x["tokens"], x["classes"]], mesh)
+    for i in range(2):
+        steps.d_step(tokens, classes, noise=shard_batch([x[f"noise_d{i}"]], mesh)[0])
+    steps.g_step(classes, noise=shard_batch([x["noise_g"]], mesh)[0])
+    out = {f"g/{k}": v for k, v in params_to_jax(gen).items()}
+    out.update({f"d/{k}": v for k, v in params_to_jax(disc).items()})
+    out.update({f"m/{k}": np.asarray(v) for k, v in steps.metrics().items()})
+    trainer = GANTrainer(config, GANTrainConfig(discriminator_update_steps=2, log_every=2,
+                                                checkpoint_frequency=0, sampling_frequency=0,
+                                                logdir=os.path.join(folder, "gan_fit_log")),
+                         mesh=mesh)
+    fit = trainer.fit(Batches(x, 8), os.path.join(folder, "gan_fit"), epochs=2)
+    out.update({f"fit_g/{k}": v for k, v in params_to_jax(trainer.gen).items()})
+    out.update({f"fit_m/{k}": np.asarray(v) for k, v in fit.items()})
+    return out
+
+
+SCENARIOS = {f.__name__: f for f in (tp_grads, tp_grads_core, tp_grads_flash, clip, dp_train,
+                                     tp_train, ring_train, ring_op, process_layer, sharded_dp,
+                                     sharded_tp, service_dp, engine_dp, engine_tp, gan_dp)}
 
 
 def main():
