@@ -126,8 +126,11 @@
    multi_gpu_path (2-process NCCL: DP=2, tp=2, --ring-attention --tp 2 at
    L=2046; a 2-process sharded greedy transfer against one process's, token
    for token; 2-process GAN DP in float32 against one process's first
-   metric means, 1e-4) runs only where torch.cuda.device_count() >= 2, and
-   otherwise prints "multi_gpu_path: not run (1 card)".
+   metric means, 1e-4; the wide encoder stack pipelined over 2 processes
+   against one process's sequential stack; python -m
+   musicstyletransfer_torch.dryrun over min(cards, 4) processes) runs only
+   where torch.cuda.device_count() >= 2, and otherwise prints
+   "multi_gpu_path: not run (1 card)".
 13. Sharded inference (sharded_path, the shipped model, bf16, a world-1
    NCCL mesh laid out by make_mesh without a device): the sharded
    all-classes transfer of 32 corpus sources x 2 classes at greedy equals
@@ -142,6 +145,15 @@
    mesh. The port's examples (examples/torch_style_transfer.py,
    examples/torch_gan_generation.py for one epoch) as processes: every MIDI
    file they write parses back.
+14. Pipeline parallelism (pipeline_path, parallel/pipeline.py and
+   transformer_pipeline.py, the stages in lock step on the one card): the
+   wide encoder stack (train-vae-wide.sh: 4 x 1024, 16 heads, pre-LN, K2/K3)
+   on the L=512 batch as pp=4 and pp=2, 4 microbatches, and the long one
+   (train-vae-long.sh: 4 x 512, 8 heads, K4/K5) on the L=2046 batch as
+   pp=2, 2 microbatches, in float32 and bf16: output and gradients against
+   the sequential stack, launches counted, pipelined and sequential ms.
+The corpus is read through the C++ tokenizer (midi/native.py, built into
+build/native/ at first use).
 
 Exits non-zero on any failure. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
@@ -945,6 +957,7 @@ def long_path(tmp: str) -> dict:
 GAN_MODEL = os.path.join(REPO, "models", "gan_guitar_bass")
 GAN_K = 5  # train-gan.sh's --discriminator-update-steps
 GAN_CHAIN = {"eager": 10, "graphed": 100}  # batches a timed chain
+GAN_CHAINS = {"eager": 1, "graphed": 5}  # timed chains a mode (eager: one, for the time limit)
 
 
 def gan_argv(data: str, model_output: str, out_samples: str):
@@ -1030,14 +1043,12 @@ def run_cli(module: str, argv, timeout: float = 600):
 def gan_rates(batches, card: str) -> dict:
     """bench.py's GAN protocol on the card: updates (batches) a second with a
     G update after every 5th batch's D update, B=32, train-gan.sh's model,
-    one fixed batch, the median of 5 interleaved chains, at r1_gamma 0 and
-    0.1, eager (chains of GAN_CHAIN["eager"] batches) and as graph replays of
-    groups of 5 (chains of GAN_CHAIN["graphed"]); each chain ends in one host
+    one fixed batch, the median of GAN_CHAINS interleaved chains, at r1_gamma
+    0 and 0.1, eager (chains of GAN_CHAIN["eager"] batches) and as graph replays
+    of groups of 5 (chains of GAN_CHAIN["graphed"]); each chain ends in one host
     read of a metric sum. Then torch.profiler windows (eager: a D step and a
     G step apart; graphed: one replay): host ops and kernels an update, the
     device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
     from musicstyletransfer_torch.training.gan_trainer import (GraphedGANGroups, batch_tensors,
                                                                group_pattern)
 
@@ -1073,23 +1084,11 @@ def gan_rates(batches, card: str) -> dict:
         runners[key][0](GAN_K)  # warm-up, capture
     log(f"gan rates: warm-ups and captures {time.perf_counter() - t0:.1f} s")
     rates = {key: [] for key in runners}
-    for _ in range(5):
+    for i in range(max(GAN_CHAINS.values())):
         for key in runners:
-            rates[key].append(chain(key))
+            if i < GAN_CHAINS[key[0]]:
+                rates[key].append(chain(key))
     log(f"gan rates: chains done after {time.perf_counter() - t0:.1f} s")
-    def profiled(fn):
-        """(kernel ms, wall ms, kernels, host ops) of one call of fn."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t1) * 1e3
-        events = prof.key_averages()
-        dev = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
-        host = [e for e in events if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA]
-        return (sum(getattr(e, "self_device_time_total", 0.0) for e in dev) / 1e3, wall,
-                sum(e.count for e in dev), sum(e.count for e in host))
-
     res = {}
     for key, (fn, steps) in runners.items():
         mode, r1 = key
@@ -1106,11 +1105,29 @@ def gan_rates(batches, card: str) -> dict:
              "kernels": kernels, "host_ops": host_ops}
         res[f"{mode} r1={r1}"] = r
         log(f"GAN training {mode}, r1_gamma {r1} (train-gan.sh: B=32, L=64, bf16, D:G 5:1): "
-            f"median {r['updates_per_s']:.2f} updates/s over 5 chains of {GAN_CHAIN[mode]} "
+            f"median {r['updates_per_s']:.2f} updates/s over {GAN_CHAINS[mode]} chain(s) of "
+            f"{GAN_CHAIN[mode]} "
             f"({', '.join(f'{x:.2f}' for x in rates[key])}); profiler ({window}): "
             f"{r['kernel_ms']:.3f} ms of kernels an update, device busy {r['busy']:.3f}, "
             f"{r['kernels']:.0f} kernels and {r['host_ops']:.0f} host ops an update; on {card}")
     return res
+
+
+def profiled(fn):
+    """(kernel ms, wall ms, kernels, host ops) of one call of fn, from
+    torch.profiler (device-side events for the kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    host = [e for e in events if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA]
+    return (sum(getattr(e, "self_device_time_total", 0.0) for e in dev) / 1e3, wall,
+            sum(e.count for e in dev), sum(e.count for e in host))
 
 
 def gan_path(tmp: str, batches, card: str) -> dict:
@@ -2209,6 +2226,156 @@ def ring_path(fa, enc_lens) -> dict:
     return out
 
 
+# pipeline_path: (stages, microbatches) of each stack, and the tolerances
+# (output, gradients) of the pipelined stack against two references, in
+# float32 and in bfloat16 (the recipes' dtype): "whole", the sequential
+# stack on the whole batch, and "microbatched", the sequential stack on each
+# microbatch in turn (the same products at the same shapes as the pipeline's
+# stages). The output's error is its max|err| relative to its largest
+# |value|; a parameter's gradient error the norm of its error relative to
+# its norm (floored at 1e-3 of the largest gradient norm of the stack: the
+# key bias's gradient is float32 noise, softmax ignoring a shared shift).
+# Against the whole batch the microbatch is a GEMM of another M, for which
+# cuBLAS may pick another algorithm, and where a ReLU's input is ~0 a
+# rounding then flips it: that entry of a weight's gradient differs by one
+# token's whole term (on an H100 at the wide stack in float32: 1.3e-2 of a
+# weight's max|entry|, 1.0e-3 of a bias's norm), hence the norms and the
+# looser whole-batch tolerances. Against the microbatched stack the output
+# is held bit for bit; the gradients differ by the order in which the
+# microbatches' terms are summed.
+PIPE_CUTS = {"wide": ((4, 4), (2, 4)), "long": ((2, 2),)}
+TOL_PIPE = {("whole", torch.float32): (1e-5, 1e-2), ("whole", torch.bfloat16): (1e-2, 2e-2),
+            ("microbatched", torch.float32): (0.0, 1e-5),
+            ("microbatched", torch.bfloat16): (0.0, 1e-5)}
+
+
+def pipeline_stack(script: str, batch, dtype: str):
+    """The encoder stack of scripts/<script>'s model (seeded weights, on the
+    card, compute in ``dtype``), its input (token + class embeddings, before
+    scaling) and key mask for ``batch``, and a seeded float32 cotangent."""
+    from musicstyletransfer_torch.midi.vocab import PAD_ID
+
+    _, model, _, _ = recipe_setup(script, extra=("--dtype", dtype))
+    enc = model.encoder
+    dt = enc.compute_dtype
+    tokens = torch.as_tensor(batch.tokens, dtype=torch.long, device="cuda")
+    classes = torch.as_tensor(batch.classes, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        x = enc.token_emb(tokens).to(dt) + enc.class_emb(classes).to(dt)[:, None, :]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cot = torch.randn(x.shape, generator=g, device="cuda")
+    return enc.encoder.eval(), x, tokens != PAD_ID, cot
+
+
+def stack_grads(stack, fn, cot):
+    """(output, {name: gradient}) of sum(fn().float() * cot) over the stack's
+    parameters."""
+    names, params = zip(*stack.named_parameters())
+    out = fn()
+    grads = torch.autograd.grad((out.float() * cot).sum(), params)
+    return out.detach(), dict(zip(names, grads))
+
+
+def grad_rel_errs(grads, ref_grads) -> dict:
+    """{name: |grad - ref| / max(|ref|, 1e-3 of the largest |ref| of all)}
+    in the Frobenius norm: the parameters' gradient errors as TOL_PIPE
+    holds them."""
+    norms = {n: float(g.float().norm()) for n, g in ref_grads.items()}
+    floor = 1e-3 * max(norms.values())
+    return {n: float((grads[n].float() - g.float()).norm()) / max(norms[n], floor, 1e-30)
+            for n, g in ref_grads.items()}
+
+
+def pipeline_path(card: str, wide_batch, long_batch) -> dict:
+    """Pipeline parallelism (parallel/pipeline.py, transformer_pipeline.py)
+    on the one card, its stages in lock step in this process
+    (pipeline_transformer_stack with mesh=None): the wide recipe's encoder
+    stack at full width (train-vae-wide.sh: 4 x 1024, 16 heads, hd 64,
+    pre-LN, the attention core: K2/K3) on the corpus's L=512 batch (B=8,
+    T=513) as pp=4 x 1 layer and pp=2 x 2 layers, 4 microbatches each; the
+    long recipe's (train-vae-long.sh: 4 x 512, 8 heads, post-LN, flash:
+    K4/K5) on its L=2046 batch (B=4, T=2047) as pp=2, 2 microbatches. The
+    output and every parameter's gradient of sum(out * cotangent) equal the
+    sequential TransformerStack's on the whole batch and on each microbatch
+    in turn, within TOL_PIPE, in float32 and in bfloat16; each stage's
+    layers launch their kernels once a microbatch
+    (bf16: on the tensor cores). The bf16 runs' launches are the path's;
+    pipelined and sequential forward + backward timed (CUDA events)."""
+    from musicstyletransfer_torch.ops import counters
+    from musicstyletransfer_torch.parallel import pipeline_transformer_stack
+
+    res = {"launches": {k: 0 for k in ("K2", "K3", "K4", "K5")}, "ms": {}, "err": {}}
+    for label, script, batch in (("wide", "train-vae-wide.sh", wide_batch),
+                                 ("long", "train-vae-long.sh", long_batch)):
+        kernels = ("K2", "K3") if label == "wide" else ("K4", "K5")
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            stack, x, mask, cot = pipeline_stack(script, batch, dtype)
+            n_layers = len(stack.layers)
+            ref_out, ref_grads = stack_grads(stack, lambda: stack(x, mask), cot)
+            torch.cuda.synchronize()
+            for S, M in PIPE_CUTS[label]:
+                tag = (f"{label} {n_layers} x {stack.config.model_size}, B={x.shape[0]}, "
+                       f"T={x.shape[1]}, {dtype}, pp={S} x {n_layers // S} layers, {M} "
+                       "microbatches")
+                counts(reset=True)
+                out, grads = stack_grads(stack, lambda: pipeline_transformer_stack(
+                    stack, x, mask, mesh=None, microbatches=M, n_stages=S), cot)
+                torch.cuda.synchronize()
+                c = counts()
+                want = n_layers * M
+                for k in kernels:
+                    check(c[k] == want, f"pipeline {tag}: {k} launched {c[k]} times, "
+                          f"expected {n_layers} layers x {M} microbatches")
+                    if dt == torch.bfloat16:
+                        check(c[f"{k} tc"] == want, f"pipeline {tag}: {k} off the tensor cores")
+                        res["launches"][k] += c[k]
+                check(all(c[k] == 0 for k in counters.PLAIN),
+                      f"pipeline {tag}: a plain version ran on the card: {c}")
+                check(bool(torch.isfinite(out.float()).all()), f"pipeline {tag}: non-finite")
+                mb_out, mb_grads = stack_grads(stack, lambda: torch.cat(
+                    [stack(xm, km) for xm, km in zip(x.chunk(M), mask.chunk(M))]), cot)
+                errs = []
+                for ref, (r_out, r_grads) in (("whole", (ref_out, ref_grads)),
+                                              ("microbatched", (mb_out, mb_grads))):
+                    out_err = float((out.float() - r_out.float()).abs().max()) / max(
+                        float(r_out.float().abs().max()), 1e-30)
+                    grad_errs = grad_rel_errs(grads, r_grads)
+                    worst = max(grad_errs, key=grad_errs.get)
+                    out_tol, grad_tol = TOL_PIPE[(ref, dt)]
+                    errs.append(f"{ref}: output {out_err:.3g} (tol {out_tol}), gradients "
+                                f"{grad_errs[worst]:.3g} (tol {grad_tol}; {worst})")
+                    check(out_err <= out_tol, f"pipeline {tag}: against the {ref} stack, "
+                          f"output rel err {out_err} > {out_tol}")
+                    check(grad_errs[worst] <= grad_tol, f"pipeline {tag}: against the {ref} "
+                          f"stack, gradient rel err {grad_errs[worst]} > {grad_tol} ({worst})")
+                    res["err"][(tag, ref)] = (out_err, grad_errs[worst])
+                same = torch.equal(out, mb_out)
+                if dt == torch.bfloat16:
+                    saved = counts()
+                    runs = {"pipelined": lambda: stack_grads(
+                        stack, lambda: pipeline_transformer_stack(
+                            stack, x, mask, mesh=None, microbatches=M, n_stages=S), cot),
+                            "sequential": lambda: stack_grads(stack, lambda: stack(x, mask), cot)}
+                    ms = {k: time_cuda(fn, 5) for k, fn in runs.items()}
+                    prof = {k: profiled(fn) for k, fn in runs.items()}
+                    counters.write(saved)  # timing launches are not the path's
+                    res["ms"][tag] = (ms["pipelined"], ms["sequential"])
+                    timing = "; forward + backward " + ", ".join(
+                        f"{k} {ms[k]:.3f} ms (profiler, one call: {prof[k][0]:.3f} ms of "
+                        f"kernels in {prof[k][1]:.3f} ms, busy {prof[k][0] / prof[k][1]:.3f}, "
+                        f"{prof[k][2]} kernels, {prof[k][3]} host ops)" for k in runs) + (
+                        f" (the {S} stages in lock step on one card), on {card}")
+                else:
+                    timing = ""
+                log(f"pipeline {tag}: rel errs against the sequential stack, "
+                    f"{'; '.join(errs)}; output bit for bit the microbatched stack's: {same}; "
+                    f"{' '.join(f'{k} {c[k]}' for k in kernels)} launches{timing}")
+            del stack, x, mask, cot, ref_out, ref_grads
+    counts(reset=True)
+    return res
+
+
 def dist_path(tmp: str, batches, card: str) -> dict:
     """Multi-process training's entry point on the one card, a world of one
     rank on NCCL: cli.main with scripts/train-distributed.sh's flags (B=32,
@@ -2350,6 +2517,7 @@ def multi_gpu_path(tmp: str) -> None:
     log(f"multi_gpu_path --ring-attention --tp 2 at L={LONG_L}: first ce_loss {ring:.6f} vs "
         f"{long_one:.6f} on one process")
     multi_gpu_inference(tmp)
+    multi_gpu_pipeline(tmp)
 
 
 def free_port() -> int:
@@ -2565,11 +2733,12 @@ def examples_path(tmp: str) -> None:
 
 
 def multi_rank(kind: str, rank: int, world: int, port: int, out: str) -> None:
-    """One rank of multi_gpu_path's sharded-inference and GAN runs (a
-    process of its own, card ``rank``): ``sharded`` writes the sharded
+    """One rank of multi_gpu_path's sharded-inference, GAN and pipeline runs
+    (a process of its own, card ``rank``): ``sharded`` writes the sharded
     greedy transfer of sharded_path's batch, ``gan`` the metric means after
     the first D step and after the first group of train-gan.sh's model in
-    float32 with GANSteps(mesh=) on its rows."""
+    float32 with GANSteps(mesh=) on its rows, ``pipeline`` the wide stack's
+    output and gradients pipelined over the model axis (multi_pipeline)."""
     import torch.distributed as dist
 
     from musicstyletransfer_torch.data import Loader, MelodyDataset
@@ -2577,11 +2746,14 @@ def multi_rank(kind: str, rank: int, world: int, port: int, out: str) -> None:
 
     initialize_distributed(f"127.0.0.1:{port}", world, rank, torch.device("cuda"))
     try:
-        mesh = make_mesh(1)
-        batches = list(MelodyDataset(32, L, Loader(os.path.join(REPO, "work", "data",
-                                                                "guitar_bass"), L).melodies))
-        result = (multi_sharded(batches[0], mesh) if kind == "sharded"
-                  else multi_gan(batches, mesh))
+        if kind == "pipeline":
+            result = multi_pipeline(make_mesh(world))
+        else:
+            mesh = make_mesh(1)
+            batches = list(MelodyDataset(32, L, Loader(os.path.join(REPO, "work", "data",
+                                                                    "guitar_bass"), L).melodies))
+            result = (multi_sharded(batches[0], mesh) if kind == "sharded"
+                      else multi_gan(batches, mesh))
         if rank == 0:
             np.savez(out, **result)
     finally:
@@ -2626,6 +2798,95 @@ def multi_gan(batches, mesh) -> dict:
     out = {f"first/{k}": np.asarray(v) for k, v in first.items()}
     out.update({f"group/{k}": np.asarray(v) for k, v in group.items()})
     return out
+
+
+def wide_batch_512():
+    from musicstyletransfer_torch.data import Loader, MelodyDataset
+
+    corpus = os.path.join(REPO, "work", "data", "guitar_bass")
+    return next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
+
+
+def multi_pipeline(mesh) -> dict:
+    """The wide recipe's encoder stack (bf16) on the L=512 batch, pipelined
+    over ``mesh``'s model axis (one stage a card, 4 microbatches, real P2P
+    hops), or sequential without a mesh: the output and the gradients of
+    sum(out * cotangent), the stage parameters' summed over the model group
+    (each rank holds its own stage's)."""
+    from musicstyletransfer_torch.parallel import pipeline_transformer_stack
+
+    stack, x, mask, cot = pipeline_stack("train-vae-wide.sh", wide_batch_512(), "bfloat16")
+    if mesh is None:
+        out, grads = stack_grads(stack, lambda: stack(x, mask), cot)
+    else:
+        out, grads = stack_grads(stack, lambda: pipeline_transformer_stack(
+            stack, x, mask, mesh=mesh, microbatches=4), cot)
+        for name, g in grads.items():
+            if name.startswith("layers."):
+                grads[name] = mesh.all_reduce_model_sum_(g.clone())
+    result = {"out": out.float().cpu().numpy()}
+    result.update({f"grad/{n}": g.float().cpu().numpy() for n, g in grads.items()})
+    return result
+
+
+def multi_gpu_pipeline(tmp: str) -> None:
+    """multi_gpu_path's pipeline half: a 2-process NCCL
+    pipeline_transformer_stack of the wide stack equals this process's
+    sequential stack (output and gradients within TOL_PIPE's whole-batch
+    bf16 tolerances);
+    then ``python -m musicstyletransfer_torch.dryrun --processes
+    min(cards, 4)`` passes, every leg's OK line printed."""
+    one = multi_pipeline(None)
+    out = os.path.join(tmp, "multi-pipeline.npz")
+    port = free_port()
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(tmp, f"pipeline-rank{r}.log"), "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke."
+                               f"multi_rank('pipeline', {r}, 2, {port}, {out!r})"],
+                              cwd=REPO, stdout=logs[r], stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    deadline = time.time() + 300  # a failed rank leaves the other waiting in a collective
+    while any(p.poll() is None for p in procs) and time.time() < deadline and all(
+            p.returncode in (None, 0) for p in procs):
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for r, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        check(p.returncode == 0, f"multi_gpu_path pipeline: rank {r} exited {p.returncode}:"
+              f"\n{text[-3000:]}")
+    with np.load(out) as z:
+        got = {k: z[k] for k in z.files}
+    check(set(got) == set(one), f"multi_gpu_path pipeline: keys {sorted(got)}")
+    errs = grad_rel_errs({k: torch.as_tensor(v) for k, v in got.items() if k != "out"},
+                         {k: torch.as_tensor(v) for k, v in one.items() if k != "out"})
+    errs["out"] = float(np.abs(got["out"] - one["out"]).max()) / max(
+        float(np.abs(one["out"]).max()), 1e-30)
+    out_tol, tol = TOL_PIPE[("whole", torch.bfloat16)]
+    check(errs["out"] <= out_tol, f"multi_gpu_path pipeline: output rel err {errs['out']}")
+    worst = max((k for k in errs if k != "out"), key=errs.get)
+    check(errs[worst] <= tol, f"multi_gpu_path pipeline: {worst} rel err {errs[worst]} > {tol}")
+    log(f"multi_gpu_path pipeline: wide stack (4 x 1024, B=8, T=513, bf16) as 2 NCCL stages "
+        f"of 2 layers, 4 microbatches, equals one process's sequential stack: output rel err "
+        f"{errs['out']:.3g}, worst gradient rel err {errs[worst]:.3g} ({worst}; tol {tol}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = min(torch.cuda.device_count(), 4)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "musicstyletransfer_torch.dryrun",
+                          "--processes", str(n)], cwd=REPO, capture_output=True, text=True,
+                         timeout=360)
+    lines = [x for x in res.stdout.splitlines() if x.startswith("dryrun")]
+    check(res.returncode == 0 and lines and lines[-1].startswith(f"dryrun_multichip({n}) OK"),
+          f"the dry run over {n} cards failed ({res.returncode}):\n{res.stdout[-3000:]}\n"
+          f"{res.stderr[-3000:]}")
+    for line in lines:
+        log(f"multi_gpu_path {line}")
+    log(f"multi_gpu_path: the dry run over {n} NCCL processes, {len(lines) - 1} legs OK in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def multi_gpu_inference(tmp: str) -> None:
@@ -2819,7 +3080,12 @@ def main() -> int:
                                      "per_step", reps=1))
     core_err = check_core(ac)
     corpus = os.path.join(REPO, "work", "data", "guitar_bass")
-    long_batch = next(iter(MelodyDataset(LONG_B, LONG_L, Loader(corpus, LONG_L).melodies)))
+    from musicstyletransfer_torch.midi.native import NativeMIDIReader
+
+    long_loader = Loader(corpus, LONG_L)  # the corpus reads go through the C++ tokenizer
+    check(isinstance(long_loader.midi_reader, NativeMIDIReader),
+          f"the Loader reads with {type(long_loader.midi_reader).__name__}")
+    long_batch = next(iter(MelodyDataset(LONG_B, LONG_L, long_loader.melodies)))
     flash_err = check_flash(fa, long_batch.seq_lens)
 
     wide_batch = next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
@@ -2843,6 +3109,7 @@ def main() -> int:
         gan_dp_rates = gan_dp(corpus_batches[:2 * GAN_K], card)
         examples_path(tmp)
         ring = ring_path(fa, long_batch.seq_lens)
+        pipe = pipeline_path(card, wide_batch, long_batch)
         dist_ms = dist_path(tmp, canonical_batches, card)
         multi_gpu_path(tmp)
 
@@ -2879,7 +3146,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "musicstyletransfer_torch/ops/csrc/flash_attention_tc.cu",
-            "replaces": replaces, "launches": train_counts[kid],
+            # the wide training path's launches and the wide pipeline's (pipeline_path)
+            "replaces": replaces, "launches": train_counts[kid] + pipe["launches"][kid],
             "max_abs_err": core_err[kid], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
@@ -2890,8 +3158,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "musicstyletransfer_torch/ops/csrc/flash_attention_tc.cu",
-            # the long training path's launches and the ring's (ring_path)
-            "replaces": replaces, "launches": long_counts[kid] + ring["launches"][kid],
+            # the long training path's launches, the ring's (ring_path) and the long
+            # pipeline's (pipeline_path)
+            "replaces": replaces,
+            "launches": long_counts[kid] + ring["launches"][kid] + pipe["launches"][kid],
             "max_abs_err": flash_err[kid], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
@@ -2909,6 +3179,9 @@ def main() -> int:
     log(f"ring path ({card}): K4 {ring['launches']['K4']} and K5 {ring['launches']['K5']} "
         f"launches over n = {' and '.join(map(str, RING_NS))} at both long shapes, max|err| "
         f"against the whole-T kernels K4 {ring['err']['K4']:.3g}, K5 {ring['err']['K5']:.3g}")
+    log(f"pipeline path ({card}): K2-K5 launches {pipe['launches']}; forward + backward ms "
+        "(pipelined in lock step, sequential): " + "; ".join(
+            f"{tag}: {a:.3f}, {b:.3f}" for tag, (a, b) in pipe["ms"].items()))
     log(f"dist path ({card}): graphed step {dist_ms['world-1 mesh']:.4f} ms on the world-1 mesh "
         f"vs {dist_ms['no mesh']:.4f} without; all-reduce {dist_ms['all_reduce']:.4f} ms")
     log(f"sharded path ({card}): sharded transfer {sharded['sharded_ms']:.4f} ms vs "

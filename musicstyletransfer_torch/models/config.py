@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Type, TypeVar
 
 
 def _known(cls, d: Dict[str, Any]) -> Dict[str, Any]:
@@ -30,8 +30,44 @@ def _known(cls, d: Dict[str, Any]) -> Dict[str, Any]:
     return {k: v for k, v in d.items() if k in names}
 
 
+_REGISTRY: Dict[str, Type["Config"]] = {}
+_T = TypeVar("_T", bound="Config")
+
+
+def register_config(cls: Type[_T]) -> Type[_T]:
+    """Class decorator: make ``Config.load`` know ``cls`` by its name (the
+    JAX package's YAML tag ``!ClassName``; the port's files are JSON)."""
+    _REGISTRY[cls.__name__] = cls
+    return cls
+
+
 @dataclasses.dataclass(frozen=True)
-class TransformerConfig:
+class Config:
+    """Base of the configs: a copy with fields replaced, and a JSON file
+    that names its class (the JAX package's ``Config`` writes tagged YAML)."""
+
+    def copy(self: _T, **overrides: Any) -> _T:
+        return dataclasses.replace(self, **overrides)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def save(self, fname: str) -> None:
+        with open(fname, "w") as out:
+            json.dump({"class": type(self).__name__, "config": self.to_dict()}, out,
+                      indent=2, sort_keys=True)
+            out.write("\n")
+
+    @staticmethod
+    def load(fname: str) -> "Config":
+        with open(fname) as inp:
+            blob = json.load(inp)
+        return _REGISTRY[blob["class"]].from_dict(blob["config"])
+
+
+@register_config
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig(Config):
     model_size: int = 128
     dropout: float = 0.0
     num_layers: int = 1
@@ -60,8 +96,9 @@ class TransformerConfig:
         return cls(**_known(cls, d))
 
 
+@register_config
 @dataclasses.dataclass(frozen=True)
-class LSTMConfig:
+class LSTMConfig(Config):
     """The legacy LSTM decoder (``decoder_type="lstm"``, ``models/lstm.py``)."""
 
     n_layers: int = 1
@@ -73,8 +110,9 @@ class LSTMConfig:
         return cls(**_known(cls, d))
 
 
+@register_config
 @dataclasses.dataclass(frozen=True)
-class EncoderConfig:
+class EncoderConfig(Config):
     transformer_config: TransformerConfig = dataclasses.field(
         default_factory=TransformerConfig
     )
@@ -91,8 +129,9 @@ class EncoderConfig:
         return cls(**kw)
 
 
+@register_config
 @dataclasses.dataclass(frozen=True)
-class DecoderConfig:
+class DecoderConfig(Config):
     transformer_config: TransformerConfig = dataclasses.field(
         default_factory=TransformerConfig
     )
@@ -114,8 +153,9 @@ class DecoderConfig:
         return cls(**kw)
 
 
+@register_config
 @dataclasses.dataclass(frozen=True)
-class ModelConfig:
+class ModelConfig(Config):
     encoder_config: EncoderConfig = dataclasses.field(default_factory=EncoderConfig)
     decoder_config: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
     dtype: str = "bfloat16"  # activation compute type; parameters stay float32
@@ -136,8 +176,9 @@ def load_config(path: str) -> Tuple[ModelConfig, int]:
     return ModelConfig.from_dict(blob["model_config"]), int(blob["checkpoint"])
 
 
+@register_config
 @dataclasses.dataclass(frozen=True)
-class GeneratorConfig:
+class GeneratorConfig(Config):
     """The GAN generator (``--g-*`` and ``--noise-dim`` of ``cli.gan``)."""
 
     n_layers: int = 1
@@ -153,8 +194,9 @@ class GeneratorConfig:
         return cls(**_known(cls, d))
 
 
+@register_config
 @dataclasses.dataclass(frozen=True)
-class DiscriminatorConfig:
+class DiscriminatorConfig(Config):
     """The GAN discriminator (``--d-*`` of ``cli.gan``); ``projection`` adds
     the class-projection term to every step's logit."""
 
@@ -170,8 +212,9 @@ class DiscriminatorConfig:
         return cls(**_known(cls, d))
 
 
+@register_config
 @dataclasses.dataclass(frozen=True)
-class GANConfig:
+class GANConfig(Config):
     generator_config: GeneratorConfig = dataclasses.field(default_factory=GeneratorConfig)
     discriminator_config: DiscriminatorConfig = dataclasses.field(
         default_factory=DiscriminatorConfig

@@ -191,6 +191,10 @@ class StyleVAE(nn.Module):
         return self.decoder.step_ragged(token_t, cache, t, classes)
 
 
+def make_model(config: ModelConfig) -> StyleVAE:
+    return StyleVAE(config)
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int) -> nn.Module:
     """Seeded initialisation with flax's default initializers (the JAX

@@ -52,6 +52,8 @@ end.
 from __future__ import annotations
 
 import ctypes
+import sys
+import types
 from typing import Optional, Tuple
 
 import torch
@@ -86,6 +88,18 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_forward_reference.cuda_runs = 0
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_lens: torch.Tensor, causal: bool, sm_scale: float) -> torch.Tensor:
+    """Dense attention in the input dtype, the JAX package's
+    ``reference_attention`` (``flash_attention.py:60-80``): q, k, v
+    [B, H, T, D], prefix ``key_lens`` [B]; out [B, H, T, D]."""
+    T = q.shape[2]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    bias = torch.where(_mask(key_lens, T, causal), 0.0, _NEG_INF)
+    probs = torch.softmax(logits + bias.to(logits.dtype), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
 def flash_backward_reference(q, k, v, key_lens, lse, out, g, causal: bool, sm_scale: float,
@@ -331,3 +345,15 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse cotangent folds into the backward's delta (delta' = delta - g_lse),
     so a caller that merges partial softmaxes by lse gets exact gradients."""
     return _apply(q, k, v, key_lens, causal, sm_scale)
+
+
+class _CallableModule(types.ModuleType):
+    """This module, callable as its ``flash_attention``: the JAX package's
+    ``ops`` exports the function under the module's name, and the port's
+    ``ops.flash_attention`` stays the module the wrappers live in."""
+
+    def __call__(self, *args, **kwargs):
+        return flash_attention(*args, **kwargs)
+
+
+sys.modules[__name__].__class__ = _CallableModule

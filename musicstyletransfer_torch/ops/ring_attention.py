@@ -176,6 +176,15 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: 
                                float(sm_scale), mesh.model_rank, mesh.tp, mesh.rotate_model)
 
 
+def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         key_lens: torch.Tensor, *, causal: bool,
+                         sm_scale: Optional[float] = None, mesh=None) -> torch.Tensor:
+    """The ring's body on this rank's time chunks (the JAX package's
+    ``ring_flash_attention``, which names the ring by its axis; here the
+    mesh's model axis): ``ring_attention``."""
+    return ring_attention(q, k, v, key_lens, causal, sm_scale, mesh)
+
+
 def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_lens: torch.Tensor, causal: bool = False,
                            sm_scale: Optional[float] = None, mesh=None) -> torch.Tensor:

@@ -136,13 +136,14 @@ class Mesh:
         dist.all_gather(parts, x, group=self.model_group)
         return torch.cat(parts, dim)
 
-    def rotate_model(self, tensors: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    def rotate_model(self, tensors: Sequence[torch.Tensor],
+                     shift: int = 1) -> Tuple[torch.Tensor, ...]:
         """One hop of the model group's ring: each tensor goes to model rank
-        m + 1 and this rank receives model rank m - 1's (``ppermute`` with
-        the JAX ring's ``_ring_perm``)."""
+        m + shift and this rank receives model rank m - shift's (``ppermute``
+        with the JAX ring's ``_ring_perm``; shift -1 is its transpose)."""
         base = self.data_rank * self.tp
-        nxt = base + (self.model_rank + 1) % self.tp
-        prv = base + (self.model_rank - 1) % self.tp
+        nxt = base + (self.model_rank + shift) % self.tp
+        prv = base + (self.model_rank - shift) % self.tp
         ops, received = [], []
         for x in tensors:
             x = x.contiguous()

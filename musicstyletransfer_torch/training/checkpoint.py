@@ -20,7 +20,7 @@ import dataclasses
 import json
 import os
 import re
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -59,6 +59,23 @@ def checkpoint_indices(model_folder: str) -> List[int]:
                   for m in (_CKPT_RE.match(n) for n in os.listdir(model_folder)) if m)
 
 
+def get_latest_checkpoint_index(model_folder: str) -> int:
+    """The largest N of the folder's ``params.N.pt``; ValueError when there
+    is none."""
+    indices = checkpoint_indices(model_folder)
+    if not indices:
+        raise ValueError(f"No checkpoints found in {model_folder}")
+    return indices[-1]
+
+
+def try_latest(model_folder: str) -> Optional[int]:
+    """``get_latest_checkpoint_index``, or None where there is no checkpoint."""
+    try:
+        return get_latest_checkpoint_index(model_folder)
+    except (ValueError, FileNotFoundError):
+        return None
+
+
 def checkpoint_path(model_folder: str, index: int) -> str:
     return os.path.join(model_folder, f"params.{index}.pt")
 
@@ -81,6 +98,26 @@ def save_checkpoint(model_folder: str, index: int, state: Dict[str, Any]) -> Non
 def restore_checkpoint(model_folder: str, index: int) -> Dict[str, Any]:
     return torch.load(checkpoint_path(model_folder, index), map_location="cpu",
                       weights_only=False)
+
+
+def restore_params(model_folder: str, index: int,
+                   params_template: Optional[torch.nn.Module] = None):
+    """Only the parameters of checkpoint ``index``: the flat float32 vector,
+    or, given a module, ``{name: tensor}`` in its parameters' order and
+    shapes (ValueError where the sizes differ)."""
+    flat = restore_checkpoint(model_folder, index)["params"]
+    if params_template is None:
+        return flat
+    named = list(params_template.named_parameters())
+    total = sum(p.numel() for _, p in named)
+    if flat.numel() != total:
+        raise ValueError(f"checkpoint {index} holds {flat.numel()} parameters, the template "
+                         f"{total}")
+    out, offset = {}, 0
+    for name, p in named:
+        out[name] = flat[offset:offset + p.numel()].view(p.shape).clone()
+        offset += p.numel()
+    return out
 
 
 def export_inference(model_folder: str, index: int, model: torch.nn.Module) -> None:

@@ -230,6 +230,19 @@ class GANSteps:
         self.counts.zero_()
 
 
+def make_gan_steps(config: GANConfig, train_config: GANTrainConfig, mesh=None,
+                   device=None) -> GANSteps:
+    """The D and G updates of a generator and discriminator seeded from
+    ``train_config.seed`` (``init_gan_params``, as ``GANTrainer``) on
+    ``device`` (the mesh's under a mesh). The JAX package returns the step
+    functions and their optax transformations; the port's ``GANSteps`` holds
+    the models and optimizers."""
+    gen, disc = init_gan_params(config, train_config.seed)
+    dev = mesh_device(mesh, device)
+    return GANSteps(config, train_config, gen.to(dev), disc.to(dev),
+                    torch.Generator(device=dev).manual_seed(train_config.seed), mesh)
+
+
 class GraphedGANGroups(GraphedGroups):
     """Groups of D/G steps of ``steps`` as CUDA-graph replays (the rules of
     ``training/graph.py``), one graph per pattern of a group: which batches

@@ -72,6 +72,13 @@ class OptimizerConfig:
         return out
 
 
+def build_optimizer(config: OptimizerConfig, params) -> "Optimizer":
+    """``config``'s optimizer over ``params`` (the JAX package's
+    ``build_optimizer`` returns an optax transformation; the port's
+    optimizer holds its parameters in its flat buffer)."""
+    return Optimizer(list(params), config)
+
+
 class Optimizer:
     """``config``'s optimizer over ``params`` (which it re-points into one
     flat buffer), with the clips, the schedule, the non-finite guard and,

@@ -85,6 +85,40 @@ class TrainState:
         self.counts.zero_()
 
 
+def create_train_state(model: StyleVAE) -> TrainState:
+    """A fresh ``TrainState`` for ``model`` on its device (the JAX package's
+    state also carries the parameters and the optimizer's state, which the
+    port's model and ``Optimizer`` hold)."""
+    return TrainState(metric_names(model), model.device)
+
+
+def make_train_step(model: StyleVAE, optimizer: Optimizer, loss_config: LossConfig,
+                    mesh=None):
+    """``step(state, tokens, seq_lens, classes, labels, generator=None)``:
+    one ``step_body`` under ``mesh`` (its metrics accumulate in ``state``),
+    returning ``state``."""
+    from ..parallel.mesh import use_mesh
+
+    def step(state: TrainState, tokens, seq_lens, classes, labels,
+             generator: Optional[torch.Generator] = None) -> TrainState:
+        with use_mesh(mesh):
+            step_body(model, optimizer, loss_config, state, tokens, seq_lens, classes, labels,
+                      generator)
+        return state
+
+    return step
+
+
+def make_eval_step(model: StyleVAE, loss_config: LossConfig):
+    """``eval(tokens, seq_lens, classes, labels, n_valid)``: ``eval_step``
+    of ``model``."""
+
+    def evaluate(tokens, seq_lens, classes, labels, n_valid: int) -> Dict[str, Pair]:
+        return eval_step(model, loss_config, tokens, seq_lens, classes, labels, n_valid)
+
+    return evaluate
+
+
 def step_body(model: StyleVAE, optimizer: Optimizer, loss_config: LossConfig,
               state: TrainState, tokens: torch.Tensor, seq_lens: torch.Tensor,
               classes: torch.Tensor, labels: torch.Tensor,

@@ -103,11 +103,16 @@ def test_load_dataset_splits_equal(melodies):
 
 
 def test_loader_reads_the_corpus_and_refuses_the_native_reader():
+    """The Loader reads the corpus; by default through the C++ tokenizer
+    (it no longer refuses it), with use_native=False through the codec."""
+    from musicstyletransfer_torch.midi.native import NativeMIDIReader
+
     loader = Loader(CORPUS, 64)
     assert sorted(loader.melodies) == ["bass", "guitar"]
     assert sum(len(m) for m in loader.melodies.values()) == 37
-    with pytest.raises(NotImplementedError, match="C\\+\\+ tokenizer"):
-        Loader(CORPUS, 64, use_native=True)
+    assert isinstance(loader.midi_reader, NativeMIDIReader)
+    assert isinstance(Loader(CORPUS, 64, use_native=False).midi_reader,
+                      tcodec.EventBasedMIDIReader)
 
 
 @pytest.mark.parametrize("argv", [
@@ -149,8 +154,8 @@ def test_no_jax_import_statement():
 
 def test_port_and_chip_smoke_import_without_jax():
     """In a process where JAX and the JAX package cannot be imported, every
-    port module (the serving, sharding and MIDI CLI modules named among
-    them), every import of chip_smoke.py and the port's two examples
+    port module (the serving, sharding, pipeline, native tokenizer, dry-run
+    and MIDI CLI modules named among them), every import of chip_smoke.py and the port's two examples
     succeed."""
     code = textwrap.dedent(f"""
         import ast, importlib, importlib.abc, pkgutil, sys
@@ -181,7 +186,8 @@ def test_port_and_chip_smoke_import_without_jax():
         assert not bad, bad
         serving = ("models.transformer", "inference.service", "inference.streaming",
                    "cli.serve", "inference.sharded", "midi.roundtrip", "midi.splitter",
-                   "utils")
+                   "utils", "parallel.pipeline", "parallel.transformer_pipeline",
+                   "midi.native", "dryrun")
         missing = [m for m in serving if "musicstyletransfer_torch." + m not in sys.modules]
         assert not missing, missing
         print("ok")

@@ -5,9 +5,10 @@
 ``SPEC.json`` names the scenarios to run, in order, and the folder of their
 inputs and outputs; each scenario builds the mesh it needs over the one
 world and writes ``<name>.npz`` from rank 0. ``tests/test_torch_parallel.py``,
-``tests/test_torch_ring_attention.py``, ``tests/test_torch_sharded.py`` and
-``tests/test_torch_gan.py`` launch two of these and hold the results against
-the JAX package and against one process.
+``tests/test_torch_ring_attention.py``, ``tests/test_torch_sharded.py``,
+``tests/test_torch_gan.py`` and ``tests/test_torch_pipeline.py`` launch
+two of these and hold the results against the JAX package and against one
+process.
 """
 
 import json
@@ -395,9 +396,63 @@ def gan_dp(folder, rank):
     return out
 
 
+# ---- pipeline parallelism (parallel/pipeline.py, transformer_pipeline.py) ----
+
+
+def pipeline(folder, rank):
+    """pp=2 over the model axis, through the real hops with autograd: the MLP
+    stages' output and the gradients of sum(out * w), and a TransformerStack
+    (the long recipe's ring_attention set, the flash route's plain versions)
+    pipelined under use_mesh(mesh): output and the gradients of
+    mean(out ** 2), the stage parameters' gradients summed over the model
+    group (each rank holds its own stage's), x's and final_ln's as rank 0
+    holds them, taken with torch.autograd.grad; the calls of ring_attention
+    and scatter_seq."""
+    from musicstyletransfer_torch.models import transformer as tmod
+    from musicstyletransfer_torch.models.config import TransformerConfig
+    from musicstyletransfer_torch.parallel import (pipeline_apply,
+                                                   pipeline_transformer_stack)
+
+    mesh = make_mesh(2)
+    with np.load(os.path.join(folder, "pipeline_inputs.npz")) as z:
+        x = {k: torch.as_tensor(z[k]) for k in z.files}
+    params = {k: x[k].clone().requires_grad_() for k in ("w", "b")}
+    xm = x["x"].clone().requires_grad_()
+    out = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"] + p["b"]), params, xm, mesh=mesh,
+                         microbatches=4)
+    (out * x["wt"]).sum().backward()
+    grads = torch.cat([params["w"].grad.reshape(-1), params["b"].grad.reshape(-1)])
+    mesh.all_reduce_model_sum_(grads)
+    res = {"mlp_out": out.detach().numpy(), "mlp_grads": grads.numpy(),
+           "mlp_gx": xm.grad.numpy() if xm.grad is not None else np.zeros(0)}
+    with open(os.path.join(folder, "pipeline_stack.json")) as f:
+        spec = json.load(f)
+    stack = tmod.TransformerStack(TransformerConfig.from_dict(spec["config"]), spec["causal"],
+                                  torch.float32)
+    stack.load_state_dict(params_from_jax(load_npz(os.path.join(folder, "stack.npz"))))
+    ring, scatter = counting(tmod, "ring_attention"), counting(tmod, "scatter_seq")
+    hs = x["hx"].clone().requires_grad_()
+    with use_mesh(mesh):
+        o = pipeline_transformer_stack(stack, hs, x["mask"].bool(), mesh=mesh,
+                                       microbatches=2)
+    # torch.autograd.grad runs only what leads to the inputs asked about: on
+    # rank 1 the first hop carried zeros, and its backward must run all the same
+    names, params = zip(*stack.named_parameters())
+    grads = torch.autograd.grad(o.pow(2).mean(), (*params, hs))
+    for name, g in zip(names, grads):
+        g = g.clone()
+        if name.startswith("layers."):
+            mesh.all_reduce_model_sum_(g)
+        res[f"stack_grad/{name}"] = g.numpy()
+    res.update({"stack_out": o.detach().numpy(), "calls": np.asarray([len(ring), len(scatter)]),
+                "stack_gx": grads[-1].numpy()})
+    return res
+
+
 SCENARIOS = {f.__name__: f for f in (tp_grads, tp_grads_core, tp_grads_flash, clip, dp_train,
                                      tp_train, ring_train, ring_op, process_layer, sharded_dp,
-                                     sharded_tp, service_dp, engine_dp, engine_tp, gan_dp)}
+                                     sharded_tp, service_dp, engine_dp, engine_tp, gan_dp,
+                                     pipeline)}
 
 
 def main():
