@@ -5,11 +5,12 @@
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of musicstyletransfer_torch/ops/csrc with nvcc, one
-   process per source, all at once: K1 (fused_decode.cu), K2/K3 and K4/K5 in
-   bfloat16 at head dimension 32 or 64 on the tensor cores
-   (flash_attention_tc.cu), K2/K3 in float32 and at the other head
-   dimensions (attention_core.cu), K4/K5 there (flash_attention.cu), both on
-   the CUDA cores.
+   process per source, all at once: K1 (fused_decode.cu), K2/K3 in bfloat16
+   and K4/K5 in bfloat16 and float32 at head dimension 32 or 64 on the
+   tensor cores (flash_attention_tc.cu, float32 as three bf16 pieces from
+   its split kernel), K2/K3 in float32 and at the other head dimensions
+   (attention_core.cu), K4/K5 at the other head dimensions
+   (flash_attention.cu), both on the CUDA cores.
 3. Holds K1 against its plain PyTorch version on the card, at the canonical
    decoder shape (D=128, H=8, V=293, B=64, T=130) with seeded weights, in
    float32 and bfloat16: forced-mode logits, greedy tokens and scores, the
@@ -31,16 +32,19 @@
    no tile divides (T=333, hd=32; T=200, hd=64, causal; key lengths
    [T, T/2, 1, 0]), in float32 (CUDA-core kernels) and bfloat16 (tensor-core
    kernels), and K3 at 1e19 cotangents, where every value must be finite.
-5. Holds K4 and K5 against their plain versions at the long training shapes
-   (H=8; encoder T=2047, hd=64; decoder T=2048, hd=32, causal; the key
-   lengths of the corpus's first L=2046 batch plus a row of 1 and a row of
-   0), at T=8192 (causal and not) and at two short lengths that no tile
-   divides (T=333, hd=32; T=200, hd=64, causal), in float32 and bfloat16, on
-   the model's strided [B, T, H, hd] layout: out, lse, and dq/dk/dv with and
-   without an lse cotangent, through flash_attention_with_lse's autograd
-   too, and K5 at 1e19 cotangents; bfloat16 goes through the tensor-core
-   kernels and float32 through the CUDA-core ones, and a second run of K5
-   gives the same bits.
+5. Holds the split of float32 inputs (split_bf16x3) against its plain
+   version bit for bit at both long shapes (normal, 1e-30 and 1e19 values,
+   scaled and not). Holds K4 and K5 against their plain versions at the long
+   training shapes (H=8; encoder T=2047, hd=64; decoder T=2048, hd=32,
+   causal; the key lengths of the corpus's first L=2046 batch plus a row of
+   1 and a row of 0), at T=8192 (causal and not), at two short lengths that
+   no tile divides (T=333, hd=32; T=200, hd=64, causal) and at head
+   dimensions 16 and 128 (T=333), in float32 and bfloat16, on the model's
+   strided [B, T, H, hd] layout: out, lse, and dq/dk/dv with and without an
+   lse cotangent, through flash_attention_with_lse's autograd too, and K5 at
+   1e19 cotangents; head dimensions 32 and 64 go through the tensor-core
+   kernels (float32 through the split), 16 and 128 through the CUDA-core
+   ones, and a second run of K5 gives the same bits.
 6. CUDA graphs of N training steps (training/graph.py) against 2N eager
    steps from one seeded state, at the canonical (N=8, and N=2 with
    --remat), wide (N=4) and long (N=1) recipes: parameters, optimizer
@@ -77,7 +81,11 @@
    checkpoint at max_len 4094, whose MIDI parses back. K5 runs on every
    attention layer of every step, every K4 and K5 launch on the tensor-core
    kernels, K2/K3 never, no plain version on the card; loss and gradient
-   norm finite, no update skipped.
+   norm finite, no update skipped. The same recipe with --dtype float32
+   (the reference's dtype): a CUDA graph of one step against eager steps,
+   bit for bit; cli.main for one epoch (12 steps), every K4 and K5 launch on
+   the tensor-core kernels, three splits a K4 and four a K5, no plain
+   version on the card.
    Canonical path: cli.main with scripts/train-vae.sh's flags (B=32,
    L=64, groups of 8 steps: one graph replay each, the epoch's remainder
    a graph of its own) for two epochs; cli.evaluate --transfer-stats on
@@ -103,10 +111,14 @@
    the device's busy share. No hand kernel runs on either path.
 10. Times (CUDA events, beside the card's name and power limit): the serving
    transfer, K1 against its plain loop, p50 MIDI->MIDI latency; K2/K3 at
-   both wide shapes and K4/K5 at both long shapes and at T=8192 beside their
-   bounds, their plain versions and torch's scaled_dot_product_attention,
-   and their wrappers' host time a call; the canonical, wide and long
-   training steps, eager and as graph replays: ms a step, target tokens per
+   both wide shapes (bf16, and float32 on the CUDA cores) and K4/K5 at both
+   long shapes (bf16; float32 on the tensor cores and, for comparison, on
+   the CUDA-core kernels) and at T=8192 (bf16), and at head dimensions 16
+   and 128 (the CUDA-core kernels, both dtypes), beside their bounds (float32
+   attention: the TF32 peak), their plain versions and torch's
+   scaled_dot_product_attention, and their wrappers' host time a call; the
+   split at the long encoder shape; the canonical, wide, long and float32
+   long training steps, eager and as graph replays: ms a step, target tokens per
    second, and from torch.profiler the kernels' ms a step, the device's busy
    share, kernels and host ops a step and the attention kernels' share;
    the same for the LSTM-decoder VAE's step.
@@ -222,9 +234,12 @@ FLASH_SHAPES = (("encoder", 2047, 64, False), ("decoder", 2048, 32, True))
 FLASH_H, FLASH_LONG_T = 8, 8192
 LONG_L, LONG_B = 2046, 4
 # Two short lengths that no tile of the tensor-core kernels divides:
-# (name, T, head_dim, causal, key_lens).
+# (name, T, head_dim, causal, key_lens); and the head dimensions that stay
+# on the CUDA-core kernels (flash_attention.cu) at a ragged length.
 FLASH_SHORT = (("short", 333, 32, False, [333, 129, 1, 0]),
                ("short", 200, 64, True, [200, 65, 1, 0]))
+FLASH_CUDA_CORE = (("cuda-core hd", 333, 16, True, [333, 129, 1, 0]),
+                   ("cuda-core hd", 333, 128, False, [333, 129, 1, 0]))
 # K4/K5 against their plain versions: K2/K3's tolerances (TOL_CTX, TOL_LSE,
 # TOL_DQKV_REL), for the same reasons.
 # A resumed run's first logged step against the uninterrupted run's: the same
@@ -233,8 +248,13 @@ TOL_RESUME_REL = 1e-2
 # A CUDA graph of N steps against N eager steps from one state: the same
 # kernels on the same inputs in the same order, so bit for bit.
 TOL_GRAPH_REL = 0.0
-# Peak rates of one H100 SXM (NVIDIA's data sheet).
+# Peak rates of one H100 SXM (NVIDIA's data sheet): K1's float32 runs on
+# the CUDA cores (67 TFLOP/s); float32 attention's bound is the tensor
+# cores' TF32 peak, and its tensor-core kernels' own ceiling six bf16
+# products a float32 product (989 / 6 TFLOP/s).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
+SPLIT_CEILING = 989e12 / 6
 PEAK_BYTES = 3.35e12
 
 
@@ -590,27 +610,56 @@ def flash_inputs(B: int, T: int, hd: int, dtype: torch.dtype, seed: int):
     return q, k, v, dout, g_lse
 
 
+def check_split(fa) -> float:
+    """The split of float32 inputs (split_bf16x3) against its plain version
+    at the long recipe's shapes, on the model's strided [B, T, H, hd]
+    layout, at normal, tiny (1e-30) and 1e19 values, scaled by sm_scale and
+    not: bit for bit. Returns the largest absolute error (0)."""
+    worst = 0.0
+    for name, T, hd, causal in FLASH_SHAPES:
+        for magnitude in (1.0, 1e-30, 1e19):
+            q = flash_inputs(LONG_B, T, hd, torch.float32, seed=T + hd)[0] * magnitude
+            for scale in (1.0, hd ** -0.5):
+                before = counts()
+                got = fa.split_bf16x3(q, scale)
+                want = fa.split_bf16x3_reference(q, scale)
+                torch.cuda.synchronize()
+                moved = counts()["split"] - before["split"]
+                check(moved == 1, f"split {name}: {moved} launches, expected 1")
+                same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+                err = float((got.float() - want.float()).abs().max())
+                check(same, f"split {name} T={T} hd={hd} x{magnitude:g} scale {scale:g}: differs "
+                      f"from its plain version (max|err| {err})")
+                worst = max(worst, err)
+        log(f"split {name} [{LONG_B}, {FLASH_H}, {T}, {hd}] float32 (strided view), values x1, "
+            "x1e-30, x1e19, scale 1 and sm_scale: bit for bit its plain version")
+    return worst
+
+
 def check_flash(fa, enc_lens) -> dict:
     """K4 and K5 against their plain versions at both long shapes (the corpus
     batch's key lengths ``enc_lens`` plus a row of 1 and a row of 0, +1 in
-    the decoder) and at T=8192; returns the largest absolute errors
-    {"K4": ..., "K5": ...}."""
+    the decoder), at T=8192, at two short lengths, and at head dimensions 16
+    and 128 (the CUDA-core kernels); bfloat16 and float32 at head dimension
+    32 or 64 on the tensor-core kernels (float32 through the split); returns
+    the largest absolute errors {"K4": ..., "K5": ...}."""
     enc = [int(n) for n in enc_lens]
     cases = [(name, T, hd, causal, (enc if name == "encoder" else [n + 1 for n in enc]) + [1, 0])
              for name, T, hd, causal in FLASH_SHAPES]
     cases += [("single row", FLASH_LONG_T, 64, causal, [FLASH_LONG_T * 7 // 8])
               for causal in (False, True)]
-    cases += list(FLASH_SHORT)
-    worst = {"K4": 0.0, "K5": 0.0}
+    cases += list(FLASH_SHORT) + list(FLASH_CUDA_CORE)
+    worst = {"K4": 0.0, "K5": 0.0, "K4 float32": 0.0, "K5 float32": 0.0}
     for name, T, hd, causal, lens in cases:
         for dtype in (torch.float32, torch.bfloat16):
             dn = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
             tag = f"{name} T={T} hd={hd} causal={causal} {dn}"
+            f32_tc = dtype == torch.float32 and hd in (32, 64)
             q, k, v, dout, g_lse = flash_inputs(len(lens), T, hd, dtype, seed=T + hd)
             key_lens = torch.tensor(lens, dtype=torch.int32).cuda()
             scale = hd ** -0.5
             route = fa.kernel_route(dtype, hd)
-            check(route == ("tensor-core" if dtype == torch.bfloat16 else "cuda-core"),
+            check(route == ("tensor-core" if hd in (32, 64) else "cuda-core"),
                   f"K4/K5 {tag}: routed to the {route} kernels")
             before = counts()
             out, lse = fa.flash_forward(q, k, v, key_lens, causal, scale)
@@ -625,6 +674,8 @@ def check_flash(fa, enc_lens) -> dict:
             check(out_err <= TOL_CTX[dtype], f"K4 {tag}: out max|err| {out_err} > {TOL_CTX[dtype]}")
             check(lse_err <= TOL_LSE[dtype], f"K4 {tag}: lse max|err| {lse_err} > {TOL_LSE[dtype]}")
             worst["K4"] = max(worst["K4"], out_err)
+            if f32_tc:
+                worst["K4 float32"] = max(worst["K4 float32"], out_err)
             # K5 on the plain forward's residuals, so only the backward
             # differs; then through flash_attention_with_lse's autograd on the
             # kernel's own residuals, with an lse cotangent.
@@ -655,12 +706,17 @@ def check_flash(fa, enc_lens) -> dict:
                       f"K5 {tag} {label}: rel errs {rels} > {TOL_DQKV_REL[dtype]}")
                 if label != "dO = 1e19":
                     worst["K5"] = max(worst["K5"], max(errs))
+                    if f32_tc:
+                        worst["K5 float32"] = max(worst["K5 float32"], max(errs))
                 line.append(f"{label}: max|err| {max(errs):.3g}, rel {max(rels):.3g}")
             after = counts()
-            moved = {k: after[k] - before[k] for k in ("K4", "K4 tc", "K5", "K5 tc")}
+            moved = {k: after[k] - before[k] for k in ("K4", "K4 tc", "K5", "K5 tc", "split")}
             on_tc = route == "tensor-core"
+            # float32 on the tensor cores: q, k, v split for each K4, and dO too for each K5
+            splits = 3 * 2 + 4 * 7 if on_tc and dtype == torch.float32 else 0
             check(moved["K4"] == 2 and moved["K5"] == 7
-                  and moved["K4 tc"] == (2 if on_tc else 0) and moved["K5 tc"] == (7 if on_tc else 0),
+                  and moved["K4 tc"] == (2 if on_tc else 0) and moved["K5 tc"] == (7 if on_tc else 0)
+                  and moved["split"] == splits,
                   f"K4/K5 {tag}: launches {moved} on the {route} route")
             log(f"[{dn}] K4 {name} T={T} hd={hd} causal={causal} key_lens={lens}: out max|err| "
                 f"{out_err:.3g} (tol {TOL_CTX[dtype]}), lse {lse_err:.3g} (tol {TOL_LSE[dtype]}); "
@@ -891,10 +947,11 @@ def canonical_path(tmp: str) -> dict:
     return main_counts
 
 
-def long_path(tmp: str) -> dict:
-    """The long recipe through cli.main for two epochs, then cli.sample on its
-    checkpoint at max_len 2 * (L + 1) = 4094; returns the training run's
-    launch counts."""
+def long_path(tmp: str, extra=(), epochs: int = 2, sample: bool = True) -> dict:
+    """The long recipe (and ``extra`` flags) through cli.main for ``epochs``
+    epochs, then (``sample``) cli.sample on its checkpoint at max_len 2 * (L
+    + 1) = 4094; returns the training run's launch counts. In float32 every
+    K4/K5 launch splits its inputs first (q, k, v; and dO)."""
     from musicstyletransfer_torch.cli import main as cli_main
     from musicstyletransfer_torch.cli import sample as cli_sample
     from musicstyletransfer_torch.data import Loader, MelodyDataset, load_dataset
@@ -903,10 +960,11 @@ def long_path(tmp: str) -> dict:
     data = os.path.join(REPO, "work", "data", "guitar_bass")
     loader = Loader(data, LONG_L)
     per_epoch = load_dataset(loader, LONG_B, 0.1)[0].num_batches()
-    model = os.path.join(tmp, "long")
-    argv = recipe_argv("train-vae-long.sh", data, model, os.path.join(tmp, "out-long")) + [
-        "--epochs", "2", "--checkpoint-frequency", str(per_epoch),
-        "--logdir", model + "-log", "--log-every", "1"]
+    tag = "long" + "".join(extra).replace("--", "-")
+    model = os.path.join(tmp, tag)
+    argv = recipe_argv("train-vae-long.sh", data, model, os.path.join(tmp, "out-" + tag)) + [
+        "--epochs", str(epochs), "--checkpoint-frequency", str(per_epoch),
+        "--logdir", model + "-log", "--log-every", "1"] + list(extra)
     for flag in ("--ring-attention", "--class-conditioning", "--free-bits"):
         check(flag in argv, f"train-vae-long.sh lost {flag}")
     layers = 4 + 2  # the recipe's encoder and decoder layers
@@ -916,19 +974,24 @@ def long_path(tmp: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     c = counts()
-    steps = 2 * per_epoch
-    log(f"long path: cli.main, long recipe, {steps} steps in {wall:.1f} s (2 checkpoints, "
-        f"validation, generation-health probe at max_len {2 * (LONG_L + 1)}); launches {c}")
-    check_train_log(train_lines(os.path.join(model + "-log", "scalars.jsonl")), "long run")
+    steps = epochs * per_epoch
+    log(f"{tag} path: cli.main, long recipe {' '.join(extra)}, {steps} steps in {wall:.1f} s "
+        f"({epochs} checkpoints, validation, generation-health probe at max_len "
+        f"{2 * (LONG_L + 1)}); launches {c}")
+    check_train_log(train_lines(os.path.join(model + "-log", "scalars.jsonl")), f"{tag} run")
     check(c["K5"] == layers * steps, f"K5 launched {c['K5']} times, expected {layers} x {steps}")
     check(c["K4"] >= c["K5"], f"K4 launched {c['K4']} times, fewer than K5")
     check(c["K4 tc"] == c["K4"] and c["K5 tc"] == c["K5"],
-          f"the long path left the tensor-core kernels: {c}")
-    check(c["K2"] == 0 and c["K3"] == 0, f"the long path launched K2/K3: {c}")
+          f"the {tag} path left the tensor-core kernels: {c}")
+    splits = 3 * c["K4"] + 4 * c["K5"] if "float32" in extra else 0
+    check(c["split"] == splits, f"the {tag} path split {c['split']} times, expected {splits}")
+    check(c["K2"] == 0 and c["K3"] == 0, f"the {tag} path launched K2/K3: {c}")
     check(c["K1"] > 0, "the generation-health probe did not launch K1")
     for k in counters.PLAIN:
-        check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the long training path")
+        check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the {tag} training path")
     main_counts = c
+    if not sample:
+        return main_counts
 
     out = os.path.join(tmp, "samples-long")
     counts(reset=True)
@@ -1353,25 +1416,28 @@ def core_flops_bytes(key_lens, T: int, hd: int, causal: bool, esize: int, H: int
     return pairs, qkv + ctx + lse + 4 * B, 2 * qkv + 2 * ctx + lse + 4 * B
 
 
-def bound(flops: float, nbytes: float, dtype: torch.dtype):
-    """(bound ms, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, dtype: torch.dtype, peak: float = None):
+    """(bound ms, "operations" or "bytes"); ``peak`` FLOP/s in place of
+    the dtype's (the TF32 peak for float32 attention)."""
+    t_ops, t_bytes = flops / (peak or PEAK_FLOPS[dtype]), nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def measure_core(ac, batch) -> dict:
-    """K2 and K3 per launch at both wide shapes (bf16, the main path's key
-    lengths from a corpus batch, random values), the card held back while
-    the host enqueues, beside their bounds, their plain versions and
-    scaled_dot_product_attention on the same q, k, v, and the host time of
-    a wrapper call."""
+    """K2 and K3 per launch at both wide shapes (bf16 on the tensor-core
+    kernels, float32 on the CUDA-core ones; the main path's key lengths from
+    a corpus batch, random values), the card held back while the host
+    enqueues, beside their bounds (float32: the TF32 peak), their plain
+    versions and scaled_dot_product_attention on the same q, k, v, and the
+    host time of a wrapper call."""
     import torch.nn.functional as F
 
     out = {}
-    for name, T, hd, causal in CORE_SHAPES:
+    for (name, T, hd, causal), dtype in [(c, dt) for dt in (torch.bfloat16, torch.float32)
+                                         for c in CORE_SHAPES]:
         seq_lens = torch.as_tensor(batch.seq_lens).long()
         lens = (seq_lens if name == "encoder" else seq_lens + 1).to(torch.int32).cuda()
-        qkv, _, dout = core_inputs(T, hd, torch.bfloat16, seed=1)
+        qkv, _, dout = core_inputs(T, hd, dtype, seed=1)
         scale = 1.0 / math.sqrt(hd)
         fwd = lambda: ac.core_forward(qkv, lens, CORE_H, causal, scale)  # noqa: E731
         ctx, lse = fwd()
@@ -1396,11 +1462,13 @@ def measure_core(ac, batch) -> dict:
         o = sdpa()
         g = dout.reshape(CORE_B, T, CORE_H, hd).permute(0, 2, 1, 3).contiguous()
         lib3 = time_cuda(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 20)
-        pairs, fbytes, bbytes = core_flops_bytes(lens, T, hd, causal, 2)
-        b2, by2 = bound(4 * hd * pairs, fbytes, torch.bfloat16)
-        b3, by3 = bound(10 * hd * pairs, bbytes, torch.bfloat16)
-        out[name] = {"K2": (min(k2), p2, lib2, b2, by2), "K3": (min(k3), p3, lib3, b3, by3)}
-        log(f"{name} T={T} hd={hd} causal={causal} key_lens={lens.tolist()} bf16 "
+        pairs, fbytes, bbytes = core_flops_bytes(lens, T, hd, causal, qkv.element_size())
+        peak = PEAK_TF32 if dtype == torch.float32 else None
+        b2, by2 = bound(4 * hd * pairs, fbytes, dtype, peak)
+        b3, by3 = bound(10 * hd * pairs, bbytes, dtype, peak)
+        label = name if dtype == torch.bfloat16 else f"{name} float32"
+        out[label] = {"K2": (min(k2), p2, lib2, b2, by2), "K3": (min(k3), p3, lib3, b3, by3)}
+        log(f"{name} T={T} hd={hd} causal={causal} key_lens={lens.tolist()} {dtype} "
             f"({ac.core_route(qkv.dtype, hd)} kernels): {pairs} unmasked pairs; "
             f"K2 {k2[0]:.4f} / {k2[1]:.4f} ms (bound {b2:.4f} ms, {by2}; plain {p2:.3f} ms; "
             f"SDPA {lib2:.4f} ms), K3 {k3[0]:.4f} / {k3[1]:.4f} ms (bound {b3:.4f} ms, {by3}; "
@@ -1409,60 +1477,114 @@ def measure_core(ac, batch) -> dict:
     return out
 
 
-def measure_flash(fa, ac, batch) -> dict:
-    """K4 and K5 per launch at both long shapes (the main path's key lengths
-    from a corpus batch) and at T=8192 (one row, key length 7168, causal and
-    not: the lengths at which the JAX dispatch streams K and V), bf16, random
-    values, the model's strided layout; beside their bounds, their plain
-    versions and scaled_dot_product_attention on the same q, k, v, and the
-    host time of a wrapper call."""
+def measure_split(fa) -> tuple:
+    """The split (split_bf16x3) of one float32 operand at the long encoder
+    shape ([4, 8, 2047, 64], the model's strided layout, q's scale), beside
+    its bound (4 bytes read and 6 written an element) and its plain
+    version: (ms, plain ms, bound ms, "bytes")."""
+    T, hd = FLASH_SHAPES[0][1:3]
+    q = flash_inputs(LONG_B, T, hd, torch.float32, seed=1)[0]
+    fn = lambda: fa.split_bf16x3(q, hd ** -0.5)  # noqa: E731
+    ms = min(time_cuda(fn, 50, queued=True), time_cuda(fn, 50, queued=True))
+    plain_ms = time_cuda(lambda: fa.split_bf16x3_reference(q, hd ** -0.5), 10)
+    bound_ms, bound_by = bound(0.0, q.numel() * (4 + 3 * 2), torch.float32)
+    log(f"split [{LONG_B}, {FLASH_H}, {T}, {hd}] float32: {ms:.4f} ms (bound {bound_ms:.4f} ms, "
+        f"{bound_by}; plain {plain_ms:.4f} ms)")
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def time_flash(fa, ac, name: str, T: int, hd: int, causal: bool, key_lens, reps: int,
+               dtype: torch.dtype, route: str = None, plain: bool = True) -> dict:
+    """K4 and K5 per launch on ``route`` (None: ``kernel_route``'s) at one
+    shape, random values, the model's strided layout, the card held back
+    while the host enqueues; beside their bounds (float32: the TF32 peak, and
+    the split design's own ceiling), their plain versions (``plain``) and
+    scaled_dot_product_attention on the same q, k, v, and the host time of a
+    wrapper call. Returns {"K4": (ms, plain ms, SDPA ms, bound ms, bound by),
+    "K5": ...}."""
     import torch.nn.functional as F
 
+    lens = torch.tensor(key_lens, dtype=torch.int32).cuda()
+    q, k, v, dout, _ = flash_inputs(len(key_lens), T, hd, dtype, seed=1)
+    scale = hd ** -0.5
+    fwd = lambda: fa.flash_forward(q, k, v, lens, causal, scale, route=route)  # noqa: E731
+    o, lse = fwd()
+    bwd = lambda: fa.flash_backward(q, k, v, lens, lse, o, dout, causal, scale,  # noqa: E731
+                                    route=route)
+    k4 = [time_cuda(fwd, 2 * reps, queued=True), time_cuda(fwd, 2 * reps, queued=True)]
+    k5 = [time_cuda(bwd, 2 * reps, queued=True), time_cuda(bwd, 2 * reps, queued=True)]
+    host = []  # us of host time a wrapper call, the card left to run behind
+    for fn in (fwd, bwd):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        host.append((time.perf_counter() - t0) / 50 * 1e6)
+        torch.cuda.synchronize()
+    plain_reps = 3 if T < FLASH_LONG_T else 1  # its [T, T] float32 arrays: once is enough
+    p4 = p5 = None
+    if plain:
+        p4 = time_cuda(lambda: fa.flash_forward_reference(q, k, v, lens, causal, scale),
+                       plain_reps)
+        p5 = time_cuda(lambda: fa.flash_backward_reference(q, k, v, lens, lse, o, dout, causal,
+                                                           scale), plain_reps)
+    qs, ks, vs = (x.contiguous().requires_grad_() for x in (q, k, v))
+    mask = ac._mask(lens, T, causal)  # [B, 1, T, T], True = attend
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)  # noqa: E731
+    lib4 = time_cuda(sdpa, reps)
+    o2 = sdpa()
+    lib5 = time_cuda(lambda: torch.autograd.grad(o2, (qs, ks, vs), dout, retain_graph=True), reps)
+    pairs, fbytes, bbytes = core_flops_bytes(lens, T, hd, causal, q.element_size(), FLASH_H)
+    peak = PEAK_TF32 if dtype == torch.float32 else None
+    b4, by4 = bound(4 * hd * pairs, fbytes, dtype, peak)
+    b5, by5 = bound(10 * hd * pairs, bbytes, dtype, peak)
+    on = route or fa.kernel_route(dtype, hd)
+    ceiling = ""
+    if dtype == torch.float32 and on == "tensor-core":
+        ceiling = (f"; the split design's ceiling (989/6 TFLOP/s) K4 "
+                   f"{4 * hd * pairs / SPLIT_CEILING * 1e3:.4f} ms, K5 "
+                   f"{10 * hd * pairs / SPLIT_CEILING * 1e3:.4f} ms")
+    plain4 = f"plain {p4:.3f} ms x{plain_reps}; " if plain else ""
+    plain5 = f"plain {p5:.3f} ms x{plain_reps}; " if plain else ""
+    log(f"{name} B={len(key_lens)} H={FLASH_H} T={T} hd={hd} causal={causal} key_lens={key_lens} "
+        f"{dtype} ({on} kernels): {pairs} unmasked pairs, {4 * hd * pairs / 1e9:.2f} GFLOP "
+        f"forward, {fbytes / 1e6:.1f} MB forward / {bbytes / 1e6:.1f} MB backward; K4 "
+        f"{k4[0]:.4f} / {k4[1]:.4f} ms (bound {b4:.4f} ms, {by4}; {plain4}SDPA {lib4:.4f} ms), "
+        f"K5 {k5[0]:.4f} / {k5[1]:.4f} ms (bound {b5:.4f} ms, {by5}; {plain5}SDPA backward "
+        f"{lib5:.4f} ms){ceiling}; the wrappers' host time {host[0]:.1f} / {host[1]:.1f} us a "
+        "call")
+    del o2, mask
+    return {"K4": (min(k4), p4, lib4, b4, by4), "K5": (min(k5), p5, lib5, b5, by5)}
+
+
+def measure_flash(fa, ac, batch) -> dict:
+    """K4 and K5 per launch (``time_flash``): bf16 at both long shapes (the
+    main path's key lengths from a corpus batch) and at T=8192 (one row, key
+    length 7168, causal and not: the lengths at which the JAX dispatch
+    streams K and V); float32 at both long shapes on the tensor-core kernels
+    and, for the time before them, on the CUDA-core kernels
+    (flash_attention.cu, which served float32 at head dimension 32 and 64
+    until the split); and the head dimensions that stay on the CUDA-core
+    kernels (16, 128) at the long encoder shape, both dtypes. Returns
+    {label: {"K4": ..., "K5": ...}}."""
     seq_lens = torch.as_tensor(batch.seq_lens).long()
     shapes = [(name, T, hd, causal, (seq_lens if name == "encoder" else seq_lens + 1).tolist(), 10)
               for name, T, hd, causal in FLASH_SHAPES]
-    shapes += [(f"T={FLASH_LONG_T}" + (" causal" if causal else ""), FLASH_LONG_T, 64, causal,
-                [FLASH_LONG_T * 7 // 8], 5) for causal in (False, True)]
+    long_shapes = [(f"T={FLASH_LONG_T}" + (" causal" if causal else ""), FLASH_LONG_T, 64, causal,
+                    [FLASH_LONG_T * 7 // 8], 5) for causal in (False, True)]
     out = {}
+    for name, T, hd, causal, key_lens, reps in shapes + long_shapes:
+        out[name] = time_flash(fa, ac, name, T, hd, causal, key_lens, reps, torch.bfloat16)
     for name, T, hd, causal, key_lens, reps in shapes:
-        lens = torch.tensor(key_lens, dtype=torch.int32).cuda()
-        q, k, v, dout, _ = flash_inputs(len(key_lens), T, hd, torch.bfloat16, seed=1)
-        scale = hd ** -0.5
-        fwd = lambda: fa.flash_forward(q, k, v, lens, causal, scale)  # noqa: E731
-        o, lse = fwd()
-        bwd = lambda: fa.flash_backward(q, k, v, lens, lse, o, dout, causal, scale)  # noqa: E731
-        k4 = [time_cuda(fwd, 2 * reps, queued=True), time_cuda(fwd, 2 * reps, queued=True)]
-        k5 = [time_cuda(bwd, 2 * reps, queued=True), time_cuda(bwd, 2 * reps, queued=True)]
-        host = []  # us of host time a wrapper call, the card left to run behind
-        for fn in (fwd, bwd):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(50):
-                fn()
-            host.append((time.perf_counter() - t0) / 50 * 1e6)
-            torch.cuda.synchronize()
-        plain_reps = 3 if T < FLASH_LONG_T else 1  # its [T, T] float32 arrays: once is enough
-        p4 = time_cuda(lambda: fa.flash_forward_reference(q, k, v, lens, causal, scale), plain_reps)
-        p5 = time_cuda(lambda: fa.flash_backward_reference(q, k, v, lens, lse, o, dout, causal,
-                                                           scale), plain_reps)
-        qs, ks, vs = (x.contiguous().requires_grad_() for x in (q, k, v))
-        mask = ac._mask(lens, T, causal)  # [B, 1, T, T], True = attend
-        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=scale)  # noqa: E731
-        lib4 = time_cuda(sdpa, reps)
-        o2 = sdpa()
-        lib5 = time_cuda(lambda: torch.autograd.grad(o2, (qs, ks, vs), dout, retain_graph=True), reps)
-        pairs, fbytes, bbytes = core_flops_bytes(lens, T, hd, causal, 2, FLASH_H)
-        b4, by4 = bound(4 * hd * pairs, fbytes, torch.bfloat16)
-        b5, by5 = bound(10 * hd * pairs, bbytes, torch.bfloat16)
-        out[name] = {"K4": (min(k4), p4, lib4, b4, by4), "K5": (min(k5), p5, lib5, b5, by5)}
-        log(f"{name} B={len(key_lens)} H={FLASH_H} T={T} hd={hd} causal={causal} key_lens={key_lens} "
-            f"bf16: {pairs} unmasked pairs, {4 * hd * pairs / 1e9:.2f} GFLOP forward, "
-            f"{fbytes / 1e6:.1f} MB forward / {bbytes / 1e6:.1f} MB backward; "
-            f"K4 {k4[0]:.4f} / {k4[1]:.4f} ms (bound {b4:.4f} ms, {by4}; plain {p4:.3f} ms x"
-            f"{plain_reps}; SDPA {lib4:.4f} ms), K5 {k5[0]:.4f} / {k5[1]:.4f} ms (bound {b5:.4f} "
-            f"ms, {by5}; plain {p5:.3f} ms x{plain_reps}; SDPA backward {lib5:.4f} ms); the "
-            f"wrappers' host time {host[0]:.1f} / {host[1]:.1f} us a call")
-        del o2, mask
+        out[f"{name} float32"] = time_flash(fa, ac, name, T, hd, causal, key_lens, reps,
+                                            torch.float32)
+        out[f"{name} float32 cuda-core"] = time_flash(fa, ac, name, T, hd, causal, key_lens, 3,
+                                                      torch.float32, "cuda-core", plain=False)
+    name, T, _, causal, key_lens, _ = shapes[0]
+    for hd in (16, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            out[f"{name} hd={hd} {dtype}"] = time_flash(fa, ac, f"{name} hd={hd}", T, hd, causal,
+                                                        key_lens, 3, dtype, plain=False)
     return out
 
 
@@ -2327,8 +2449,9 @@ def pipeline_path(card: str, wide_batch, long_batch) -> dict:
                 for k in kernels:
                     check(c[k] == want, f"pipeline {tag}: {k} launched {c[k]} times, "
                           f"expected {n_layers} layers x {M} microbatches")
-                    if dt == torch.bfloat16:
+                    if dt == torch.bfloat16 or k in ("K4", "K5"):  # K2/K3 float32: CUDA cores
                         check(c[f"{k} tc"] == want, f"pipeline {tag}: {k} off the tensor cores")
+                    if dt == torch.bfloat16:
                         res["launches"][k] += c[k]
                 check(all(c[k] == 0 for k in counters.PLAIN),
                       f"pipeline {tag}: a plain version ran on the card: {c}")
@@ -3086,6 +3209,7 @@ def main() -> int:
     check(isinstance(long_loader.midi_reader, NativeMIDIReader),
           f"the Loader reads with {type(long_loader.midi_reader).__name__}")
     long_batch = next(iter(MelodyDataset(LONG_B, LONG_L, long_loader.melodies)))
+    split_err = check_split(fa)
     flash_err = check_flash(fa, long_batch.seq_lens)
 
     wide_batch = next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
@@ -3095,6 +3219,7 @@ def main() -> int:
     graph_vs_eager("train-vae.sh", canonical_batches, (2, 2), extra=("--remat",))
     graph_vs_eager("train-vae-wide.sh", [wide_batch], (4, 4))
     graph_vs_eager("train-vae-long.sh", [long_batch], (1, 1))
+    graph_vs_eager("train-vae-long.sh", [long_batch], (1, 1), extra=("--dtype", "float32"))
 
     counts(reset=True)
     model, dataset, launches = main_path(fd, device)
@@ -3103,6 +3228,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = train_path(ac, fd, tmp)
         long_counts = long_path(tmp)
+        long32_counts = long_path(tmp, extra=("--dtype", "float32"), epochs=1, sample=False)
         canonical_path(tmp)
         lstm = lstm_path(tmp, canonical_batches, card)
         gan = gan_path(tmp, corpus_batches[:2 * GAN_K], card)
@@ -3124,6 +3250,11 @@ def main() -> int:
     flash = measure_flash(fa, ac, long_batch)
     steps["long"] = measure_training(long_batch, "long", "train-vae-long.sh",
                                      {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",)}, 1)
+    steps["long float32"] = measure_training(
+        long_batch, "long float32", "train-vae-long.sh",
+        {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",), "split": ("split_bf16x3",)}, 1,
+        extra=("--dtype", "float32"))
+    split_ms = measure_split(fa)
     steps["lstm-vae"] = measure_training(canonical_batches[0], "lstm-vae", "train-vae.sh", {}, 8,
                                          extra=("--decoder-type", "lstm"))
     log(f"timings above on: {card}")
@@ -3165,6 +3296,30 @@ def main() -> int:
             "max_abs_err": flash_err[kid], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
+    # float32 on the tensor cores: the same kernels' float32 instances, fed
+    # by the split; launches from the float32 long path
+    for kid, name, replaces in (
+            ("K4", "flash_attention_forward_float32",
+             "musicstyletransfer_tpu/ops/flash_attention.py:367"),
+            ("K5", "flash_attention_backward_float32",
+             "musicstyletransfer_tpu/ops/flash_attention.py:786")):
+        ms, plain_ms, lib_ms, bound_ms, bound_by = flash["encoder float32"][kid]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "musicstyletransfer_torch/ops/csrc/flash_attention_tc.cu",
+            "replaces": replaces, "launches": long32_counts[kid],
+            "max_abs_err": flash_err[f"{kid} float32"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+    ms, plain_ms, bound_ms, bound_by = split_ms
+    kernels.append({
+        "name": "split_bf16x3", "route": "cuda",
+        "source": "musicstyletransfer_torch/ops/csrc/flash_attention_tc.cu",
+        # the float32 operand feed of K4/K5 (the Pallas kernels' float32 dots)
+        "replaces": "musicstyletransfer_tpu/ops/flash_attention.py:390",
+        "launches": long32_counts["split"], "max_abs_err": split_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    })
     for label, st in steps.items():
         log(f"{label} training step: " + "; ".join(
             f"{mode} {st[mode]['ms']:.3f} ms ({st[mode]['tokens_per_s']:.0f} target tokens/s, "

@@ -52,7 +52,9 @@ _NEG_INF = -1e30
 # dispatch keeps the same window (models/transformer.py).
 MAX_CORE_SEQ_LEN = 1024
 _HEAD_DIMS = (8, 16, 32, 64, 128)
-_TC_HEAD_DIMS = (32, 64)  # head dimensions of the tensor-core kernels (bfloat16 only)
+# head dimensions of the tensor-core kernels: bfloat16 only for the core,
+# bfloat16 and float32 for the flash kernels (``flash_attention.kernel_route``)
+_TC_HEAD_DIMS = (32, 64)
 
 
 def interleave_qkv_weights(wq, bq, wk, bk, wv, bv, num_heads: int, head_dim: int):
@@ -191,9 +193,11 @@ _SOURCES = {"cuda-core": ("attention_core", "mst_core"),
 
 def core_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernels take a CUDA input of this dtype and head dimension:
-    "tensor-core" (the core's entry points of ``csrc/flash_attention_tc.cu``)
-    or "cuda-core" (``csrc/attention_core.cu``). The flash wrappers follow
-    the same table (``flash_attention.kernel_route``)."""
+    "tensor-core" (the core's entry points of ``csrc/flash_attention_tc.cu``;
+    bfloat16 at head dimension 32 or 64) or "cuda-core"
+    (``csrc/attention_core.cu``; float32, and the other head dimensions).
+    The flash wrappers' table (``flash_attention.kernel_route``) also sends
+    float32 at head dimension 32 or 64 to the tensor cores."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"inputs must be float32 or bfloat16, got {dtype}")
     if head_dim not in _HEAD_DIMS:

@@ -1,4 +1,5 @@
-"""The launch counters of the hand kernels (K1-K5 in PERF.md).
+"""The launch counters of the hand kernels (K1-K5 in PERF.md, and the split
+of float32 inputs for K4/K5's tensor-core route).
 
 Each wrapper adds one to its counter where it launches its kernel, and
 each plain version adds one where it runs on a CUDA tensor. They are host
@@ -26,14 +27,17 @@ COUNTERS = {
     "K3 tc": (ac.core_backward, "tc_launches"),
     "K4 tc": (fa.flash_forward, "tc_launches"),
     "K5 tc": (fa.flash_backward, "tc_launches"),
+    "split": (fa.split_bf16x3, "launches"),
     "K1 plain": (fd.fused_decode_reference, "cuda_runs"),
     "K2 plain": (ac.core_forward_reference, "cuda_runs"),
     "K3 plain": (ac.core_backward_reference, "cuda_runs"),
     "XLA-backward twin": (ac.core_xla_backward, "cuda_runs"),
     "K4 plain": (fa.flash_forward_reference, "cuda_runs"),
     "K5 plain": (fa.flash_backward_reference, "cuda_runs"),
+    "split plain": (fa.split_bf16x3_reference, "cuda_runs"),
 }
-PLAIN = ("K1 plain", "K2 plain", "K3 plain", "XLA-backward twin", "K4 plain", "K5 plain")
+PLAIN = ("K1 plain", "K2 plain", "K3 plain", "XLA-backward twin", "K4 plain", "K5 plain",
+         "split plain")
 
 
 def read() -> Dict[str, int]:

@@ -1,6 +1,7 @@
 // The argument block of the flash attention kernels (K4 forward, K5
 // backward), shared by flash_attention.cu (CUDA-core float32 arithmetic) and
-// flash_attention_tc.cu (tensor cores, bf16).
+// flash_attention_tc.cu (tensor cores: bf16 operands, and float32 ones as
+// three bf16 pieces each).
 #pragma once
 
 extern "C" {
@@ -24,5 +25,12 @@ struct MstFlashArgs {
   int B, H, T, HD, causal, is_bf16;
   float fwd_scale;  // sm_scale rounded to the input type
   float bwd_scale;  // sm_scale in float32
+  // float32 inputs on the tensor cores (flash_attention_tc.cu): the bf16
+  // pieces hi, mid, lo of q * sm_scale, k, v and dout (K5), each
+  // [3, B, H, T, HD] contiguous (mst_split_bf16x3); null otherwise.
+  const void* q3;
+  const void* k3;
+  const void* v3;
+  const void* dout3;
 };
 }

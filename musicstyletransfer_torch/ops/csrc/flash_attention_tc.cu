@@ -1,7 +1,8 @@
 // K4 (forward) and K5 (backward) on the tensor cores of Hopper (sm_90a):
-// flash attention over bf16 q, k, v [B, H, T, HD], HD = 32 or 64, with prefix
-// key lengths and an optional causal mask; and K2/K3, the attention core over
-// the interleaved qkv projection, as front ends of the same device code.
+// flash attention over bf16 or float32 q, k, v [B, H, T, HD], HD = 32 or 64,
+// with prefix key lengths and an optional causal mask; and K2/K3, the
+// attention core over the interleaved bf16 qkv projection, as front ends of
+// the same device code.
 //
 // Replaces musicstyletransfer_tpu/ops/flash_attention.py, as
 // flash_attention.cu does and with the same interface (MstFlashArgs):
@@ -11,7 +12,32 @@
 //   flash_bwd_dkdv_kernel_tc replace K5a, _flash_backward (_dqkv_kernel), and
 //   K5b/K5c, _flash_backward_streaming (_dq_stream_kernel,
 //   _dkv_stream_kernel).
-// flash_attention.cu keeps float32 inputs and the other head dimensions.
+// flash_attention.cu keeps the other head dimensions.
+//
+// float32 inputs run the same device code with every operand as three bf16
+// pieces (NP = 3 below; bf16 inputs are NP = 1): x = hi + mid + lo with hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), which hold x's 24
+// significant bits exactly (bf16 has float32's exponent range). A float32
+// product A B becomes six bf16 products into one float32 accumulator,
+// smallest first: lo hi, hi lo, mid mid, mid hi, hi mid, hi hi; the terms
+// left out (mid lo, lo mid, lo lo) are below 2^-24 of the product. That is
+// 989 / 6 = 165 TFLOP/s of float32 work, 2.5x the 67 TFLOP/s of CUDA-core
+// FMA, and keeps what the bf16 design is built on (below): the swizzled
+// tiles, the transpose flag that lets one tile serve as both B operands,
+// and accumulators that are already A fragments. TF32 keeps none of them
+// (wgmma transposes only 16-bit operands; its A fragment is not the
+// accumulator's layout). split_bf16x3_kernel writes the pieces of q * scale,
+// k, v and dO ([3, B, H, T, HD] planes) before the launch; P, dS, P^T and
+// dS^T are split in registers. The rows a warpgroup owns stay in registers
+// in the forward (Q's pieces); in the backward they go to the warpgroup's
+// own part of shared memory and the first products read both operands from
+// there (the SS form of wgmma), since three pieces of two operands do not
+// fit beside the accumulators in 232 registers. Three planes of a tile make
+// a stage three times larger, so the float32 instances run fewer stages
+// (kStagesOf). The float32 rounding points are flash_attention.cu's: q *
+// sm_scale rounded to float32 before the split (forward and backward), p
+// and dS unrounded, dq scaled at the end, dk from the scaled q; delta =
+// rowsum(dO * O) a float32 sum of the float32 inputs.
 //
 // Also replaces musicstyletransfer_tpu/ops/attention_core.py for bf16 at
 // HD 32 or 64, as attention_core.cu does for the rest and with the same
@@ -42,7 +68,9 @@
 // CUDA-core float32 FMA (67 TFLOP/s) cannot come nearer than 15x the
 // operations bound, so every matrix product here is a warpgroup matrix multiply
 // (wgmma.mma_async m64nNk16, bf16 operands, float32 accumulators in
-// registers). Beside the products, every pair costs one exponential (two in
+// registers). For float32 inputs the bound is the same work at the 495
+// TFLOP/s TF32 peak; this design's own ceiling is 165 TFLOP/s (six bf16
+// products a product). Beside the products, every pair costs one exponential (two in
 // the backward) on the special function units, 16 a clock an SM against 16
 // pairs' worth of products at HD=64, so the kernels must run the two side
 // by side to come near the bound:
@@ -93,6 +121,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_core_args.cuh"
 #include "flash_attention_args.cuh"
 
@@ -127,6 +157,43 @@ __device__ __forceinline__ float2 unpack(uint32_t x) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
 }
 
+// Operands of NP pieces: NP = 1, a bf16 operand itself; NP = 3, a float32
+// one as bf16 hi, mid, lo. The element type the kernels write out.
+template <int NP> using OutT = typename std::conditional<NP == 3, float, bf16>::type;
+
+// The products of two operands of NP pieces: product i multiplies piece
+// piece_a(i) of A by piece_b(i) of B (0 hi, 1 mid, 2 lo), smallest first.
+template <int NP> constexpr int kProducts = NP == 3 ? 6 : 1;
+template <int NP> __device__ __forceinline__ constexpr int piece_a(int i) {
+  return NP == 1 ? 0 : i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0;
+}
+template <int NP> __device__ __forceinline__ constexpr int piece_b(int i) {
+  return NP == 1 ? 0 : i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0;
+}
+
+// x as hi + mid + lo, each bf16; explicit roundings, so that no multiply-add
+// contracts a difference (split_bf16x3_reference in flash_attention.py does
+// the same in the same order, and the two agree bit for bit).
+__device__ __forceinline__ void split3(float x, bf16& hi, bf16& mid, bf16& lo) {
+  hi = __float2bfloat16_rn(x);
+  const float r = __fsub_rn(x, __bfloat162float(hi));
+  mid = __float2bfloat16_rn(r);
+  lo = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(mid)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf(bf16 lo, bf16 hi) {
+  __nv_bfloat162 t = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// Two neighbouring output values, rounded to bf16 or stored as float32.
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack(x, y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
 // Tile shapes: keys (queries in the dK/dV kernel) a tile and consumer
 // warpgroups a block, for each kernel (K4/K5, then the core's K2/K3), and
 // the stages of a block's ring. PERF.md lists what else was tried on the
@@ -139,6 +206,10 @@ constexpr int kCoreDqTile = 64, kCoreDqGroups = 1;
 constexpr int kCoreDkvTile = 64, kCoreDkvGroups = 1;
 constexpr int kStages = 4;
 constexpr float kLog2e = 1.4426950408889634f;
+// Stages of a ring: a float32 stage holds three planes a tile, so two fit
+// at HD=64 (the forward's two 128-key tiles: 96 KB a stage) and four at
+// HD=32.
+template <int HD, int NP> constexpr int kStagesOf = NP == 1 ? kStages : HD == 64 ? 2 : 4;
 
 // 2^x on the special function unit; exponentials are taken as 2^(x log2 e)
 // with the factor folded into a multiply-add.
@@ -322,25 +393,73 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
 }
 
-// d = A B^T, contraction over HD: A fragments a[HD / 16], B the K-major
-// [N, HD] tile at `tile`.
-template <int HD, int NR>
-__device__ __forceinline__ void mma_nt(float (&d)[NR], const uint32_t (&a)[HD / 16][4],
+// D[64, 64] (+)= A[64, 16] B[16, 64], both from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d = A B^T, contraction over HD: A fragments a[piece][HD / 16], B the
+// K-major [N, HD] tile at `tile` (NP planes of N rows, one after the other).
+template <int HD, int NP, int NR>
+__device__ __forceinline__ void mma_nt(float (&d)[NR], const uint32_t (&a)[NP][HD / 16][4],
                                        uint32_t tile) {
+  constexpr int PLANE = 2 * NR * Cfg<HD>::ROWB;
   const uint32_t lo = desc_lo<HD>(tile);
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs<0>(d, a[kk], make_desc<HD>(lo, kk * 32), kk > 0);
+  for (int i = 0; i < kProducts<NP>; ++i)
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_rs<0>(d, a[piece_a<NP>(i)][kk], make_desc<HD>(lo, piece_b<NP>(i) * PLANE + kk * 32),
+                  i > 0 || kk > 0);
+}
+
+// The same with A from shared memory too: NP planes of [64, HD] at `atile`,
+// laid out as a tile; B's tile of 64 rows.
+template <int HD, int NP>
+__device__ __forceinline__ void mma_nt_ss(float (&d)[32], uint32_t atile, uint32_t tile) {
+  constexpr int PLANE = 64 * Cfg<HD>::ROWB;
+  const uint32_t alo = desc_lo<HD>(atile), lo = desc_lo<HD>(tile);
+#pragma unroll
+  for (int i = 0; i < kProducts<NP>; ++i)
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(d, make_desc<HD>(alo, piece_a<NP>(i) * PLANE + kk * 32),
+               make_desc<HD>(lo, piece_b<NP>(i) * PLANE + kk * 32), i > 0 || kk > 0);
 }
 
 // d += A B, contraction over the KT rows of the [KT, HD] tile at `tile`
-// (MN-major B): A fragments a[KT / 16].
-template <int HD, int KT>
-__device__ __forceinline__ void mma_nn(float (&d)[HD / 2], const uint32_t (&a)[KT / 16][4],
+// (MN-major B, NP planes of PR >= KT rows): A fragments a[piece][KT / 16].
+template <int HD, int KT, int NP, int PR = KT>
+__device__ __forceinline__ void mma_nn(float (&d)[HD / 2], const uint32_t (&a)[NP][KT / 16][4],
                                        uint32_t tile) {
+  constexpr int PLANE = PR * Cfg<HD>::ROWB;
   const uint32_t lo = desc_lo<HD>(tile);
 #pragma unroll
-  for (int kk = 0; kk < KT / 16; ++kk)
-    wgmma_rs<1>(d, a[kk], make_desc<HD>(lo, kk * 16 * Cfg<HD>::ROWB), 1);
+  for (int i = 0; i < kProducts<NP>; ++i)
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk)
+      wgmma_rs<1>(d, a[piece_a<NP>(i)][kk],
+                  make_desc<HD>(lo, piece_b<NP>(i) * PLANE + kk * 16 * Cfg<HD>::ROWB), 1);
 }
 
 // Fragment coordinates of a thread in its warpgroup's [64, N] tile: value
@@ -372,21 +491,45 @@ __device__ __forceinline__ void load_frags(uint32_t (&a)[HD / 16][4], const bf16
     }
 }
 
-// An accumulator (rounded to bf16) as the A fragments of the next product.
-template <int N>
-__device__ __forceinline__ void to_frags(uint32_t (&a)[N / 16][4], const float (&d)[N / 2]) {
+// The pieces of a head's operand: NP planes of [B, H, T, HD], `plane`
+// elements apart ([3, B, H, T, HD] contiguous for float32 inputs).
+__device__ __forceinline__ long long plane_of(const MstFlashArgs& a) {
+  return (long long)a.B * a.H * a.T * a.HD;
+}
+
+template <int HD, int NP>
+__device__ __forceinline__ void load_pieces(uint32_t (&a)[NP][HD / 16][4], const bf16* rows,
+                                            long long stride, long long plane, int first, int end,
+                                            Frag f) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) load_frags<HD>(a[p], rows + p * plane, stride, first, end, f);
+}
+
+// An accumulator (rounded to bf16; or as three pieces) as the A fragments
+// of the next product.
+template <int N, int NP>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[NP][N / 16][4], const float (&d)[N / 2]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int at = 4 * (2 * kk + (i >> 1)) + 2 * (i & 1);
-      a[kk][i] = pack(d[at], d[at + 1]);
+      if constexpr (NP == 1) {
+        a[0][kk][i] = pack(d[at], d[at + 1]);
+      } else {
+        bf16 h0, m0, l0, h1, m1, l1;
+        split3(d[at], h0, m0, l0);
+        split3(d[at + 1], h1, m1, l1);
+        a[0][kk][i] = pack_bf(h0, h1);
+        a[1][kk][i] = pack_bf(m0, m1);
+        a[2][kk][i] = pack_bf(l0, l1);
+      }
     }
 }
 
 // Write an accumulator as rows first + f.row (+ 8) of a head, rows below `end`.
-template <int HD>
-__device__ __forceinline__ void store_rows(bf16* rows, long long stride, int first, int end, Frag f,
+template <int HD, typename T>
+__device__ __forceinline__ void store_rows(T* rows, long long stride, int first, int end, Frag f,
                                            const float (&d)[HD / 2]) {
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j)
@@ -394,9 +537,27 @@ __device__ __forceinline__ void store_rows(bf16* rows, long long stride, int fir
     for (int half = 0; half < 2; ++half) {
       const int row = first + f.row + 8 * half;
       if (row < end)
-        *reinterpret_cast<uint32_t*>(rows + (long long)row * stride + 8 * j + f.col) =
-            pack(d[4 * j + 2 * half], d[4 * j + 2 * half + 1]);
+        store2(rows + (long long)row * stride + 8 * j + f.col, d[4 * j + 2 * half],
+               d[4 * j + 2 * half + 1]);
     }
+}
+
+// The rows first.. of a head's NP pieces (rows at or past `end` as zeros)
+// into this warpgroup's [64, HD] tiles at `dst`, one plane after the other,
+// ready for the tensor cores once it returns: the A operands of the SS
+// products.
+template <int HD, int NP>
+__device__ __forceinline__ void load_own_rows(uint32_t dst, const bf16* rows, long long stride,
+                                              long long plane, int first, int end) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+    load_tile_async<HD, 64, 128>(dst + p * 64 * Cfg<HD>::ROWB, rows + p * plane, stride, first,
+                                 end, threadIdx.x % 128);
+}
+__device__ __forceinline__ void own_rows_landed() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  fence_async_proxy();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (int)threadIdx.x / 128) : "memory");
 }
 
 // Sum (or maximum) over the four threads that share an accumulator row.
@@ -434,19 +595,19 @@ template <int N> __device__ __forceinline__ void regs_take() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-template <int NWG> struct Ring {
+template <int NWG, int ST = kStages> struct Ring {
   static_assert(NWG == 1 || NWG == 2, "the register split above is for one or two consumer warpgroups");
   // 1024-byte aligned: the barriers, then from base + 1024 the stages
   uint32_t base;
   __device__ explicit Ring(const uint8_t* raw)
       : base(((uint32_t)__cvta_generic_to_shared(raw) + 1023u) & ~1023u) {}
   __device__ uint32_t full(int s) const { return base + 8 * s; }
-  __device__ uint32_t empty(int s) const { return base + 8 * (kStages + s); }
+  __device__ uint32_t empty(int s) const { return base + 8 * (ST + s); }
   __device__ uint32_t stages() const { return base + 1024; }
   // Every thread of the block, before the roles part.
   __device__ void init() const {
     if (threadIdx.x == 0) {
-      for (int s = 0; s < kStages; ++s) {
+      for (int s = 0; s < ST; ++s) {
         mbar_init(full(s), 128);
         mbar_init(empty(s), NWG * 128);
       }
@@ -455,16 +616,16 @@ template <int NWG> struct Ring {
   }
   // Producer: the stage of tile `it` is free again.
   __device__ void wait_empty(int it) const {
-    if (it >= kStages) mbar_wait(empty(it % kStages), (it / kStages + 1) & 1);
+    if (it >= ST) mbar_wait(empty(it % ST), (it / ST + 1) & 1);
   }
   // Producer: full[s] completes once this thread's copies so far have landed.
-  __device__ void commit_full(int it) const { cp_async_mbar_arrive(full(it % kStages)); }
+  __device__ void commit_full(int it) const { cp_async_mbar_arrive(full(it % ST)); }
   // Consumer: tile `it` has landed and the tensor cores may read it.
   __device__ void wait_full(int it) const {
-    mbar_wait(full(it % kStages), (it / kStages) & 1);
+    mbar_wait(full(it % ST), (it / ST) & 1);
     fence_async_proxy();
   }
-  __device__ void release(int it) const { mbar_arrive(empty(it % kStages)); }
+  __device__ void release(int it) const { mbar_arrive(empty(it % ST)); }
 };
 
 // A generic pointer to shared-memory address `addr` of the block.
@@ -573,46 +734,72 @@ __device__ __forceinline__ int fwd_tiles(const MstFlashArgs& a, int b, int q0, i
   return (kend + BN - 1) / BN;
 }
 
-template <int HD, int BN, int NWG>
-__device__ __forceinline__ int fwd_produce(const MstFlashArgs& a, const Ring<NWG>& ring, int b,
+// A stage of K4's and the dQ kernel's rings: the K tile's NP planes, then
+// V's.
+template <int HD, int BN, int NP> constexpr int kKvStage = 2 * NP * BN * Cfg<HD>::ROWB;
+
+template <int HD, int BN, int NWG, int NP, int ST>
+__device__ __forceinline__ int fwd_produce(const MstFlashArgs& a, const Ring<NWG, ST>& ring, int b,
                                            int h, int q0, int it) {
-  constexpr int TILE = BN * Cfg<HD>::ROWB;
+  constexpr int PLANE = BN * Cfg<HD>::ROWB, TILE = NP * PLANE;
   int valid;
   const int ntiles = fwd_tiles<BN, NWG * 64>(a, b, q0, valid);
   const bf16* kh = head(static_cast<const bf16*>(a.k), a.sk, b, h);
   const bf16* vh = head(static_cast<const bf16*>(a.v), a.sv, b, h);
+  const long long plane = plane_of(a);
   const int lane = threadIdx.x % 128;
   for (int t = 0; t < ntiles; ++t, ++it) {
-    const uint32_t ks = ring.stages() + (it % kStages) * 2 * TILE;
+    const uint32_t ks = ring.stages() + (it % ST) * 2 * TILE;
     ring.wait_empty(it);
-    load_tile_async<HD, BN, 128>(ks, kh, a.sk[2], t * BN, a.T, lane);
-    load_tile_async<HD, BN, 128>(ks + TILE, vh, a.sv[2], t * BN, a.T, lane);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      load_tile_async<HD, BN, 128>(ks + p * PLANE, kh + p * plane, a.sk[2], t * BN, a.T, lane);
+      load_tile_async<HD, BN, 128>(ks + TILE + p * PLANE, vh + p * plane, a.sv[2], t * BN, a.T,
+                                   lane);
+    }
     ring.commit_full(it);
   }
   return it;
 }
 
-template <int HD, int BN, int NWG>
-__device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG>& ring, int b,
+// The forward's accumulator as the running maximum grows: the running
+// maximum of most rows stops growing after a few tiles.
+template <int HD>
+__device__ __forceinline__ void rescale(float (&o)[HD / 2], const float (&alpha)[2]) {
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+  }
+}
+
+template <int HD, int BN, int NWG, int NP, int ST>
+__device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG, ST>& ring, int b,
                                            int h, int q0, int it) {
   // Measured wrong on the card, K4 and K2 alike, and not understood yet
   // (PERF.md); the dQ kernel's same tile shape is right.
   static_assert(!(HD == 64 && BN == 64), "64-key forward tiles at HD=64 give wrong results");
-  constexpr int TILE = BN * Cfg<HD>::ROWB;
+  constexpr int TILE = NP * BN * Cfg<HD>::ROWB;
   const int Tn = a.T;
   int valid;
   const int ntiles = fwd_tiles<BN, NWG * 64>(a, b, q0, valid);
   const int w0 = q0 + (threadIdx.x / 128) * 64;
   const Frag f;
-  uint32_t qf[HD / 16][4];  // q * sm_scale, rounded to bf16
-  load_frags<HD>(qf, head(static_cast<const bf16*>(a.q), a.sq, b, h), a.sq[2], w0, Tn, f);
+  // q * sm_scale: rounded to bf16 here; for float32 inputs the pieces of
+  // the product rounded to float32, which the split wrote.
+  uint32_t qf[NP][HD / 16][4];
+  load_pieces<HD, NP>(qf, head(static_cast<const bf16*>(a.q), a.sq, b, h), a.sq[2], plane_of(a),
+                      w0, Tn, f);
+  if constexpr (NP == 1) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = unpack(qf[kk][i]);
-      qf[kk][i] = pack(x.x * a.fwd_scale, x.y * a.fwd_scale);
-    }
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = unpack(qf[0][kk][i]);
+        qf[0][kk][i] = pack(x.x * a.fwd_scale, x.y * a.fwd_scale);
+      }
+  }
 
   float o[HD / 2];
 #pragma unroll
@@ -621,13 +808,13 @@ __device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG
 
   for (int t = 0; t < ntiles; ++t, ++it) {
     const int k0 = t * BN;
-    const uint32_t ks = ring.stages() + (it % kStages) * 2 * TILE, vs = ks + TILE;
+    const uint32_t ks = ring.stages() + (it % ST) * 2 * TILE, vs = ks + TILE;
     const bool active = !a.causal || k0 <= w0 + 63;  // else the tile is above the diagonal
     float s[BN / 2];
     ring.wait_full(it);
     if (active) {
       wgmma_fence();
-      mma_nt<HD>(s, qf, ks);
+      mma_nt<HD, NP>(s, qf, ks);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -666,20 +853,30 @@ __device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG
           l[e >> 1] += p;
           s[4 * j + e] = p;
         }
-      uint32_t pf[BN / 16][4];
-      to_frags<BN>(pf, s);
-      // The running maximum of most rows stops growing after a few tiles.
-      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+      if constexpr (NP == 1) {
+        uint32_t pf[1][BN / 16][4];
+        to_frags<BN, 1>(pf, s);
+        rescale<HD>(o, alpha);
+        wgmma_fence();
+        mma_nn<HD, BN, 1>(o, pf, vs);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+      } else {
+        rescale<HD>(o, alpha);
+        // P's pieces half a tile at a time (48 registers at BN = 128, not
+        // 96): each half's products end before the next half is split.
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+        for (int half = 0; half < 2; ++half) {
+          uint32_t pf[NP][BN / 32][4];
+          to_frags<BN / 2, NP>(pf, *reinterpret_cast<const float(*)[BN / 4]>(s + half * BN / 4));
+          wgmma_fence();
+          mma_nn<HD, BN / 2, NP, BN>(o, pf, vs + half * (BN / 2) * Cfg<HD>::ROWB);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(o);
+        }
       }
-      wgmma_fence();
-      mma_nn<HD, BN>(o, pf, vs);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(o);
     }
     ring.release(it);
   }
@@ -694,7 +891,7 @@ __device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG
   for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[4 * j + e] *= inv[e >> 1];
-  store_rows<HD>(head(static_cast<bf16*>(a.out), a.so, b, h), a.so[2], w0, Tn, f, o);
+  store_rows<HD>(head(static_cast<OutT<NP>*>(a.out), a.so, b, h), a.so[2], w0, Tn, f, o);
   if (f.col == 0) {
     float* lse = a.lse + ((size_t)b * a.H + h) * Tn;
 #pragma unroll
@@ -706,22 +903,23 @@ __device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG
   return it;
 }
 
-// grid (ceil(T / (64 NWG)), H, B), one item a block.
-template <int HD, int BN, int NWG>
+// grid (ceil(T / (64 NWG)), H, B), one item a block; operands of NP pieces.
+template <int HD, int BN, int NWG, int NP>
 __global__ void __launch_bounds__(NWG * 128 + 128, 1) flash_fwd_kernel_tc(const MstFlashArgs a) {
+  constexpr int ST = kStagesOf<HD, NP>;
   extern __shared__ uint8_t smem_raw[];
-  const Ring<NWG> ring(smem_raw);
+  const Ring<NWG, ST> ring(smem_raw);
   const int b = blockIdx.z, h = blockIdx.y;
   // Causal blocks near the end of the sequence have the most keys: first.
   const int q0 = (a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * NWG * 64;
   ring.init();
   if (threadIdx.x >= NWG * 128) {  // the producer warpgroup
     regs_give_back<kProducerRegs>();
-    fwd_produce<HD, BN, NWG>(a, ring, b, h, q0, 0);
+    fwd_produce<HD, BN, NWG, NP, ST>(a, ring, b, h, q0, 0);
     return;
   }
   regs_take<kConsumerRegs<NWG>>();
-  fwd_consume<HD, BN, NWG>(a, ring, b, h, q0, 0);
+  fwd_consume<HD, BN, NWG, NP, ST>(a, ring, b, h, q0, 0);
 }
 
 // K2: the same items, a block looping over them in the core's order.
@@ -729,7 +927,7 @@ template <int HD, int BN, int NWG>
 __global__ void __launch_bounds__(NWG * 128 + 128, 3 - NWG) core_fwd_kernel_tc(const MstFlashArgs a) {
   extern __shared__ uint8_t smem_raw[];
   const Ring<NWG> ring(smem_raw);
-  const Schedule sched(a, smem_raw, ring.stages() + kStages * 2 * BN * Cfg<HD>::ROWB, NWG * 64,
+  const Schedule sched(a, smem_raw, ring.stages() + kStages * kKvStage<HD, BN, 1>, NWG * 64,
                        false, a.causal);
   ring.init();
   int it = 0, b, h, x;
@@ -737,40 +935,45 @@ __global__ void __launch_bounds__(NWG * 128 + 128, 3 - NWG) core_fwd_kernel_tc(c
     regs_give_back<kProducerRegs>();
     for (int k = 0, i; (i = sched.index(k)) >= 0; ++k) {
       sched.item(i, b, h, x);
-      it = fwd_produce<HD, BN, NWG>(a, ring, b, h, x * NWG * 64, it);
+      it = fwd_produce<HD, BN, NWG, 1, kStages>(a, ring, b, h, x * NWG * 64, it);
     }
     return;
   }
   regs_take<kConsumerRegs<NWG>>();
   for (int k = 0, i; (i = sched.index(k)) >= 0; ++k) {
     sched.item(i, b, h, x);
-    it = fwd_consume<HD, BN, NWG>(a, ring, b, h, x * NWG * 64, it);
+    it = fwd_consume<HD, BN, NWG, 1, kStages>(a, ring, b, h, x * NWG * 64, it);
   }
 }
 
 // ----------------------------------------------------------------------------
-// K5, first kernel: delta = rowsum(dO * O) - g_lse; HD / 8 threads a row, 16
-// bytes a thread. grid ceil(B H T / rows a block) blocks of 256 threads. (K3
-// computes delta in its dQ kernel instead.)
+// K5, first kernel: delta = rowsum(dO * O) - g_lse from the inputs as they
+// are (bf16 or float32); 16 bytes a thread, HD / 8 (bf16) or HD / 4 threads
+// a row. grid ceil(B H T / rows a block) blocks of 256 threads. (K3 computes
+// delta in its dQ kernel instead.)
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_tc(const MstFlashArgs a) {
-  constexpr int TPR = HD / 8;
+  constexpr int EPT = 16 / sizeof(T), TPR = HD / EPT;  // elements a thread, threads a row
   const size_t rows = (size_t)a.B * a.H * a.T;
   const size_t row = (size_t)blockIdx.x * (256 / TPR) + threadIdx.x / TPR;
   const int part = threadIdx.x % TPR;
   float s = 0.f;
   if (row < rows) {
     const int t = row % a.T, h = (row / a.T) % a.H, b = row / ((size_t)a.T * a.H);
-    const bf16* o = head(static_cast<const bf16*>(a.out), a.so, b, h) + t * a.so[2] + part * 8;
-    const bf16* g = head(static_cast<const bf16*>(a.dout), a.sdo, b, h) + t * a.sdo[2] + part * 8;
+    const T* o = head(static_cast<const T*>(a.out), a.so, b, h) + t * a.so[2] + part * EPT;
+    const T* g = head(static_cast<const T*>(a.dout), a.sdo, b, h) + t * a.sdo[2] + part * EPT;
     const uint4 ov = *reinterpret_cast<const uint4*>(o), gv = *reinterpret_cast<const uint4*>(g);
     const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float2 x = unpack(ow[i]), y = unpack(gw[i]);
-      s = fmaf(y.x, x.x, s);
-      s = fmaf(y.y, x.y, s);
+      if constexpr (std::is_same<T, float>::value) {
+        s = fmaf(__uint_as_float(gw[i]), __uint_as_float(ow[i]), s);
+      } else {
+        const float2 x = unpack(ow[i]), y = unpack(gw[i]);
+        s = fmaf(y.x, x.x, s);
+        s = fmaf(y.y, x.y, s);
+      }
     }
   }
 #pragma unroll
@@ -784,22 +987,42 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_tc(const MstFlashA
 // queries (from its own rows of O and dO) and writes it for the dK/dV
 // kernel, in place of the delta kernel.
 
-template <int HD, int BN, int NWG, bool DELTA>
-__device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG>& ring, int b,
+// The rows' own operands of the backward's first products (Q and dO in
+// the dQ kernel, K and V in the dK/dV kernel) for float32 inputs: each
+// consumer warpgroup's NP planes of 64 rows of both, after the ring's stages.
+template <int HD, int NP> constexpr int kOwnBytes = NP == 1 ? 0 : 2 * NP * 64 * Cfg<HD>::ROWB;
+
+template <int HD, int BN, int NWG, int NP, int ST, bool DELTA>
+__device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG, ST>& ring, int b,
                                           int h, int q0, int it) {
-  constexpr int TILE = BN * Cfg<HD>::ROWB;
+  static_assert(NP == 1 || (BN == 64 && !DELTA), "the SS products are m64n64, K5's dQ kernel");
+  constexpr int TILE = NP * BN * Cfg<HD>::ROWB;
   const int Tn = a.T;
   int valid;
   const int ntiles = fwd_tiles<BN, NWG * 64>(a, b, q0, valid);
   const int w0 = q0 + (threadIdx.x / 128) * 64;
   const Frag f;
-  uint32_t qf[HD / 16][4], gf[HD / 16][4];  // q (unscaled) and dO
-  load_frags<HD>(qf, head(static_cast<const bf16*>(a.q), a.sq, b, h), a.sq[2], w0, Tn, f);
-  load_frags<HD>(gf, head(static_cast<const bf16*>(a.dout), a.sdo, b, h), a.sdo[2], w0, Tn, f);
+  // q (bf16: unscaled; float32: the pieces of q * sm_scale) and dO: A
+  // fragments (NP = 1), or planes in this warpgroup's part of shared memory.
+  uint32_t qf[1][HD / 16][4], gf[1][HD / 16][4];
+  const uint32_t own = ring.stages() + ST * kKvStage<HD, BN, NP> +
+                       (threadIdx.x / 128) * kOwnBytes<HD, NP>;
+  if constexpr (NP == 1) {
+    load_frags<HD>(qf[0], head(static_cast<const bf16*>(a.q), a.sq, b, h), a.sq[2], w0, Tn, f);
+    load_frags<HD>(gf[0], head(static_cast<const bf16*>(a.dout), a.sdo, b, h), a.sdo[2], w0, Tn,
+                   f);
+  } else {
+    load_own_rows<HD, NP>(own, head(static_cast<const bf16*>(a.q), a.sq, b, h), a.sq[2],
+                          plane_of(a), w0, Tn);
+    load_own_rows<HD, NP>(own + kOwnBytes<HD, NP> / 2,
+                          head(static_cast<const bf16*>(a.dout), a.sdo, b, h), a.sdo[2],
+                          plane_of(a), w0, Tn);
+    own_rows_landed();
+  }
   // lse2 = lse log2 e, so that p = 2^(s scale log2 e - lse2); a row without
   // terms (past T, or one that saw no key) gets 1e30 and with it p = 0.
   float lse2[2], delta[2];
-  const float scale2 = a.bwd_scale * kLog2e;
+  const float scale2 = (NP == 1 ? a.bwd_scale : 1.f) * kLog2e;
   if (DELTA) {  // this thread's share of rowsum(dO * O) for its two rows
     uint32_t of[HD / 16][4];
     load_frags<HD>(of, head(static_cast<const bf16*>(a.out), a.so, b, h), a.so[2], w0, Tn, f);
@@ -808,7 +1031,7 @@ __device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG>
     for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 x = unpack(of[kk][i]), y = unpack(gf[kk][i]);
+        const float2 x = unpack(of[kk][i]), y = unpack(gf[0][kk][i]);
         delta[i & 1] = fmaf(y.y, x.y, fmaf(y.x, x.x, delta[i & 1]));
       }
   }
@@ -833,14 +1056,19 @@ __device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG>
 
   for (int t = 0; t < ntiles; ++t, ++it) {
     const int k0 = t * BN;
-    const uint32_t ks = ring.stages() + (it % kStages) * 2 * TILE, vs = ks + TILE;
+    const uint32_t ks = ring.stages() + (it % ST) * 2 * TILE, vs = ks + TILE;
     const bool active = !a.causal || k0 <= w0 + 63;
     float s[BN / 2], dp[BN / 2];
     ring.wait_full(it);
     if (active) {
       wgmma_fence();
-      mma_nt<HD>(s, qf, ks);
-      mma_nt<HD>(dp, gf, vs);
+      if constexpr (NP == 1) {
+        mma_nt<HD, 1>(s, qf, ks);
+        mma_nt<HD, 1>(dp, gf, vs);
+      } else {
+        mma_nt_ss<HD, NP>(s, own, ks);
+        mma_nt_ss<HD, NP>(dp, own + kOwnBytes<HD, NP> / 2, vs);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
@@ -866,10 +1094,10 @@ __device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG>
             s[4 * j + e] = p * (dp[4 * j + e] - delta[e >> 1]);
           }
       }
-      uint32_t dsf[BN / 16][4];
-      to_frags<BN>(dsf, s);
+      uint32_t dsf[NP][BN / 16][4];
+      to_frags<BN, NP>(dsf, s);
       wgmma_fence();
-      mma_nn<HD, BN>(dq, dsf, ks);
+      mma_nn<HD, BN, NP>(dq, dsf, ks);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
@@ -878,26 +1106,27 @@ __device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG>
   }
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dq[i] *= a.bwd_scale;
-  store_rows<HD>(head(static_cast<bf16*>(a.dq), a.sdq, b, h), a.sdq[2], w0, Tn, f, dq);
+  store_rows<HD>(head(static_cast<OutT<NP>*>(a.dq), a.sdq, b, h), a.sdq[2], w0, Tn, f, dq);
   return it;
 }
 
-// grid (ceil(T / (64 NWG)), H, B), one item a block.
-template <int HD, int BN, int NWG>
+// grid (ceil(T / (64 NWG)), H, B), one item a block; operands of NP pieces.
+template <int HD, int BN, int NWG, int NP>
 __global__ void __launch_bounds__(NWG * 128 + 128, 1)
     flash_bwd_dq_kernel_tc(const MstFlashArgs a) {
+  constexpr int ST = kStagesOf<HD, NP>;
   extern __shared__ uint8_t smem_raw[];
-  const Ring<NWG> ring(smem_raw);
+  const Ring<NWG, ST> ring(smem_raw);
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = (a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * NWG * 64;
   ring.init();
   if (threadIdx.x >= NWG * 128) {  // the producer warpgroup: K and V, as in the forward
     regs_give_back<kProducerRegs>();
-    fwd_produce<HD, BN, NWG>(a, ring, b, h, q0, 0);
+    fwd_produce<HD, BN, NWG, NP, ST>(a, ring, b, h, q0, 0);
     return;
   }
   regs_take<kConsumerRegs<NWG>>();
-  dq_consume<HD, BN, NWG, false>(a, ring, b, h, q0, 0);
+  dq_consume<HD, BN, NWG, NP, ST, false>(a, ring, b, h, q0, 0);
 }
 
 // K3's dQ kernel, delta folded in: the same items, a block looping over
@@ -907,7 +1136,7 @@ __global__ void __launch_bounds__(NWG * 128 + 128, 3 - NWG)
     core_bwd_dq_kernel_tc(const MstFlashArgs a) {
   extern __shared__ uint8_t smem_raw[];
   const Ring<NWG> ring(smem_raw);
-  const Schedule sched(a, smem_raw, ring.stages() + kStages * 2 * BN * Cfg<HD>::ROWB, NWG * 64,
+  const Schedule sched(a, smem_raw, ring.stages() + kStages * kKvStage<HD, BN, 1>, NWG * 64,
                        false, a.causal);
   ring.init();
   int it = 0, b, h, x;
@@ -915,21 +1144,22 @@ __global__ void __launch_bounds__(NWG * 128 + 128, 3 - NWG)
     regs_give_back<kProducerRegs>();
     for (int k = 0, i; (i = sched.index(k)) >= 0; ++k) {
       sched.item(i, b, h, x);
-      it = fwd_produce<HD, BN, NWG>(a, ring, b, h, x * NWG * 64, it);
+      it = fwd_produce<HD, BN, NWG, 1, kStages>(a, ring, b, h, x * NWG * 64, it);
     }
     return;
   }
   regs_take<kConsumerRegs<NWG>>();
   for (int k = 0, i; (i = sched.index(k)) >= 0; ++k) {
     sched.item(i, b, h, x);
-    it = dq_consume<HD, BN, NWG, true>(a, ring, b, h, x * NWG * 64, it);
+    it = dq_consume<HD, BN, NWG, 1, kStages, true>(a, ring, b, h, x * NWG * 64, it);
   }
 }
 
-// A stage of the dK/dV kernel: the Q and dO tiles, then lse and delta of the
-// tile's queries, rounded up so that the next stage's tiles stay aligned.
-template <int HD, int BN> struct DkvStage {
-  static constexpr int BYTES = 2 * BN * Cfg<HD>::ROWB + (2 * BN * 4 + 1023) / 1024 * 1024;
+// A stage of the dK/dV kernel: the Q and dO tiles (NP planes each), then lse
+// and delta of the tile's queries, rounded up so that the next stage's tiles
+// stay aligned.
+template <int HD, int BN, int NP = 1> struct DkvStage {
+  static constexpr int BYTES = 2 * NP * BN * Cfg<HD>::ROWB + (2 * BN * 4 + 1023) / 1024 * 1024;
 };
 
 // ----------------------------------------------------------------------------
@@ -948,10 +1178,10 @@ __device__ __forceinline__ int dkdv_tiles(const MstFlashArgs& a, int b, int k0, 
   return (a.T - qbegin + BN - 1) / BN;
 }
 
-template <int HD, int BN, int NWG>
-__device__ __forceinline__ int dkdv_produce(const MstFlashArgs& a, const Ring<NWG>& ring, int b,
+template <int HD, int BN, int NWG, int NP, int ST>
+__device__ __forceinline__ int dkdv_produce(const MstFlashArgs& a, const Ring<NWG, ST>& ring, int b,
                                             int h, int k0, int it) {
-  constexpr int TILE = BN * Cfg<HD>::ROWB, STAGE = DkvStage<HD, BN>::BYTES;
+  constexpr int PLANE = BN * Cfg<HD>::ROWB, TILE = NP * PLANE, STAGE = DkvStage<HD, BN, NP>::BYTES;
   const int Tn = a.T;
   int valid, qbegin;
   const int ntiles = dkdv_tiles<BN>(a, b, k0, valid, qbegin);
@@ -959,13 +1189,17 @@ __device__ __forceinline__ int dkdv_produce(const MstFlashArgs& a, const Ring<NW
   const bf16* gh = head(static_cast<const bf16*>(a.dout), a.sdo, b, h);
   const float* lse = a.lse + ((size_t)b * a.H + h) * Tn;
   const float* delta = a.delta + ((size_t)b * a.H + h) * Tn;
+  const long long plane = plane_of(a);
   const int lane = threadIdx.x % 128;
   for (int t = 0; t < ntiles; ++t, ++it) {
-    const uint32_t qs = ring.stages() + (it % kStages) * STAGE;
+    const uint32_t qs = ring.stages() + (it % ST) * STAGE;
     const int i0 = qbegin + t * BN;
     ring.wait_empty(it);
-    load_tile_async<HD, BN, 128>(qs, qh, a.sq[2], i0, Tn, lane);
-    load_tile_async<HD, BN, 128>(qs + TILE, gh, a.sdo[2], i0, Tn, lane);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      load_tile_async<HD, BN, 128>(qs + p * PLANE, qh + p * plane, a.sq[2], i0, Tn, lane);
+      load_tile_async<HD, BN, 128>(qs + TILE + p * PLANE, gh + p * plane, a.sdo[2], i0, Tn, lane);
+    }
 #pragma unroll
     for (int e = lane; e < 2 * BN; e += 128) {  // lse, then delta; past T as zeros
       const int qi = i0 + e % BN;
@@ -978,10 +1212,11 @@ __device__ __forceinline__ int dkdv_produce(const MstFlashArgs& a, const Ring<NW
   return it;
 }
 
-template <int HD, int BN, int NWG>
-__device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NWG>& ring,
+template <int HD, int BN, int NWG, int NP, int ST>
+__device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NWG, ST>& ring,
                                             uint8_t* smem_raw, int b, int h, int k0, int it) {
-  constexpr int TILE = BN * Cfg<HD>::ROWB, STAGE = DkvStage<HD, BN>::BYTES;
+  static_assert(NP == 1 || BN == 64, "the SS products are m64n64");
+  constexpr int TILE = NP * BN * Cfg<HD>::ROWB, STAGE = DkvStage<HD, BN, NP>::BYTES;
   static_assert((NWG * 64) % BN == 0 || BN % (NWG * 64) == 0,
                 "the causal walk starts at the item's first key");
   const int Tn = a.T;
@@ -990,28 +1225,47 @@ __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NW
   const int w0 = k0 + (threadIdx.x / 128) * 64;
   const Frag f;
   const uint8_t* const stage_ptr = smem_ptr(smem_raw, ring.stages());
-  uint32_t kf[HD / 16][4], vf[HD / 16][4];
-  load_frags<HD>(kf, head(static_cast<const bf16*>(a.k), a.sk, b, h), a.sk[2], w0, Tn, f);
-  load_frags<HD>(vf, head(static_cast<const bf16*>(a.v), a.sv, b, h), a.sv[2], w0, Tn, f);
+  // K and V: A fragments (NP = 1), or planes in this warpgroup's part of
+  // shared memory.
+  uint32_t kf[1][HD / 16][4], vf[1][HD / 16][4];
+  const uint32_t own = ring.stages() + ST * STAGE + (threadIdx.x / 128) * kOwnBytes<HD, NP>;
+  if constexpr (NP == 1) {
+    load_frags<HD>(kf[0], head(static_cast<const bf16*>(a.k), a.sk, b, h), a.sk[2], w0, Tn, f);
+    load_frags<HD>(vf[0], head(static_cast<const bf16*>(a.v), a.sv, b, h), a.sv[2], w0, Tn, f);
+  } else {
+    load_own_rows<HD, NP>(own, head(static_cast<const bf16*>(a.k), a.sk, b, h), a.sk[2],
+                          plane_of(a), w0, Tn);
+    load_own_rows<HD, NP>(own + kOwnBytes<HD, NP> / 2,
+                          head(static_cast<const bf16*>(a.v), a.sv, b, h), a.sv[2], plane_of(a),
+                          w0, Tn);
+    own_rows_landed();
+  }
   float dk[HD / 2], dv[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
-  const float scale2 = a.bwd_scale * kLog2e;
+  // float32: the Q tiles hold the pieces of q * sm_scale, so S^T and dK
+  // come out scaled.
+  const float scale2 = (NP == 1 ? a.bwd_scale : 1.f) * kLog2e;
 
   for (int t = 0; t < ntiles; ++t, ++it) {
     const int i0 = qbegin + t * BN;
-    const uint32_t qs = ring.stages() + (it % kStages) * STAGE, gs = qs + TILE;
+    const uint32_t qs = ring.stages() + (it % ST) * STAGE, gs = qs + TILE;
     const bool active = !a.causal || i0 + BN - 1 >= w0;  // else every query is before the keys
     float s[BN / 2], dp[BN / 2];
     ring.wait_full(it);
     if (active) {
       wgmma_fence();
-      mma_nt<HD>(s, kf, qs);
-      mma_nt<HD>(dp, vf, gs);
+      if constexpr (NP == 1) {
+        mma_nt<HD, 1>(s, kf, qs);
+        mma_nt<HD, 1>(dp, vf, gs);
+      } else {
+        mma_nt_ss<HD, NP>(s, own, qs);
+        mma_nt_ss<HD, NP>(dp, own + kOwnBytes<HD, NP> / 2, gs);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       const float* lses =
-          reinterpret_cast<const float*>(stage_ptr + (it % kStages) * STAGE + 2 * TILE);
+          reinterpret_cast<const float*>(stage_ptr + (it % ST) * STAGE + 2 * TILE);
       const float* deltas = lses + BN;
       fence_regs(s);
       fence_regs(dp);
@@ -1048,41 +1302,64 @@ __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NW
           }
         }
       }
-      uint32_t pf[BN / 16][4], dsf[BN / 16][4];
-      to_frags<BN>(pf, s);
-      to_frags<BN>(dsf, dp);
-      wgmma_fence();
-      mma_nn<HD, BN>(dv, pf, gs);
-      mma_nn<HD, BN>(dk, dsf, qs);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(dv);
-      fence_regs(dk);
+      if constexpr (NP == 1) {
+        uint32_t pf[1][BN / 16][4], dsf[1][BN / 16][4];
+        to_frags<BN, 1>(pf, s);
+        to_frags<BN, 1>(dsf, dp);
+        wgmma_fence();
+        mma_nn<HD, BN, 1>(dv, pf, gs);
+        mma_nn<HD, BN, 1>(dk, dsf, qs);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv);
+        fence_regs(dk);
+      } else {
+        // One operand's pieces at a time: P^T's for dV, then dS^T's for dK.
+        {
+          uint32_t pf[NP][BN / 16][4];
+          to_frags<BN, NP>(pf, s);
+          wgmma_fence();
+          mma_nn<HD, BN, NP>(dv, pf, gs);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv);
+        }
+        uint32_t dsf[NP][BN / 16][4];
+        to_frags<BN, NP>(dsf, dp);
+        wgmma_fence();
+        mma_nn<HD, BN, NP>(dk, dsf, qs);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk);
+      }
     }
     ring.release(it);
   }
+  if constexpr (NP == 1) {
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk[i] *= a.bwd_scale;
-  store_rows<HD>(head(static_cast<bf16*>(a.dk), a.sdk, b, h), a.sdk[2], w0, Tn, f, dk);
-  store_rows<HD>(head(static_cast<bf16*>(a.dv), a.sdv, b, h), a.sdv[2], w0, Tn, f, dv);
+    for (int i = 0; i < HD / 2; ++i) dk[i] *= a.bwd_scale;
+  }
+  store_rows<HD>(head(static_cast<OutT<NP>*>(a.dk), a.sdk, b, h), a.sdk[2], w0, Tn, f, dk);
+  store_rows<HD>(head(static_cast<OutT<NP>*>(a.dv), a.sdv, b, h), a.sdv[2], w0, Tn, f, dv);
   return it;
 }
 
-// grid (ceil(T / (64 NWG)), H, B), one item a block.
-template <int HD, int BN, int NWG>
+// grid (ceil(T / (64 NWG)), H, B), one item a block; operands of NP pieces.
+template <int HD, int BN, int NWG, int NP>
 __global__ void __launch_bounds__(NWG * 128 + 128, 1)
     flash_bwd_dkdv_kernel_tc(const MstFlashArgs a) {
+  constexpr int ST = kStagesOf<HD, NP>;
   extern __shared__ uint8_t smem_raw[];
-  const Ring<NWG> ring(smem_raw);
+  const Ring<NWG, ST> ring(smem_raw);
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * NWG * 64;
   ring.init();
   if (threadIdx.x >= NWG * 128) {  // the producer warpgroup
     regs_give_back<kProducerRegs>();
-    dkdv_produce<HD, BN, NWG>(a, ring, b, h, k0, 0);
+    dkdv_produce<HD, BN, NWG, NP, ST>(a, ring, b, h, k0, 0);
     return;
   }
   regs_take<kConsumerRegs<NWG>>();
-  dkdv_consume<HD, BN, NWG>(a, ring, smem_raw, b, h, k0, 0);
+  dkdv_consume<HD, BN, NWG, NP, ST>(a, ring, smem_raw, b, h, k0, 0);
 }
 
 // K3's dK/dV kernel: the same items, a block looping over them in the
@@ -1101,14 +1378,14 @@ __global__ void __launch_bounds__(NWG * 128 + 128, 3 - NWG)
     regs_give_back<kProducerRegs>();
     for (int k = 0, i; (i = sched.index(k)) >= 0; ++k) {
       sched.item(i, b, h, x);
-      it = dkdv_produce<HD, BN, NWG>(a, ring, b, h, x * NWG * 64, it);
+      it = dkdv_produce<HD, BN, NWG, 1, kStages>(a, ring, b, h, x * NWG * 64, it);
     }
     return;
   }
   regs_take<kConsumerRegs<NWG>>();
   for (int k = 0, i; (i = sched.index(k)) >= 0; ++k) {
     sched.item(i, b, h, x);
-    it = dkdv_consume<HD, BN, NWG>(a, ring, smem_raw, b, h, x * NWG * 64, it);
+    it = dkdv_consume<HD, BN, NWG, 1, kStages>(a, ring, smem_raw, b, h, x * NWG * 64, it);
   }
 }
 
@@ -1120,8 +1397,16 @@ template <typename K> cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int HD, int BN> constexpr int kTileSmem = 2048 + kStages * 2 * BN * Cfg<HD>::ROWB;
-template <int HD, int BN> constexpr int kDkvSmem = 2048 + kStages * DkvStage<HD, BN>::BYTES;
+template <int HD, int BN, int NP = 1>
+constexpr int kTileSmem = 2048 + kStagesOf<HD, NP> * kKvStage<HD, BN, NP>;
+template <int HD, int BN, int NP = 1>
+constexpr int kDkvSmem = 2048 + kStagesOf<HD, NP> * DkvStage<HD, BN, NP>::BYTES;
+constexpr int kMaxSmem = 232448;  // a block's shared memory on an H100
+static_assert(kTileSmem<64, kFwdTile, 3> <= kMaxSmem && kTileSmem<32, kFwdTile, 3> <= kMaxSmem,
+              "K4's float32 stages");
+static_assert(kTileSmem<64, kDqTile, 3> + kDqGroups * kOwnBytes<64, 3> <= kMaxSmem &&
+                  kDkvSmem<64, kDkvTile, 3> + kDkvGroups * kOwnBytes<64, 3> <= kMaxSmem,
+              "K5's float32 stages and own rows");
 
 // Blocks of `kernel` (NWG consumer warpgroups, `smem` bytes) that the card
 // holds at once, or 0 if the runtime cannot tell.
@@ -1152,34 +1437,53 @@ cudaError_t launch(K kernel, int smem, const MstFlashArgs& a, int blocks, cudaSt
   return cudaGetLastError();
 }
 
-template <int HD> cudaError_t launch_forward(const MstFlashArgs& a, cudaStream_t stream) {
-  constexpr int BN = kFwdTile, NWG = kFwdGroups, smem = kTileSmem<HD, BN>;
-  auto kernel = flash_fwd_kernel_tc<HD, BN, NWG>;
-  static const cudaError_t allowed = allow_smem(kernel, smem);
-  if (allowed != cudaSuccess) return allowed;
-  return launch<NWG>(kernel, smem, a, 0, stream);
+// float32 inputs as the kernels read them: q, k, v and dout replaced by
+// their bf16 pieces ([3, B, H, T, HD] contiguous), out, lse, delta and the
+// gradients as they are.
+MstFlashArgs pieces_view(const MstFlashArgs& a) {
+  MstFlashArgs p = a;
+  const long long s[3] = {(long long)a.H * a.T * a.HD, (long long)a.T * a.HD, a.HD};
+  p.q = a.q3;
+  p.k = a.k3;
+  p.v = a.v3;
+  p.dout = a.dout3;
+  for (int i = 0; i < 3; ++i) p.sq[i] = p.sk[i] = p.sv[i] = p.sdo[i] = s[i];
+  return p;
 }
 
-template <int HD> cudaError_t launch_backward(const MstFlashArgs& a, cudaStream_t stream) {
+// NP = 1: bf16 inputs; NP = 3: float32 inputs (`a` with their pieces).
+template <int HD, int NP> cudaError_t launch_forward(const MstFlashArgs& a, cudaStream_t stream) {
+  constexpr int BN = kFwdTile, NWG = kFwdGroups, smem = kTileSmem<HD, BN, NP>;
+  auto kernel = flash_fwd_kernel_tc<HD, BN, NWG, NP>;
+  static const cudaError_t allowed = allow_smem(kernel, smem);
+  if (allowed != cudaSuccess) return allowed;
+  return launch<NWG>(kernel, smem, NP == 1 ? a : pieces_view(a), 0, stream);
+}
+
+template <int HD, int NP> cudaError_t launch_backward(const MstFlashArgs& a, cudaStream_t stream) {
+  using T = OutT<NP>;
   const size_t rows = (size_t)a.B * a.H * a.T;
-  constexpr int rows_a_block = 256 / (HD / 8);
-  flash_bwd_delta_kernel_tc<HD>
+  constexpr int rows_a_block = 256 / (HD / (16 / (int)sizeof(T)));
+  flash_bwd_delta_kernel_tc<HD, T>
       <<<(unsigned)((rows + rows_a_block - 1) / rows_a_block), 256, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  const MstFlashArgs ap = NP == 1 ? a : pieces_view(a);
   {
-    constexpr int BN = kDqTile, NWG = kDqGroups, smem = kTileSmem<HD, BN>;
-    auto kernel = flash_bwd_dq_kernel_tc<HD, BN, NWG>;
+    constexpr int BN = kDqTile, NWG = kDqGroups;
+    constexpr int smem = kTileSmem<HD, BN, NP> + NWG * kOwnBytes<HD, NP>;
+    auto kernel = flash_bwd_dq_kernel_tc<HD, BN, NWG, NP>;
     static const cudaError_t allowed = allow_smem(kernel, smem);
     if (allowed != cudaSuccess) return allowed;
-    err = launch<NWG>(kernel, smem, a, 0, stream);
+    err = launch<NWG>(kernel, smem, ap, 0, stream);
     if (err != cudaSuccess) return err;
   }
-  constexpr int BN = kDkvTile, NWG = kDkvGroups, smem = kDkvSmem<HD, BN>;
-  auto kernel = flash_bwd_dkdv_kernel_tc<HD, BN, NWG>;
+  constexpr int BN = kDkvTile, NWG = kDkvGroups;
+  constexpr int smem = kDkvSmem<HD, BN, NP> + NWG * kOwnBytes<HD, NP>;
+  auto kernel = flash_bwd_dkdv_kernel_tc<HD, BN, NWG, NP>;
   static const cudaError_t allowed = allow_smem(kernel, smem);
   if (allowed != cudaSuccess) return allowed;
-  return launch<NWG>(kernel, smem, a, 0, stream);
+  return launch<NWG>(kernel, smem, ap, 0, stream);
 }
 
 // The core's kernels: as many blocks as the card holds at once (counted on
@@ -1214,15 +1518,65 @@ template <int HD> cudaError_t launch_core_backward(const MstFlashArgs& a, cudaSt
   return launch<NWG>(kernel, smem, a, blocks, stream);
 }
 
-cudaError_t run(const MstFlashArgs* a, bool backward, void* stream) {
-  if (a->B < 1 || a->T < 1 || a->H < 1 || a->H > 65535 || a->B > 65535 || !a->is_bf16)
-    return cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (a->HD) {
-    case 32: return backward ? launch_backward<32>(*a, s) : launch_forward<32>(*a, s);
-    case 64: return backward ? launch_backward<64>(*a, s) : launch_forward<64>(*a, s);
+template <int NP> cudaError_t run_hd(const MstFlashArgs& a, bool backward, cudaStream_t s) {
+  switch (a.HD) {
+    case 32: return backward ? launch_backward<32, NP>(a, s) : launch_forward<32, NP>(a, s);
+    case 64: return backward ? launch_backward<64, NP>(a, s) : launch_forward<64, NP>(a, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t run(const MstFlashArgs* a, bool backward, void* stream) {
+  if (a->B < 1 || a->T < 1 || a->H < 1 || a->H > 65535 || a->B > 65535)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a->is_bf16) return run_hd<1>(*a, backward, s);
+  // float32: the pieces of q, k, v (and dout) must be there
+  if (a->q3 == nullptr || a->k3 == nullptr || a->v3 == nullptr ||
+      (backward && a->dout3 == nullptr))
+    return cudaErrorInvalidValue;
+  return run_hd<3>(*a, backward, s);
+}
+
+// ----------------------------------------------------------------------------
+// The split of float32 inputs: out[p] = piece p (hi, mid, lo) of x * scale,
+// x a strided [B, H, T, HD] float32 tensor (16-byte aligned rows), out
+// [3, B, H, T, HD] bf16 contiguous. One thread a 16-byte piece of a row. What
+// bounds it: bytes (4 read and 6 written an element).
+
+__global__ void __launch_bounds__(256)
+    split_bf16x3_kernel(const float* x, long long s0, long long s1, long long s2, int H, int T,
+                        int HD, float scale, size_t n4, bf16* out) {
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n4) return;
+  const int q4 = HD / 4;
+  const size_t row = i / q4;
+  const int c = (int)(i % q4) * 4, t = (int)(row % T), h = (int)((row / T) % H);
+  const size_t b = row / ((size_t)T * H);
+  const float4 v = *reinterpret_cast<const float4*>(x + b * s0 + h * s1 + t * s2 + c);
+  const float y[4] = {__fmul_rn(v.x, scale), __fmul_rn(v.y, scale), __fmul_rn(v.z, scale),
+                      __fmul_rn(v.w, scale)};
+  bf16 p[3][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split3(y[e], p[0][e], p[1][e], p[2][e]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    *reinterpret_cast<uint2*>(out + k * (n4 * 4) + i * 4) =
+        make_uint2(pack_bf(p[k][0], p[k][1]), pack_bf(p[k][2], p[k][3]));
+}
+
+cudaError_t run_split(const float* x, const long long* st, int B, int H, int T, int HD, float scale,
+                      bf16* out, cudaStream_t stream) {
+  if (B < 1 || H < 1 || T < 1 || HD < 4 || HD % 4 != 0) return cudaErrorInvalidValue;
+  if ((uintptr_t)x % 16 != 0 || (uintptr_t)out % 16 != 0 || st[0] % 4 != 0 || st[1] % 4 != 0 ||
+      st[2] % 4 != 0)
+    return cudaErrorMisalignedAddress;
+  const size_t n4 = (size_t)B * H * T * HD / 4;
+  const size_t blocks = (n4 + 255) / 256;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  split_bf16x3_kernel<<<(unsigned)blocks, 256, 0, stream>>>(x, st[0], st[1], st[2], H, T, HD,
+                                                            scale, n4, out);
+  return cudaGetLastError();
 }
 
 // The core's interleaved layout as strided [B, H, T, HD] heads: q, k and v of
@@ -1289,6 +1643,12 @@ extern "C" int mst_flash_tc_backward(const MstFlashArgs* a, void* stream) {
 
 extern "C" const char* mst_flash_tc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+extern "C" int mst_split_bf16x3(const void* x, const long long* strides, int B, int H, int T,
+                                int HD, float scale, void* out, void* stream) {
+  return (int)run_split(static_cast<const float*>(x), strides, B, H, T, HD, scale,
+                        static_cast<bf16*>(out), static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int mst_core_tc_forward(const MstCoreArgs* a, void* stream) {

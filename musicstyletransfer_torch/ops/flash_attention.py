@@ -15,17 +15,22 @@ never fall back from one to the other. ``flash_attention`` and
 ``torch.autograd.Function``.
 
 Two sources hold the kernels, and the wrappers choose between them by dtype
-and head dimension alone, before the launch (``kernel_route``): bfloat16 at
-head dimension 32 or 64 goes to ``csrc/flash_attention_tc.cu``, whose matrix
-products run on the tensor cores (``wgmma``) from bf16 shared-memory tiles
-that a producer warpgroup fills with asynchronous copies; float32, and the
-other head dimensions, go to ``csrc/flash_attention.cu`` (CUDA-core float32
-FMA). The
-tensor-core kernels need 16-byte aligned rows (base address, and (b, h, t)
-strides that are multiples of 8 elements), which the model's layouts have;
-the wrapper raises on anything else and never falls back. ``launches``
-counts every launch of a wrapper, ``tc_launches`` those of the tensor-core
-kernels.
+and head dimension alone, before the launch (``kernel_route``): bfloat16 and
+float32 at head dimension 32 or 64 go to ``csrc/flash_attention_tc.cu``,
+whose matrix products run on the tensor cores (``wgmma``) from bf16
+shared-memory tiles that a producer warpgroup fills with asynchronous
+copies; the other head dimensions go to ``csrc/flash_attention.cu``
+(CUDA-core float32 FMA). float32 inputs reach the tensor cores as three bf16
+pieces each (``split_bf16x3``: x = hi + mid + lo exactly, one launch of
+``split_bf16x3_kernel`` an operand, q with sm_scale applied first), every
+float32 product as six bf16 products into a float32 accumulator. The
+attention core (``attention_core.core_route``) keeps float32 on its
+CUDA-core kernels. The tensor-core kernels need 16-byte aligned rows (base
+address, and (b, h, t) strides that are multiples of 16 bytes: 8 bf16 or 4
+float32 elements), which the model's layouts have; the wrapper raises on
+anything else and never falls back. ``launches`` counts every launch of a
+wrapper, ``tc_launches`` those of the tensor-core kernels, and
+``split_bf16x3.launches`` those of the split.
 
 The layout is the JAX package's: q, k, v [B, H, T, D], ``key_lens`` [B]
 prefix key counts (int32), out [B, H, T, D] in the input dtype and lse
@@ -46,7 +51,8 @@ with delta = rowsum(dO * O) - g_lse, dq = ds K scale, dk = ds^T (q scale),
 dv = p^T dO. The tensor-core backward keeps float32 sums, softmax and scale
 but feeds bf16 operands to its products: S from the raw q, scaled
 afterwards; P (for dv) and ds (for dq, dk) rounded to bf16; dk scaled at the
-end.
+end. For float32 inputs the tensor-core kernels keep the rounding points
+above: their operands are exact in three pieces.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention_core import _NEG_INF, _mask, _scales, core_route
+from .attention_core import _NEG_INF, _TC_HEAD_DIMS, _mask, _scales, core_route
 
 _SENTINEL = -1e29  # lse at or below it: a row that sees no key
 
@@ -128,6 +134,25 @@ def flash_backward_reference(q, k, v, key_lens, lse, out, g, causal: bool, sm_sc
 
 flash_backward_reference.cuda_runs = 0
 
+
+def split_bf16x3_reference(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """The split's function: y = x * scale in float32 (the scale as
+    float32), then y = hi + mid + lo with hi = bf16(y), mid = bf16(y - hi),
+    lo = bf16(y - hi - mid); [3, *x.shape] bf16 (hi, mid, lo), contiguous.
+    The three pieces hold y's 24 significant bits exactly wherever y - hi -
+    mid is a normal bf16 (|y| above ~2^-110)."""
+    if x.is_cuda:
+        split_bf16x3_reference.cuda_runs += 1
+    y = x * torch.tensor(scale, dtype=torch.float32)
+    hi = y.to(torch.bfloat16)
+    r = y - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return torch.stack((hi, mid, lo))
+
+
+split_bf16x3_reference.cuda_runs = 0
+
 # ----------------------------------------------------------------------------
 # The kernels
 
@@ -148,6 +173,8 @@ class _Args(ctypes.Structure):
         ("B", ctypes.c_int), ("H", ctypes.c_int), ("T", ctypes.c_int),
         ("HD", ctypes.c_int), ("causal", ctypes.c_int), ("is_bf16", ctypes.c_int),
         ("fwd_scale", ctypes.c_float), ("bwd_scale", ctypes.c_float),
+        ("q3", ctypes.c_void_p), ("k3", ctypes.c_void_p), ("v3", ctypes.c_void_p),
+        ("dout3", ctypes.c_void_p),
     ]
 
 
@@ -158,21 +185,26 @@ _SOURCES = {"cuda-core": ("flash_attention", "mst_flash"),
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernels take CUDA inputs of this dtype and head dimension:
-    "tensor-core" (``csrc/flash_attention_tc.cu``) or "cuda-core"
-    (``csrc/flash_attention.cu``); the attention core's table
-    (``attention_core.core_route``)."""
-    return core_route(dtype, head_dim)
+    "tensor-core" (``csrc/flash_attention_tc.cu``: bfloat16, and float32 as
+    three bf16 pieces, at head dimension 32 or 64) or "cuda-core"
+    (``csrc/flash_attention.cu``: the other head dimensions). The attention
+    core's table (``attention_core.core_route``) differs in float32, which
+    it keeps on its CUDA-core kernels."""
+    core_route(dtype, head_dim)  # the dtype and head dimension checks
+    return "tensor-core" if head_dim in _TC_HEAD_DIMS else "cuda-core"
 
 
 def check_tc_layout(**tensors: torch.Tensor) -> None:
-    """The tensor-core kernels move 16-byte pieces of rows: raise unless each
-    [B, H, T, D] tensor starts 16-byte aligned and its (b, h, t) strides
-    are multiples of 8 elements."""
+    """The tensor-core kernels (and the split of float32 inputs) move
+    16-byte pieces of rows: raise unless each [B, H, T, D] tensor starts
+    16-byte aligned and its (b, h, t) strides are multiples of 16 bytes (8
+    bf16 or 4 float32 elements)."""
     for name, x in tensors.items():
-        if x.data_ptr() % 16 != 0 or any(st % 8 != 0 for st in x.stride()[:3]):
+        unit = 16 // x.element_size()
+        if x.data_ptr() % 16 != 0 or any(st % unit != 0 for st in x.stride()[:3]):
             raise ValueError(
                 f"{name}: the tensor-core flash kernels need a 16-byte aligned base address and "
-                f"(b, h, t) strides that are multiples of 8 elements, got offset "
+                f"(b, h, t) strides that are multiples of {unit} elements, got offset "
                 f"{x.data_ptr() % 16} and strides {tuple(x.stride())}")
 
 
@@ -185,6 +217,11 @@ def _library(route: str) -> Tuple[ctypes.CDLL, str]:
             fn.restype = ctypes.c_int
         getattr(lib, prefix + "_error_string").argtypes = [ctypes.c_int]
         getattr(lib, prefix + "_error_string").restype = ctypes.c_char_p
+        if route == "tensor-core":
+            lib.mst_split_bf16x3.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(_Strides), ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+            lib.mst_split_bf16x3.restype = ctypes.c_int
     return lib, prefix
 
 
@@ -192,11 +229,41 @@ def _strides(x: torch.Tensor) -> "_Strides":
     return _Strides(*x.stride()[:3])
 
 
-def _check(q, k, v, key_lens) -> Tuple[int, int, int, int, str]:
+def split_bf16x3(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """The bf16 pieces hi, mid, lo of float32 x * scale ([B, H, T, D], any
+    strides with a contiguous last dimension and 16-byte aligned rows):
+    [3, B, H, T, D] bf16, contiguous, as the tensor-core kernels read float32
+    inputs. One launch of ``split_bf16x3_kernel`` for a CUDA ``x``,
+    ``split_bf16x3_reference`` (the same bits) for a CPU one."""
+    if not x.is_cuda:
+        return split_bf16x3_reference(x, scale)
+    if x.dtype != torch.float32 or x.dim() != 4 or x.stride(-1) != 1 or x.shape[-1] % 4 != 0:
+        raise ValueError(f"the split takes a float32 [B, H, T, D] tensor with a contiguous last "
+                         f"dimension and D a multiple of 4, got {x.dtype} {tuple(x.shape)} with "
+                         f"strides {tuple(x.stride())}")
+    check_tc_layout(x=x)
+    out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
+    lib, _ = _library("tensor-core")
+    err = lib.mst_split_bf16x3(x.data_ptr(), ctypes.byref(_strides(x)), *x.shape, scale,
+                               out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("mst_split_bf16x3 launch failed: "
+                           + lib.mst_flash_tc_error_string(err).decode())
+    split_bf16x3.launches += 1
+    return out
+
+
+split_bf16x3.launches = 0
+
+
+def _check(q, k, v, key_lens, route: Optional[str] = None) -> Tuple[int, int, int, int, str]:
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, T, D], got {tuple(q.shape)}")
     B, H, T, D = q.shape
-    route = kernel_route(q.dtype, D)
+    if route is None:
+        route = kernel_route(q.dtype, D)
+    elif route not in ("cuda-core", kernel_route(q.dtype, D)):
+        raise ValueError(f"the {route} kernels do not take {q.dtype} at head dimension {D}")
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
             raise ValueError(f"{name} must match q: {tuple(q.shape)} {q.dtype} on {q.device}, "
@@ -226,22 +293,38 @@ def _launch(route: str, direction: str, args: _Args, device: torch.device) -> No
                            + getattr(lib, prefix + "_error_string")(err).decode())
 
 
+def _pieces(route: str, scale: float, q: torch.Tensor, *rest: torch.Tensor):
+    """float32 inputs of the tensor-core route: the pieces of q * scale and
+    of each of ``rest`` (``split_bf16x3``), else Nones."""
+    if route != "tensor-core" or q.dtype != torch.float32:
+        return (None,) * (1 + len(rest))
+    return (split_bf16x3(q, scale), *(split_bf16x3(x) for x in rest))
+
+
+def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
+    return None if x is None else x.data_ptr()
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: torch.Tensor,
-                  causal: bool, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                  causal: bool, sm_scale: float, *, route: Optional[str] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: (out [B, H, T, D], lse [B, H, T]); one kernel launch (of the
-    source ``kernel_route`` names) for CUDA tensors,
-    ``flash_forward_reference`` for CPU ones."""
+    source ``kernel_route`` names; float32 on the tensor cores first splits
+    q, k and v) for CUDA tensors, ``flash_forward_reference`` for CPU ones.
+    ``route`` "cuda-core" takes the CUDA-core kernels at any head dimension
+    (to measure them beside the tensor-core ones)."""
     if not q.is_cuda:
         return flash_forward_reference(q, k, v, key_lens, causal, sm_scale)
-    B, H, T, D, route = _check(q, k, v, key_lens)
+    B, H, T, D, route = _check(q, k, v, key_lens, route)
     out = _empty_bthd(B, H, T, D, q)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     fwd_scale, bwd_scale = _scales(q.dtype, sm_scale)
+    q3, k3, v3 = _pieces(route, fwd_scale, q, k, v)
     args = _Args(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), key_lens=key_lens.data_ptr(),
                  out=out.data_ptr(), lse=lse.data_ptr(), sq=_strides(q), sk=_strides(k),
                  sv=_strides(v), so=_strides(out), B=B, H=H, T=T, HD=D, causal=int(causal),
                  is_bf16=int(q.dtype == torch.bfloat16), fwd_scale=fwd_scale,
-                 bwd_scale=bwd_scale)
+                 bwd_scale=bwd_scale, q3=_ptr(q3), k3=_ptr(k3), v3=_ptr(v3))
     _launch(route, "forward", args, q.device)
     flash_forward.launches += 1
     flash_forward.tc_launches += route == "tensor-core"
@@ -254,15 +337,18 @@ flash_forward.tc_launches = 0
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: torch.Tensor,
                    lse: torch.Tensor, out: torch.Tensor, g: torch.Tensor, causal: bool,
-                   sm_scale: float, g_lse: Optional[torch.Tensor] = None
+                   sm_scale: float, g_lse: Optional[torch.Tensor] = None, *,
+                   route: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5: (dq, dk, dv) in q's dtype; one call (three kernels: delta, dQ,
-    dK/dV, of the source ``kernel_route`` names) for CUDA tensors,
-    ``flash_backward_reference`` for CPU ones."""
+    dK/dV, of the source ``kernel_route`` names; float32 on the tensor cores
+    first splits q, k, v and dO) for CUDA tensors,
+    ``flash_backward_reference`` for CPU ones. ``route`` as for
+    ``flash_forward``."""
     if not q.is_cuda:
         return flash_backward_reference(q, k, v, key_lens, lse, out, g, causal, sm_scale,
                                         g_lse)
-    B, H, T, D, route = _check(q, k, v, key_lens)
+    B, H, T, D, route = _check(q, k, v, key_lens, route)
     g = g.to(q.dtype)
     if g.stride(-1) != 1:
         g = g.contiguous()
@@ -280,6 +366,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: 
     dq, dk, dv = (_empty_bthd(B, H, T, D, q) for _ in range(3))
     delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     fwd_scale, bwd_scale = _scales(q.dtype, sm_scale)
+    q3, k3, v3, g3 = _pieces(route, bwd_scale, q, k, v, g)
     args = _Args(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(), key_lens=key_lens.data_ptr(),
                  out=out.data_ptr(), lse=lse.data_ptr(), dout=g.data_ptr(),
                  g_lse=None if g_lse is None else g_lse.data_ptr(), delta=delta.data_ptr(),
@@ -288,7 +375,7 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: 
                  sdo=_strides(g), sdq=_strides(dq), sdk=_strides(dk), sdv=_strides(dv),
                  B=B, H=H, T=T, HD=D, causal=int(causal),
                  is_bf16=int(q.dtype == torch.bfloat16), fwd_scale=fwd_scale,
-                 bwd_scale=bwd_scale)
+                 bwd_scale=bwd_scale, q3=_ptr(q3), k3=_ptr(k3), v3=_ptr(v3), dout3=_ptr(g3))
     _launch(route, "backward", args, q.device)
     flash_backward.launches += 1
     flash_backward.tc_launches += route == "tensor-core"

@@ -41,11 +41,12 @@ _ONE_BLOCK_AN_ITEM = [("static const int blocks = resident_blocks<NWG>(kernel, s
                        "static const int blocks = 1 << 30;")]
 _PLAIN_ORDER = [("if (B > kMaxSortedRows) {", "if (true) {")]
 _DELTA_KERNEL = [
-    ("it = dq_consume<HD, BN, NWG, true>(", "it = dq_consume<HD, BN, NWG, false>("),
+    ("it = dq_consume<HD, BN, NWG, 1, kStages, true>(",
+     "it = dq_consume<HD, BN, NWG, 1, kStages, false>("),
     ("template <int HD> cudaError_t launch_core_backward(const MstFlashArgs& a, cudaStream_t stream) {\n",
      "template <int HD> cudaError_t launch_core_backward(const MstFlashArgs& a, cudaStream_t stream) {\n"
      "  const size_t rows = (size_t)a.B * a.H * a.T;\n"
-     "  flash_bwd_delta_kernel_tc<HD><<<(unsigned)((rows + 256 / (HD / 8) - 1) / (256 / (HD / 8))),"
+     "  flash_bwd_delta_kernel_tc<HD, bf16><<<(unsigned)((rows + 256 / (HD / 8) - 1) / (256 / (HD / 8))),"
      " 256, 0, stream>>>(a);\n"
      "  if (cudaGetLastError() != cudaSuccess) return cudaErrorLaunchFailure;\n")]
 _TWO_GROUPS = [("kCoreDqTile = 64, kCoreDqGroups = 1;", "kCoreDqTile = 64, kCoreDqGroups = 2;"),

@@ -340,10 +340,12 @@ def test_tensor_core_backward_finite_at_extreme_cotangents(hd, causal):
     (torch.bfloat16, 32, "tensor-core"), (torch.bfloat16, 64, "tensor-core"),
     (torch.bfloat16, 8, "cuda-core"), (torch.bfloat16, 16, "cuda-core"),
     (torch.bfloat16, 128, "cuda-core"),
-    (torch.float32, 32, "cuda-core"), (torch.float32, 64, "cuda-core"),
+    (torch.float32, 32, "tensor-core"), (torch.float32, 64, "tensor-core"),
+    (torch.float32, 16, "cuda-core"), (torch.float32, 128, "cuda-core"),
 ])
 def test_kernel_route(dtype, hd, route):
-    """The wrapper chooses the kernels by dtype and head dimension alone."""
+    """The wrapper chooses the kernels by dtype and head dimension alone:
+    the tensor cores take bfloat16 and float32 at head dimension 32 or 64."""
     assert fa.kernel_route(dtype, hd) == route
     q = torch.zeros(2, 2, 16, hd, dtype=dtype)
     assert fa._check(q, q, q, torch.zeros(2, dtype=torch.int32))[4] == route
@@ -364,7 +366,8 @@ def test_tensor_core_layout_checks():
     """The model's layouts pass ([B, H, T, hd] views of separate [B, T, D]
     projections, of a fused [B, T, 3D] one, and of an interleaved
     [B, T, H, 3, hd] one); rows that do not start on 16 bytes raise, through
-    ``_check`` too, and float32 tensors of the same layout do not."""
+    ``_check`` too. float32 tensors take the same rule in bytes: a row stride
+    of 36 elements (144 bytes) passes, one of 34 raises."""
     B, T, H, hd = 2, 16, 2, 32
     lens = torch.zeros(B, dtype=torch.int32)
     sep = torch.zeros(B, T, H, hd, dtype=torch.bfloat16).transpose(1, 2)
@@ -381,7 +384,13 @@ def test_tensor_core_layout_checks():
         fa.check_tc_layout(k=odd)  # aligned base, row stride 36 elements
     with pytest.raises(ValueError, match="k: the tensor-core"):
         fa._check(sep, odd, sep, lens)
-    assert fa._check(odd.float(), odd.float(), odd.float(), lens)[4] == "cuda-core"
+    assert fa._check(odd.float(), odd.float(), odd.float(), lens)[4] == "tensor-core"
+    f32 = torch.zeros(B, T, H, hd + 4)[..., :hd].transpose(1, 2)
+    fa.check_tc_layout(q=f32)
+    assert fa._check(f32, f32, f32, lens)[4] == "tensor-core"
+    f32_odd = torch.zeros(B, T, H, hd + 2)[..., :hd].transpose(1, 2)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fa._check(f32_odd, f32_odd, f32_odd, lens)
 
 
 def test_counters_of_the_tensor_core_route():

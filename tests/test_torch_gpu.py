@@ -16,7 +16,10 @@ strided [B, T, H, hd] views and with an lse cotangent. bfloat16 at head
 dimension 32 or 64 takes the tensor-core kernels (K2 and K3 through the
 core's entry points of the same source), which round P and dS to bf16
 before their second products: out 3e-2, lse 1e-3, gradients 2e-2 relative
-to their largest magnitude (``chip_smoke.py``'s tolerances). K1 at padded
+to their largest magnitude (``chip_smoke.py``'s tolerances). float32 at
+head dimension 32 or 64 takes the flash tensor-core kernels too, every
+operand as three bf16 pieces, and keeps the float32 tolerances; the split
+that makes the pieces equals its plain version bit for bit. K1 at padded
 widths and wide vocabularies takes K1's tolerances. A graph of training
 steps and the same eager steps run the same kernels on the same inputs in
 the same order: bit for bit; so do the LSTM-decoder VAE's graphed steps and
@@ -428,16 +431,22 @@ def test_flash_autograd_launches_the_kernels(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T", [70, 300])
+@pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 70), (torch.bfloat16, 300),
+                                     (torch.float32, 300)])
 @pytest.mark.parametrize("hd,causal", [(32, True), (32, False), (64, True), (64, False)])
-def test_tensor_core_flash_kernels_match_plain_versions(cuda, hd, causal, T):
-    """bfloat16 at a T that no tile divides: the tensor-core kernels against
-    the plain versions, with an lse cotangent, at 1e19 cotangents, and twice
-    for the same bits; only the tensor-core counters and ``launches`` move."""
-    q, k, v, g, lens, g_lse = (x.bfloat16() if x.dtype == torch.float32 and x.dim() == 4 else x
+def test_tensor_core_flash_kernels_match_plain_versions(cuda, hd, causal, T, dtype):
+    """bfloat16, and float32 as three bf16 pieces, at a T that no tile
+    divides: the tensor-core kernels against the plain versions, with an lse
+    cotangent, at 1e19 cotangents, and twice for the same bits; only the
+    tensor-core counters and ``launches`` move (and, in float32, the split's:
+    q, k, v for K4, and dO for K5)."""
+    q, k, v, g, lens, g_lse = (x.to(dtype) if x.dtype == torch.float32 and x.dim() == 4 else x
                                for x in flash_inputs(cuda, T, hd, seed=T + hd))
     scale = hd ** -0.5
+    tol_out, tol_lse, tol_rel = {torch.bfloat16: (3e-2, 1e-3, 2e-2),
+                                 torch.float32: (1e-5, 1e-5, 1e-4)}[dtype]
     assert fa.kernel_route(q.dtype, hd) == "tensor-core"
+    splits = fa.split_bf16x3.launches
     before = (fa.flash_forward.launches, fa.flash_forward.tc_launches,
               fa.flash_backward.launches, fa.flash_backward.tc_launches)
     out, lse = fa.flash_forward(q, k, v, lens, causal, scale)
@@ -454,24 +463,50 @@ def test_tensor_core_flash_kernels_match_plain_versions(cuda, hd, causal, T):
     assert (fa.flash_forward.launches, fa.flash_forward.tc_launches,
             fa.flash_backward.launches, fa.flash_backward.tc_launches) == (
         before[0] + 1, before[1] + 1, before[2] + 3, before[3] + 3)
+    assert fa.split_bf16x3.launches == splits + (3 + 3 * 4 if dtype == torch.float32 else 0)
     assert fa.flash_backward_reference.cuda_runs == plain_runs + 1  # the one call above
-    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    assert float((out.float() - pout.float()).abs().max()) <= 3e-2
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert float((out.float() - pout.float()).abs().max()) <= tol_out
     valid = plse > -1e29
     assert torch.equal(lse > -1e29, valid)
-    assert float((lse - plse)[valid].abs().max()) <= 1e-3
+    assert float((lse - plse)[valid].abs().max()) <= tol_lse
     assert bool((out[lens == 0] == 0).all())
     for d, pd, d2 in zip(grads, pgrads, again):
-        assert d.dtype == torch.bfloat16 and torch.equal(d, d2)
-        assert float((d.float() - pd.float()).abs().max()) <= 2e-2 * float(pd.float().abs().max())
+        assert d.dtype == dtype and torch.equal(d, d2)
+        assert (float((d.float() - pd.float()).abs().max())
+                <= tol_rel * float(pd.float().abs().max()))
     assert all(bool(torch.isfinite(d.float()).all()) for d in huge)
 
 
 @pytest.mark.gpu
+def test_split_kernel_equals_plain_version(cuda):
+    """The split of float32 inputs on the card equals its plain version bit
+    for bit (normal, tiny and 1e19 values, scaled and not, a strided view);
+    one launch a call; rows that are not 16-byte aligned raise."""
+    rng = np.random.default_rng(3)
+    for magnitude in (1.0, 1e-30, 1e19):
+        x = torch.as_tensor(rng.normal(size=(4, 333, 2, 64)) * magnitude, dtype=torch.float32,
+                            device=cuda).transpose(1, 2)
+        for scale in (1.0, 0.125):
+            launches = fa.split_bf16x3.launches
+            got = fa.split_bf16x3(x, scale)
+            want = fa.split_bf16x3_reference(x, scale)
+            torch.cuda.synchronize()
+            assert fa.split_bf16x3.launches == launches + 1
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    odd = torch.zeros(4, 40, 2, 66, device=cuda)[..., :64].transpose(1, 2)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fa.split_bf16x3(odd)
+
+
+@pytest.mark.gpu
 def test_flash_routes_by_dtype_and_head_dim(cuda):
-    """float32, and bfloat16 at head dimension 16, stay on the CUDA-core
-    kernels; a bfloat16 tensor whose rows do not start on 16 bytes raises."""
-    for dtype, hd, tc in ((torch.float32, 64, 0), (torch.bfloat16, 16, 0), (torch.bfloat16, 64, 1)):
+    """Head dimension 16 stays on the CUDA-core kernels in float32 and
+    bfloat16; float32 and bfloat16 at head dimension 64 launch the
+    tensor-core kernels; a bfloat16 tensor whose rows do not start on 16
+    bytes raises."""
+    for dtype, hd, tc in ((torch.float32, 64, 1), (torch.float32, 16, 0), (torch.bfloat16, 16, 0),
+                          (torch.bfloat16, 64, 1)):
         q, k, v, g, lens, _ = flash_inputs(cuda, 40, hd, seed=2)
         q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
         before = (fa.flash_forward.launches, fa.flash_forward.tc_launches,
