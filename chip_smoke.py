@@ -6,11 +6,12 @@
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of musicstyletransfer_torch/ops/csrc with nvcc, one
    process per source, all at once: K1 (fused_decode.cu), K2/K3 in bfloat16
-   and K4/K5 in bfloat16 and float32 at head dimension 32 or 64 on the
-   tensor cores (flash_attention_tc.cu, float32 as three bf16 pieces from
-   its split kernel), K2/K3 in float32 and at the other head dimensions
-   (attention_core.cu), K4/K5 at the other head dimensions
-   (flash_attention.cu), both on the CUDA cores.
+   at head dimension 32 or 64, K4/K5 in bfloat16 at 16, 32, 64 or 128 and
+   in float32 at 32 or 64 on the tensor cores (flash_attention_tc.cu,
+   float32 as three bf16 pieces from its split kernel), K2/K3 in float32
+   and at the other head dimensions (attention_core.cu), K4/K5 at head
+   dimension 8 and in float32 at 16 and 128 (flash_attention.cu), both on
+   the CUDA cores.
 3. Holds K1 against its plain PyTorch version on the card, at the canonical
    decoder shape (D=128, H=8, V=293, B=64, T=130) with seeded weights, in
    float32 and bfloat16: forced-mode logits, greedy tokens and scores, the
@@ -37,14 +38,17 @@
    scaled and not). Holds K4 and K5 against their plain versions at the long
    training shapes (H=8; encoder T=2047, hd=64; decoder T=2048, hd=32,
    causal; the key lengths of the corpus's first L=2046 batch plus a row of
-   1 and a row of 0), at T=8192 (causal and not), at two short lengths that
-   no tile divides (T=333, hd=32; T=200, hd=64, causal) and at head
-   dimensions 16 and 128 (T=333), in float32 and bfloat16, on the model's
-   strided [B, T, H, hd] layout: out, lse, and dq/dk/dv with and without an
-   lse cotangent, through flash_attention_with_lse's autograd too, and K5 at
-   1e19 cotangents; head dimensions 32 and 64 go through the tensor-core
-   kernels (float32 through the split), 16 and 128 through the CUDA-core
-   ones, and a second run of K5 gives the same bits.
+   1 and a row of 0), at T=8192 (causal and not), at short lengths that no
+   tile divides (T=333, hd=32 and 128; T=200, hd=64 and 16, causal), in
+   float32 and bfloat16 (hd 16 and 128: bfloat16), at the long shapes of
+   head dimensions 128 (T=2047) and 16 (T=2048, causal) in bfloat16, and
+   what stays on the CUDA-core kernels (T=333: float32 at hd 16 and 128,
+   both dtypes at hd 8), on the model's strided [B, T, H, hd] layout: out,
+   lse, and dq/dk/dv with and without an lse cotangent, through
+   flash_attention_with_lse's autograd too, and K5 at 1e19 cotangents;
+   bfloat16 at head dimensions 16, 32, 64 and 128 and float32 at 32 and 64
+   go through the tensor-core kernels (float32 through the split), the rest
+   through the CUDA-core ones, and a second run of K5 gives the same bits.
 6. CUDA graphs of N training steps (training/graph.py) against 2N eager
    steps from one seeded state, at the canonical (N=8, and N=2 with
    --remat), wide (N=4) and long (N=1) recipes: parameters, optimizer
@@ -85,7 +89,13 @@
    (the reference's dtype): a CUDA graph of one step against eager steps,
    bit for bit; cli.main for one epoch (12 steps), every K4 and K5 launch on
    the tensor-core kernels, three splits a K4 and four a K5, no plain
-   version on the card.
+   version on the card. Head dimensions 128 and 16 at full width
+   (head_dim_paths, HD_PATHS): train-vae-long.sh --e-num-heads 4 (encoder
+   hd 128, decoder hd 64) and train-vae.sh's widths at L=2046, B=4 with
+   flash attention (encoder hd 32, decoder hd 16): CUDA graphs of the
+   recipe's steps against eager steps, bit for bit, and cli.main for one
+   epoch each; every K4/K5 launch on the tensor-core kernels, no plain
+   version on the card, finite losses.
    Canonical path: cli.main with scripts/train-vae.sh's flags (B=32,
    L=64, groups of 8 steps: one graph replay each, the epoch's remainder
    a graph of its own) for two epochs; cli.evaluate --transfer-stats on
@@ -113,12 +123,16 @@
    transfer, K1 against its plain loop, p50 MIDI->MIDI latency; K2/K3 at
    both wide shapes (bf16, and float32 on the CUDA cores) and K4/K5 at both
    long shapes (bf16; float32 on the tensor cores and, for comparison, on
-   the CUDA-core kernels) and at T=8192 (bf16), and at head dimensions 16
-   and 128 (the CUDA-core kernels, both dtypes), beside their bounds (float32
-   attention: the TF32 peak), their plain versions and torch's
+   the CUDA-core kernels) and at T=8192 (bf16), bf16 at head dimensions 16
+   and 128 (the tensor-core kernels and, for comparison, the CUDA-core
+   ones), and what stays on the CUDA-core kernels (float32 at 16 and 128,
+   hd 8; K2/K3 in bf16 at 16 and 128), beside their bounds (float32
+   attention: the TF32 peak; K2-K5 also one exponential a pair at 3.9 T/s),
+   their plain versions and torch's
    scaled_dot_product_attention, and their wrappers' host time a call; the
    split at the long encoder shape; the canonical, wide, long and float32
-   long training steps, eager and as graph replays: ms a step, target tokens per
+   long training steps and those of the hd 128 and hd 16 paths, eager and
+   as graph replays: ms a step, target tokens per
    second, and from torch.profiler the kernels' ms a step, the device's busy
    share, kernels and host ops a step and the attention kernels' share;
    the same for the LSTM-decoder VAE's step.
@@ -233,13 +247,25 @@ TOL_DQKV_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FLASH_SHAPES = (("encoder", 2047, 64, False), ("decoder", 2048, 32, True))
 FLASH_H, FLASH_LONG_T = 8, 8192
 LONG_L, LONG_B = 2046, 4
-# Two short lengths that no tile of the tensor-core kernels divides:
-# (name, T, head_dim, causal, key_lens); and the head dimensions that stay
-# on the CUDA-core kernels (flash_attention.cu) at a ragged length.
-FLASH_SHORT = (("short", 333, 32, False, [333, 129, 1, 0]),
-               ("short", 200, 64, True, [200, 65, 1, 0]))
-FLASH_CUDA_CORE = (("cuda-core hd", 333, 16, True, [333, 129, 1, 0]),
-                   ("cuda-core hd", 333, 128, False, [333, 129, 1, 0]))
+# Short lengths that no tile of the tensor-core kernels divides: (name, T,
+# head_dim, causal, key_lens, dtypes); and what stays on the CUDA-core
+# kernels (flash_attention.cu) at a ragged length: float32 at head dimension
+# 16 and 128, both dtypes at 8.
+F32_BF16 = (torch.float32, torch.bfloat16)
+FLASH_SHORT = (("short", 333, 32, False, [333, 129, 1, 0], F32_BF16),
+               ("short", 200, 64, True, [200, 65, 1, 0], F32_BF16),
+               ("short", 333, 128, False, [333, 129, 1, 0], (torch.bfloat16,)),
+               ("short", 200, 16, True, [200, 65, 1, 0], (torch.bfloat16,)))
+FLASH_CUDA_CORE = (("cuda-core hd", 333, 16, True, [333, 129, 1, 0], (torch.float32,)),
+                   ("cuda-core hd", 333, 128, False, [333, 129, 1, 0], (torch.float32,)),
+                   ("cuda-core hd", 333, 8, False, [333, 129, 1, 0], F32_BF16))
+# The head dimensions of the tensor-core flash kernels, by dtype (float32 as
+# three bf16 pieces an operand); the rest takes the CUDA-core ones.
+FLASH_TC = {torch.bfloat16: (16, 32, 64, 128), torch.float32: (32, 64)}
+# The long recipe's encoder shape at the head dimensions that one flag moves
+# it to (--e-num-heads 4: hd 128) and the canonical widths' decoder on a
+# whole-song window (train-vae.sh at L=2046: hd 16, causal), bf16.
+FLASH_HD_SHAPES = (("hd 128 encoder", 2047, 128, False), ("hd 16 decoder", 2048, 16, True))
 # K4/K5 against their plain versions: K2/K3's tolerances (TOL_CTX, TOL_LSE,
 # TOL_DQKV_REL), for the same reasons.
 # A resumed run's first logged step against the uninterrupted run's: the same
@@ -256,6 +282,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_TF32 = 495e12
 SPLIT_CEILING = 989e12 / 6
 PEAK_BYTES = 3.35e12
+# The special function units' exponentials: 3.9 T/s on an H100 SXM5
+# (FlashAttention-3, Shah et al. 2024, section 3); K2-K5 take at least one
+# a (query, key) pair in each direction.
+PEAK_EXP = 3.9e12
 
 
 def log(msg: str) -> None:
@@ -639,27 +669,37 @@ def check_split(fa) -> float:
 def check_flash(fa, enc_lens) -> dict:
     """K4 and K5 against their plain versions at both long shapes (the corpus
     batch's key lengths ``enc_lens`` plus a row of 1 and a row of 0, +1 in
-    the decoder), at T=8192, at two short lengths, and at head dimensions 16
-    and 128 (the CUDA-core kernels); bfloat16 and float32 at head dimension
-    32 or 64 on the tensor-core kernels (float32 through the split); returns
-    the largest absolute errors {"K4": ..., "K5": ...}."""
+    the decoder), at T=8192, at short lengths, at the long shapes of head
+    dimensions 128 and 16 (bf16), and at what stays on the CUDA-core kernels
+    (float32 at head dimension 16 and 128, both dtypes at 8); bfloat16 at
+    head dimension 16, 32, 64 or 128 and float32 at 32 or 64 on the
+    tensor-core kernels (float32 through the split); returns the largest
+    absolute errors {"K4": ..., "K5": ..., "K4 float32": ..., "K4 hd 128":
+    ..., "K4 hd 16": ..., ...}."""
     enc = [int(n) for n in enc_lens]
-    cases = [(name, T, hd, causal, (enc if name == "encoder" else [n + 1 for n in enc]) + [1, 0])
-             for name, T, hd, causal in FLASH_SHAPES]
-    cases += [("single row", FLASH_LONG_T, 64, causal, [FLASH_LONG_T * 7 // 8])
+
+    def lens_of(name):
+        return (enc if "encoder" in name else [n + 1 for n in enc]) + [1, 0]
+
+    cases = [(name, T, hd, causal, lens_of(name), F32_BF16) for name, T, hd, causal in FLASH_SHAPES]
+    cases += [("single row", FLASH_LONG_T, 64, causal, [FLASH_LONG_T * 7 // 8], F32_BF16)
               for causal in (False, True)]
+    cases += [(name, T, hd, causal, lens_of(name), (torch.bfloat16,))
+              for name, T, hd, causal in FLASH_HD_SHAPES]
     cases += list(FLASH_SHORT) + list(FLASH_CUDA_CORE)
-    worst = {"K4": 0.0, "K5": 0.0, "K4 float32": 0.0, "K5 float32": 0.0}
-    for name, T, hd, causal, lens in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    worst = {k: 0.0 for k in ("K4", "K5", "K4 float32", "K5 float32", "K4 hd 128", "K5 hd 128",
+                              "K4 hd 16", "K5 hd 16")}
+    for name, T, hd, causal, lens, dtypes in cases:
+        for dtype in dtypes:
             dn = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
             tag = f"{name} T={T} hd={hd} causal={causal} {dn}"
             f32_tc = dtype == torch.float32 and hd in (32, 64)
+            hd_key = f"hd {hd}" if dtype == torch.bfloat16 and hd in (16, 128) else None
             q, k, v, dout, g_lse = flash_inputs(len(lens), T, hd, dtype, seed=T + hd)
             key_lens = torch.tensor(lens, dtype=torch.int32).cuda()
             scale = hd ** -0.5
             route = fa.kernel_route(dtype, hd)
-            check(route == ("tensor-core" if hd in (32, 64) else "cuda-core"),
+            check(route == ("tensor-core" if hd in FLASH_TC[dtype] else "cuda-core"),
                   f"K4/K5 {tag}: routed to the {route} kernels")
             before = counts()
             out, lse = fa.flash_forward(q, k, v, key_lens, causal, scale)
@@ -676,6 +716,8 @@ def check_flash(fa, enc_lens) -> dict:
             worst["K4"] = max(worst["K4"], out_err)
             if f32_tc:
                 worst["K4 float32"] = max(worst["K4 float32"], out_err)
+            if hd_key:
+                worst[f"K4 {hd_key}"] = max(worst[f"K4 {hd_key}"], out_err)
             # K5 on the plain forward's residuals, so only the backward
             # differs; then through flash_attention_with_lse's autograd on the
             # kernel's own residuals, with an lse cotangent.
@@ -708,6 +750,8 @@ def check_flash(fa, enc_lens) -> dict:
                     worst["K5"] = max(worst["K5"], max(errs))
                     if f32_tc:
                         worst["K5 float32"] = max(worst["K5 float32"], max(errs))
+                    if hd_key:
+                        worst[f"K5 {hd_key}"] = max(worst[f"K5 {hd_key}"], max(errs))
                 line.append(f"{label}: max|err| {max(errs):.3g}, rel {max(rels):.3g}")
             after = counts()
             moved = {k: after[k] - before[k] for k in ("K4", "K4 tc", "K5", "K5 tc", "split")}
@@ -947,27 +991,35 @@ def canonical_path(tmp: str) -> dict:
     return main_counts
 
 
-def long_path(tmp: str, extra=(), epochs: int = 2, sample: bool = True) -> dict:
-    """The long recipe (and ``extra`` flags) through cli.main for ``epochs``
-    epochs, then (``sample``) cli.sample on its checkpoint at max_len 2 * (L
-    + 1) = 4094; returns the training run's launch counts. In float32 every
-    K4/K5 launch splits its inputs first (q, k, v; and dO)."""
+def long_path(tmp: str, extra=(), epochs: int = 2, sample: bool = True,
+              script: str = "train-vae-long.sh", tag: str = None) -> dict:
+    """The long recipe (or ``script``'s, at L=2046 through ``extra``; and
+    ``extra`` flags) through cli.main for ``epochs`` epochs, then
+    (``sample``) cli.sample on its checkpoint at max_len 2 * (L + 1) = 4094;
+    returns the training run's launch counts. In float32 every K4/K5 launch
+    splits its inputs first (q, k, v; and dO)."""
     from musicstyletransfer_torch.cli import main as cli_main
     from musicstyletransfer_torch.cli import sample as cli_sample
+    from musicstyletransfer_torch.cli.flags import build_parser
     from musicstyletransfer_torch.data import Loader, MelodyDataset, load_dataset
     from musicstyletransfer_torch.ops import counters
 
     data = os.path.join(REPO, "work", "data", "guitar_bass")
+    tag = tag or "long" + "".join(extra).replace("--", "-")
+    model = os.path.join(tmp, tag.replace(" ", "-"))
+    argv = recipe_argv(script, data, model, os.path.join(tmp, "out-" + tag.replace(" ", "-")),
+                       required=("--max-seq-len",)) + list(extra)
+    args = build_parser().parse_known_args(argv)[0]
+    check(args.max_seq_len == LONG_L and args.batch_size == LONG_B and args.use_flash_attention,
+          f"{tag}: L={args.max_seq_len}, B={args.batch_size}, flash {args.use_flash_attention}")
     loader = Loader(data, LONG_L)
-    per_epoch = load_dataset(loader, LONG_B, 0.1)[0].num_batches()
-    tag = "long" + "".join(extra).replace("--", "-")
-    model = os.path.join(tmp, tag)
-    argv = recipe_argv("train-vae-long.sh", data, model, os.path.join(tmp, "out-" + tag)) + [
-        "--epochs", str(epochs), "--checkpoint-frequency", str(per_epoch),
-        "--logdir", model + "-log", "--log-every", "1"] + list(extra)
-    for flag in ("--ring-attention", "--class-conditioning", "--free-bits"):
-        check(flag in argv, f"train-vae-long.sh lost {flag}")
-    layers = 4 + 2  # the recipe's encoder and decoder layers
+    per_epoch = load_dataset(loader, LONG_B, args.validation_split)[0].num_batches()
+    argv += ["--epochs", str(epochs), "--checkpoint-frequency", str(per_epoch),
+             "--logdir", model + "-log", "--log-every", "1"]
+    if script == "train-vae-long.sh":
+        for flag in ("--ring-attention", "--class-conditioning", "--free-bits"):
+            check(flag in argv, f"train-vae-long.sh lost {flag}")
+    layers = args.e_n_layers + args.d_n_layers
     counts(reset=True)
     t0 = time.perf_counter()
     cli_main.main(argv)
@@ -975,10 +1027,11 @@ def long_path(tmp: str, extra=(), epochs: int = 2, sample: bool = True) -> dict:
     wall = time.perf_counter() - t0
     c = counts()
     steps = epochs * per_epoch
-    log(f"{tag} path: cli.main, long recipe {' '.join(extra)}, {steps} steps in {wall:.1f} s "
+    log(f"{tag} path: cli.main, {script} {' '.join(extra)}, {steps} steps in {wall:.1f} s "
         f"({epochs} checkpoints, validation, generation-health probe at max_len "
         f"{2 * (LONG_L + 1)}); launches {c}")
-    check_train_log(train_lines(os.path.join(model + "-log", "scalars.jsonl")), f"{tag} run")
+    check_train_log(train_lines(os.path.join(model + "-log", "scalars.jsonl")), f"{tag} run",
+                    guarded="skip_nonfinite" in args.optimizer_params)
     check(c["K5"] == layers * steps, f"K5 launched {c['K5']} times, expected {layers} x {steps}")
     check(c["K4"] >= c["K5"], f"K4 launched {c['K4']} times, fewer than K5")
     check(c["K4 tc"] == c["K4"] and c["K5 tc"] == c["K5"],
@@ -1012,6 +1065,41 @@ def long_path(tmp: str, extra=(), epochs: int = 2, sample: bool = True) -> dict:
         f"{len(names)} MIDI files written and parsed back ({notes} note events) in {wall:.1f} s; "
         f"launches {c}")
     return main_counts
+
+
+# The paths that put K4/K5 at head dimensions 128 and 16 on the tensor cores,
+# at full width: (label, recipe, flags added, steps per dispatch). "hd 128":
+# the long recipe with --e-num-heads 4 (encoder 4 x 512 at hd 128, decoder
+# 2 x 256 at hd 64, the ring at tp 1); "hd 16": the canonical widths
+# (encoder 2 x 256 / 8 at hd 32, decoder 1 x 128 / 8 at hd 16) on a
+# whole-song window.
+HD_PATHS = (("hd 128", "train-vae-long.sh", ("--e-num-heads", "4"), 1),
+            ("hd 16", "train-vae.sh", ("--max-seq-len", str(LONG_L), "--use-flash-attention",
+                                       "--batch-size", str(LONG_B)), 8))
+FLASH_KERNELS = {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",)}
+
+
+def head_dim_paths(tmp: str, long_batch) -> dict:
+    """Each of HD_PATHS: CUDA graphs of its steps against eager steps on the
+    L=2046 batch, bit for bit, and cli.main for one epoch; every K4/K5
+    launch on the tensor-core kernels, no plain version on the card, finite
+    losses. Returns {label: the cli.main run's launch counts}."""
+    from musicstyletransfer_torch.ops import counters
+
+    out = {}
+    for label, script, extra, n in HD_PATHS:
+        t0 = time.perf_counter()
+        _, launches = graph_vs_eager(script, [long_batch], (n, n), extra=extra)
+        for c, what in ((launches, "graphed steps"),
+                        (long_path(tmp, extra, epochs=1, sample=False, script=script, tag=label),
+                         "cli.main")):
+            check(c["K4"] > 0 and c["K5"] > 0 and c["K4 tc"] == c["K4"] and c["K5 tc"] == c["K5"],
+                  f"{label} {what}: K4/K5 left the tensor-core kernels: {c}")
+            check(all(c[k] == 0 for k in counters.PLAIN), f"{label} {what}: plain runs {c}")
+        out[label] = c
+        log(f"{label} path: graphs = eager bit for bit, cli.main for one epoch; every K4/K5 launch "
+            f"on the tensor-core kernels; {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -1416,11 +1504,19 @@ def core_flops_bytes(key_lens, T: int, hd: int, causal: bool, esize: int, H: int
     return pairs, qkv + ctx + lse + 4 * B, 2 * qkv + 2 * ctx + lse + 4 * B
 
 
-def bound(flops: float, nbytes: float, dtype: torch.dtype, peak: float = None):
-    """(bound ms, "operations" or "bytes"); ``peak`` FLOP/s in place of
-    the dtype's (the TF32 peak for float32 attention)."""
-    t_ops, t_bytes = flops / (peak or PEAK_FLOPS[dtype]), nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, dtype: torch.dtype, peak: float = None, exps: float = 0.0):
+    """(bound ms, "operations" or "bytes"): the largest of the flops at the
+    dtype's peak (``peak`` FLOP/s in its place: the TF32 peak for float32
+    attention), the exponentials ``exps`` at PEAK_EXP (operations too) and
+    the bytes at PEAK_BYTES."""
+    t_ops = max(flops / (peak or PEAK_FLOPS[dtype]), exps / PEAK_EXP)
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def exp_bound_term(pairs: int, flops: float, dtype: torch.dtype, peak: float = None) -> str:
+    """Which operations bind a K2-K5 bound: "(products)" or "(exponentials)"."""
+    return "(exponentials)" if pairs / PEAK_EXP > flops / (peak or PEAK_FLOPS[dtype]) else "(products)"
 
 
 def measure_core(ac, batch) -> dict:
@@ -1433,10 +1529,14 @@ def measure_core(ac, batch) -> dict:
     import torch.nn.functional as F
 
     out = {}
+    # the rest of the CUDA-core route in bf16: head dimension 16 and 128 at
+    # the wide encoder's shape
+    name, T, _, causal = CORE_SHAPES[0]
+    others = [((f"{name} hd={hd}", T, hd, causal), torch.bfloat16) for hd in (16, 128)]
     for (name, T, hd, causal), dtype in [(c, dt) for dt in (torch.bfloat16, torch.float32)
-                                         for c in CORE_SHAPES]:
+                                         for c in CORE_SHAPES] + others:
         seq_lens = torch.as_tensor(batch.seq_lens).long()
-        lens = (seq_lens if name == "encoder" else seq_lens + 1).to(torch.int32).cuda()
+        lens = (seq_lens if "encoder" in name else seq_lens + 1).to(torch.int32).cuda()
         qkv, _, dout = core_inputs(T, hd, dtype, seed=1)
         scale = 1.0 / math.sqrt(hd)
         fwd = lambda: ac.core_forward(qkv, lens, CORE_H, causal, scale)  # noqa: E731
@@ -1464,14 +1564,16 @@ def measure_core(ac, batch) -> dict:
         lib3 = time_cuda(lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True), 20)
         pairs, fbytes, bbytes = core_flops_bytes(lens, T, hd, causal, qkv.element_size())
         peak = PEAK_TF32 if dtype == torch.float32 else None
-        b2, by2 = bound(4 * hd * pairs, fbytes, dtype, peak)
-        b3, by3 = bound(10 * hd * pairs, bbytes, dtype, peak)
+        b2, by2 = bound(4 * hd * pairs, fbytes, dtype, peak, pairs)
+        b3, by3 = bound(10 * hd * pairs, bbytes, dtype, peak, pairs)
         label = name if dtype == torch.bfloat16 else f"{name} float32"
         out[label] = {"K2": (min(k2), p2, lib2, b2, by2), "K3": (min(k3), p3, lib3, b3, by3)}
         log(f"{name} T={T} hd={hd} causal={causal} key_lens={lens.tolist()} {dtype} "
             f"({ac.core_route(qkv.dtype, hd)} kernels): {pairs} unmasked pairs; "
-            f"K2 {k2[0]:.4f} / {k2[1]:.4f} ms (bound {b2:.4f} ms, {by2}; plain {p2:.3f} ms; "
-            f"SDPA {lib2:.4f} ms), K3 {k3[0]:.4f} / {k3[1]:.4f} ms (bound {b3:.4f} ms, {by3}; "
+            f"K2 {k2[0]:.4f} / {k2[1]:.4f} ms (bound {b2:.4f} ms, {by2} "
+            f"{exp_bound_term(pairs, 4 * hd * pairs, dtype, peak)}; plain "
+            f"{p2:.3f} ms; SDPA {lib2:.4f} ms), K3 {k3[0]:.4f} / {k3[1]:.4f} ms (bound "
+            f"{b3:.4f} ms, {by3} {exp_bound_term(pairs, 10 * hd * pairs, dtype, peak)}; "
             f"plain {p3:.3f} ms; SDPA backward {lib3:.4f} ms); the wrappers' host time "
             f"{host[0]:.1f} / {host[1]:.1f} us a call")
     return out
@@ -1536,8 +1638,8 @@ def time_flash(fa, ac, name: str, T: int, hd: int, causal: bool, key_lens, reps:
     lib5 = time_cuda(lambda: torch.autograd.grad(o2, (qs, ks, vs), dout, retain_graph=True), reps)
     pairs, fbytes, bbytes = core_flops_bytes(lens, T, hd, causal, q.element_size(), FLASH_H)
     peak = PEAK_TF32 if dtype == torch.float32 else None
-    b4, by4 = bound(4 * hd * pairs, fbytes, dtype, peak)
-    b5, by5 = bound(10 * hd * pairs, bbytes, dtype, peak)
+    b4, by4 = bound(4 * hd * pairs, fbytes, dtype, peak, pairs)
+    b5, by5 = bound(10 * hd * pairs, bbytes, dtype, peak, pairs)
     on = route or fa.kernel_route(dtype, hd)
     ceiling = ""
     if dtype == torch.float32 and on == "tensor-core":
@@ -1549,8 +1651,10 @@ def time_flash(fa, ac, name: str, T: int, hd: int, causal: bool, key_lens, reps:
     log(f"{name} B={len(key_lens)} H={FLASH_H} T={T} hd={hd} causal={causal} key_lens={key_lens} "
         f"{dtype} ({on} kernels): {pairs} unmasked pairs, {4 * hd * pairs / 1e9:.2f} GFLOP "
         f"forward, {fbytes / 1e6:.1f} MB forward / {bbytes / 1e6:.1f} MB backward; K4 "
-        f"{k4[0]:.4f} / {k4[1]:.4f} ms (bound {b4:.4f} ms, {by4}; {plain4}SDPA {lib4:.4f} ms), "
-        f"K5 {k5[0]:.4f} / {k5[1]:.4f} ms (bound {b5:.4f} ms, {by5}; {plain5}SDPA backward "
+        f"{k4[0]:.4f} / {k4[1]:.4f} ms (bound {b4:.4f} ms, {by4} "
+        f"{exp_bound_term(pairs, 4 * hd * pairs, dtype, peak)}; {plain4}SDPA {lib4:.4f} ms), "
+        f"K5 {k5[0]:.4f} / {k5[1]:.4f} ms (bound {b5:.4f} ms, {by5} "
+        f"{exp_bound_term(pairs, 10 * hd * pairs, dtype, peak)}; {plain5}SDPA backward "
         f"{lib5:.4f} ms){ceiling}; the wrappers' host time {host[0]:.1f} / {host[1]:.1f} us a "
         "call")
     del o2, mask
@@ -1564,9 +1668,12 @@ def measure_flash(fa, ac, batch) -> dict:
     streams K and V); float32 at both long shapes on the tensor-core kernels
     and, for the time before them, on the CUDA-core kernels
     (flash_attention.cu, which served float32 at head dimension 32 and 64
-    until the split); and the head dimensions that stay on the CUDA-core
-    kernels (16, 128) at the long encoder shape, both dtypes. Returns
-    {label: {"K4": ..., "K5": ...}}."""
+    until the split); bf16 at head dimensions 16 and 128 at the long encoder
+    shape on the tensor-core kernels and, for the time before them, on the
+    CUDA-core ones, and at the hd 16 phase's decoder shape (T=2048, causal);
+    and what stays on the CUDA-core kernels (float32 at 16 and 128, both
+    dtypes at 8) at the long encoder shape. Returns {label: {"K4": ...,
+    "K5": ...}}."""
     seq_lens = torch.as_tensor(batch.seq_lens).long()
     shapes = [(name, T, hd, causal, (seq_lens if name == "encoder" else seq_lens + 1).tolist(), 10)
               for name, T, hd, causal in FLASH_SHAPES]
@@ -1582,7 +1689,15 @@ def measure_flash(fa, ac, batch) -> dict:
                                                       torch.float32, "cuda-core", plain=False)
     name, T, _, causal, key_lens, _ = shapes[0]
     for hd in (16, 128):
-        for dtype in (torch.float32, torch.bfloat16):
+        out[f"hd {hd}"] = time_flash(fa, ac, f"{name} hd={hd}", T, hd, causal, key_lens, 10,
+                                     torch.bfloat16)
+        out[f"hd {hd} cuda-core"] = time_flash(fa, ac, f"{name} hd={hd}", T, hd, causal, key_lens,
+                                               3, torch.bfloat16, "cuda-core", plain=False)
+    dec = shapes[1]
+    out["hd 16 decoder"] = time_flash(fa, ac, f"{dec[0]} hd=16", dec[1], 16, dec[3], dec[4], 10,
+                                      torch.bfloat16, plain=False)
+    for hd, dtypes in ((16, (torch.float32,)), (128, (torch.float32,)), (8, F32_BF16)):
+        for dtype in dtypes:
             out[f"{name} hd={hd} {dtype}"] = time_flash(fa, ac, f"{name} hd={hd}", T, hd, causal,
                                                         key_lens, 3, dtype, plain=False)
     return out
@@ -1620,7 +1735,7 @@ def recipe_setup(script: str, extra=(), seed: int = 0, mesh=None):
     return args, model, opt, loss_cfg
 
 
-def graph_vs_eager(script: str, batches, lengths, extra=(), mesh=None) -> dict:
+def graph_vs_eager(script: str, batches, lengths, extra=(), mesh=None) -> tuple:
     """Groups of ``lengths`` steps of the recipe (batches taken in turn)
     from one seeded state: as eager ``step_body`` calls, and as one replay
     a group of CUDA graphs of those lengths held by one ``GraphedSteps``, as
@@ -1634,7 +1749,8 @@ def graph_vs_eager(script: str, batches, lengths, extra=(), mesh=None) -> dict:
     a pack made afresh), and K1's forced logits on the trained model agree
     with the plain version's within TOL_LOGITS. With a ``mesh`` every step
     runs its collectives (the gradient's all-reduce), eager and captured in
-    the graphs."""
+    the graphs. Returns (the relative differences, the graphed run's launch
+    counts)."""
     from musicstyletransfer_torch.ops import counters
     from musicstyletransfer_torch.parallel.mesh import use_mesh
     from musicstyletransfer_torch.ops import fused_decode as fd
@@ -1709,7 +1825,7 @@ def graph_vs_eager(script: str, batches, lengths, extra=(), mesh=None) -> dict:
         f"{ {k: v for k, v in graph['launches'].items() if v} } in both"
         + ("" if k1_err is None else f"; K1's pack follows the trained weights, forced "
            f"logits max|err| {k1_err:.3g} against the plain version"))
-    return diffs
+    return diffs, graph["launches"]
 
 
 def measure_training(batch, label: str, script: str, kernels: dict, n: int,
@@ -3229,6 +3345,7 @@ def main() -> int:
         train_counts = train_path(ac, fd, tmp)
         long_counts = long_path(tmp)
         long32_counts = long_path(tmp, extra=("--dtype", "float32"), epochs=1, sample=False)
+        hd_counts = head_dim_paths(tmp, long_batch)
         canonical_path(tmp)
         lstm = lstm_path(tmp, canonical_batches, card)
         gan = gan_path(tmp, corpus_batches[:2 * GAN_K], card)
@@ -3254,6 +3371,8 @@ def main() -> int:
         long_batch, "long float32", "train-vae-long.sh",
         {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",), "split": ("split_bf16x3",)}, 1,
         extra=("--dtype", "float32"))
+    for label, script, extra, n in HD_PATHS:
+        steps[label] = measure_training(long_batch, label, script, FLASH_KERNELS, n, extra=extra)
     split_ms = measure_split(fa)
     steps["lstm-vae"] = measure_training(canonical_batches[0], "lstm-vae", "train-vae.sh", {}, 8,
                                          extra=("--decoder-type", "lstm"))
@@ -3311,6 +3430,22 @@ def main() -> int:
             "max_abs_err": flash_err[f"{kid} float32"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
+    # bf16 at head dimensions 128 and 16: the same kernels' instances of
+    # 256- and 32-byte tile rows; launches from their paths' cli.main runs
+    for hd in (128, 16):
+        for kid, name, replaces in (
+                ("K4", f"flash_attention_forward_hd{hd}",
+                 "musicstyletransfer_tpu/ops/flash_attention.py:367"),
+                ("K5", f"flash_attention_backward_hd{hd}",
+                 "musicstyletransfer_tpu/ops/flash_attention.py:786")):
+            ms, plain_ms, lib_ms, bound_ms, bound_by = flash[f"hd {hd}"][kid]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "musicstyletransfer_torch/ops/csrc/flash_attention_tc.cu",
+                "replaces": replaces, "launches": hd_counts[f"hd {hd}"][kid],
+                "max_abs_err": flash_err[f"{kid} hd {hd}"], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            })
     ms, plain_ms, bound_ms, bound_by = split_ms
     kernels.append({
         "name": "split_bf16x3", "route": "cuda",
@@ -3324,8 +3459,9 @@ def main() -> int:
         log(f"{label} training step: " + "; ".join(
             f"{mode} {st[mode]['ms']:.3f} ms ({st[mode]['tokens_per_s']:.0f} target tokens/s, "
             f"{st[mode]['kernel_ms']:.3f} ms of kernels, busy {st[mode]['busy']:.3f}, "
-            f"{st[mode]['launches']:.0f} kernels, {st[mode]['host_ops']:.0f} host ops)"
-            for mode in ("eager", "graphed")))
+            f"{st[mode]['launches']:.0f} kernels, {st[mode]['host_ops']:.0f} host ops"
+            + "".join(f", {k} {v:.3f} of the kernel time" for k, v in st[mode]["shares"].items())
+            + ")" for mode in ("eager", "graphed")))
     log("GAN training (train-gan.sh): " + "; ".join(
         f"{k} {v['updates_per_s']:.2f} updates/s ({v['host_ops']:.0f} host ops an update, busy "
         f"{v['busy']:.3f})" for k, v in gan.items()))

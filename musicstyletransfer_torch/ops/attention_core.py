@@ -52,8 +52,8 @@ _NEG_INF = -1e30
 # dispatch keeps the same window (models/transformer.py).
 MAX_CORE_SEQ_LEN = 1024
 _HEAD_DIMS = (8, 16, 32, 64, 128)
-# head dimensions of the tensor-core kernels: bfloat16 only for the core,
-# bfloat16 and float32 for the flash kernels (``flash_attention.kernel_route``)
+# head dimensions of the core's tensor-core kernels, bfloat16 only (the flash
+# kernels' table, ``flash_attention.TC_HEAD_DIMS``, is wider)
 _TC_HEAD_DIMS = (32, 64)
 
 
@@ -197,7 +197,8 @@ def core_route(dtype: torch.dtype, head_dim: int) -> str:
     bfloat16 at head dimension 32 or 64) or "cuda-core"
     (``csrc/attention_core.cu``; float32, and the other head dimensions).
     The flash wrappers' table (``flash_attention.kernel_route``) also sends
-    float32 at head dimension 32 or 64 to the tensor cores."""
+    bfloat16 at head dimension 16 and 128, and float32 at 32 or 64, to the
+    tensor cores."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"inputs must be float32 or bfloat16, got {dtype}")
     if head_dim not in _HEAD_DIMS:

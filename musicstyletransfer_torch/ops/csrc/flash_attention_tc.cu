@@ -1,6 +1,7 @@
 // K4 (forward) and K5 (backward) on the tensor cores of Hopper (sm_90a):
-// flash attention over bf16 or float32 q, k, v [B, H, T, HD], HD = 32 or 64,
-// with prefix key lengths and an optional causal mask; and K2/K3, the
+// flash attention over bf16 q, k, v [B, H, T, HD], HD = 16, 32, 64 or 128,
+// and float32 ones at HD = 32 or 64, with prefix key lengths and an optional
+// causal mask; and K2/K3, the
 // attention core over the interleaved bf16 qkv projection, as front ends of
 // the same device code.
 //
@@ -12,7 +13,8 @@
 //   flash_bwd_dkdv_kernel_tc replace K5a, _flash_backward (_dqkv_kernel), and
 //   K5b/K5c, _flash_backward_streaming (_dq_stream_kernel,
 //   _dkv_stream_kernel).
-// flash_attention.cu keeps the other head dimensions.
+// flash_attention.cu keeps the other head dimensions (8; and 16 and 128 in
+// float32, where three pieces of a 128-wide operand outgrow the stages).
 //
 // float32 inputs run the same device code with every operand as three bf16
 // pieces (NP = 3 below; bf16 inputs are NP = 1): x = hi + mid + lo with hi =
@@ -73,17 +75,26 @@
 // products a product). Beside the products, every pair costs one exponential (two in
 // the backward) on the special function units, 16 a clock an SM against 16
 // pairs' worth of products at HD=64, so the kernels must run the two side
-// by side to come near the bound:
+// by side to come near the bound; at HD=32 (forward) and HD=16 the
+// exponentials alone bound it (3.9 T/s: 25 us for the encoder's 95.9M
+// pairs at HD=16, against 6 us of products), at HD=128 the products (50
+// us forward, 124 backward):
 //
 // - A consumer warpgroup (4 warps) owns 64 rows; a block is NWG of them and
 //   one producer warpgroup. The rows' own operands (Q in the forward; Q and dO in the dQ kernel; K and V in the
 //   dK/dV kernel) are read once from device memory straight into the
-//   register layout of a wgmma A operand. The tiles a block walks over (K and
+//   register layout of a wgmma A operand (at HD=128 the dK/dV kernel keeps K
+//   and V in its shared memory instead: the dK and dV accumulators take 128
+//   of its 232 registers). The tiles a block walks over (K and
 //   V; Q and dO in the dK/dV kernel) stay bf16 in shared memory, [rows, HD]
-//   with the 128-byte (HD=64) or 64-byte (HD=32) swizzle of a wgmma matrix
-//   descriptor, so one tile serves as the K-major B operand of the first
-//   products (contraction over HD) and as the MN-major B operand (the
-//   transpose flag) of the second ones (contraction over the tile's rows).
+//   with the 128-byte (HD=64), 64-byte (HD=32) or 32-byte (HD=16) swizzle of
+//   a wgmma matrix descriptor; a 256-byte row (HD=128) is two 128-byte
+//   swizzle spans, so its tile is two [rows, 64] column blocks one after the
+//   other. One tile serves as the K-major B operand of the first
+//   products (contraction over HD; at HD=128 the descriptor moves to the
+//   second block after four k-steps) and as the MN-major B operand (the
+//   transpose flag) of the second ones (contraction over the tile's rows; at
+//   HD=128 the descriptor's leading offset steps from block to block).
 // - The accumulator fragment of a first product has the register layout of
 //   an A operand: P (forward), dS (dQ kernel), P^T and dS^T (dK/dV kernel,
 //   which computes S^T = K Q^T and dP^T = V dO^T directly) are rounded to
@@ -133,14 +144,36 @@ using bf16 = __nv_bfloat16;
 constexpr float kNegInf = -1e30f;
 constexpr float kSentinel = -1e29f;  // lse at or below it: a row that sees no key
 
+// A tile of rows of HD bf16 values: a row is one 32-, 64- or 128-byte
+// swizzle span (HD = 16, 32, 64), or two (HD = 128), each span a column
+// block of its own: [rows, 64] then [rows, 64].
 template <int HD> struct Cfg {
-  static_assert(HD == 32 || HD == 64, "a tile row is one 64- or 128-byte swizzle span");
+  static_assert(HD == 16 || HD == 32 || HD == 64 || HD == 128,
+                "a tile row is one 32-, 64- or 128-byte swizzle span, or two 128-byte ones");
   static constexpr int ROWB = HD * 2;                    // bytes a tile row
+  static constexpr int SPAN = ROWB < 128 ? ROWB : 128;   // bytes a row of a column block
+  static constexpr int BLOCKS = ROWB / SPAN;             // column blocks a tile
   static constexpr int CHUNKS = ROWB / 16;               // 16-byte chunks a row
-  static constexpr uint32_t XOR_MASK = ROWB == 128 ? 7u : 3u;
-  static constexpr uint64_t SWIZZLE = ROWB == 128 ? 1 : 2;  // descriptor: 128B, 64B
-  static constexpr int GROUP = 8 * ROWB;                 // 8 rows
+  static constexpr uint32_t XOR_MASK = SPAN == 128 ? 7u : SPAN == 64 ? 3u : 1u;
+  static constexpr uint64_t SWIZZLE = SPAN == 128 ? 1 : SPAN == 64 ? 2 : 3;  // 128B, 64B, 32B
+  static constexpr int GROUP = 8 * SPAN;                 // 8 rows of a column block
 };
+
+// Byte offset (before the swizzle) of 16-byte chunk c of row r in a tile of
+// R rows.
+template <int HD, int R> __device__ __forceinline__ int tile_off(int r, int c) {
+  if constexpr (Cfg<HD>::BLOCKS == 1) {
+    return r * Cfg<HD>::ROWB + c * 16;
+  } else {
+    constexpr int SC = Cfg<HD>::SPAN / 16;
+    return (c / SC) * R * Cfg<HD>::SPAN + r * Cfg<HD>::SPAN + (c % SC) * 16;
+  }
+}
+
+// Byte offset of k-step kk (16 columns) of a K-major operand tile of R rows.
+template <int HD, int R> __device__ __forceinline__ constexpr int k_step(int kk) {
+  return Cfg<HD>::BLOCKS == 1 ? kk * 32 : (kk / 4) * R * Cfg<HD>::SPAN + (kk % 4) * 32;
+}
 
 // The (b, h) head of a strided [B, H, T, HD] tensor.
 template <typename P>
@@ -210,6 +243,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 // at HD=64 (the forward's two 128-key tiles: 96 KB a stage) and four at
 // HD=32.
 template <int HD, int NP> constexpr int kStagesOf = NP == 1 ? kStages : HD == 64 ? 2 : 4;
+// K4's key tiles: 64 at HD=128, where a 128-key tile would give its S and
+// P.V products one wgmma shape (see fwd_consume); 32 KB a stage, as the
+// backward's.
+template <int HD> constexpr int kFwdTileOf = HD == 128 ? 64 : kFwdTile;
 
 // 2^x on the special function unit; exponentials are taken as 2^(x log2 e)
 // with the factor folded into a multiply-add.
@@ -223,8 +260,9 @@ __device__ __forceinline__ float ex2(float x) {
 // Shared-memory tiles and their copies.
 
 // Byte offset of logical offset `off` in a swizzled tile whose base is 1024-
-// byte aligned: address bits [7, 10) (or [7, 9)) are xor-ed into the 16-byte
-// chunk bits [4, 7) (or [4, 6)), as the wgmma descriptor's swizzle mode reads.
+// byte aligned: address bits [7, 10) (or [7, 9), or bit 7) are xor-ed into the
+// 16-byte chunk bits [4, 7) (or [4, 6), or bit 4), as the wgmma descriptor's
+// swizzle mode reads.
 template <int HD> __device__ __forceinline__ uint32_t swz(uint32_t off) {
   return off ^ (((off >> 7) & Cfg<HD>::XOR_MASK) << 4);
 }
@@ -242,7 +280,7 @@ __device__ __forceinline__ void load_tile_async(uint32_t tile, const bf16* rows,
     const int r = e / CH, c = e % CH, row = first + r;
     const bool ok = row < end;
     const bf16* src = rows + (long long)(ok ? row : 0) * stride + c * 8;
-    const uint32_t dst = tile + swz<HD>(r * Cfg<HD>::ROWB + c * 16);
+    const uint32_t dst = tile + swz<HD>(tile_off<HD, R>(r, c));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                  "r"(ok ? 16 : 0));
   }
@@ -285,12 +323,13 @@ __device__ __forceinline__ void fence_async_proxy() {
 // memory through a matrix descriptor; TB = 1 reads B MN-major.
 
 // Descriptor of a swizzled [rows, HD] tile: the low word holds the start
-// address (in 16-byte units) and the leading offset (unused: a tile is one
-// swizzle span wide), the high word the stride offset (8 rows) and the
-// swizzle mode. Tiles are 1024-byte aligned, so a step inside a tile adds
-// to the low word without a carry into the next field.
-template <int HD> __device__ __forceinline__ uint32_t desc_lo(uint32_t addr) {
-  return ((addr & 0x3FFFFu) >> 4) | (1u << 16);
+// address (in 16-byte units) and the leading offset `lbo` (the bytes from one
+// column block to the next, read only by an MN-major operand two blocks
+// wide: HD=128), the high word the stride offset (8 rows) and the swizzle
+// mode. Tiles are 1024-byte aligned, so a step inside a tile adds to the low
+// word without a carry into the next field.
+template <int HD> __device__ __forceinline__ uint32_t desc_lo(uint32_t addr, uint32_t lbo = 16) {
+  return ((addr & 0x3FFFFu) >> 4) | ((lbo >> 4) << 16);
 }
 template <int HD> __device__ __forceinline__ uint64_t make_desc(uint32_t lo, int step_bytes) {
   constexpr uint32_t hi = (Cfg<HD>::GROUP >> 4) | ((uint32_t)Cfg<HD>::SWIZZLE << 30);
@@ -310,6 +349,22 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
 }
 
 template <int TB>
@@ -429,7 +484,8 @@ __device__ __forceinline__ void mma_nt(float (&d)[NR], const uint32_t (&a)[NP][H
   for (int i = 0; i < kProducts<NP>; ++i)
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_rs<0>(d, a[piece_a<NP>(i)][kk], make_desc<HD>(lo, piece_b<NP>(i) * PLANE + kk * 32),
+      wgmma_rs<0>(d, a[piece_a<NP>(i)][kk],
+                  make_desc<HD>(lo, piece_b<NP>(i) * PLANE + k_step<HD, 2 * NR>(kk)),
                   i > 0 || kk > 0);
 }
 
@@ -443,23 +499,26 @@ __device__ __forceinline__ void mma_nt_ss(float (&d)[32], uint32_t atile, uint32
   for (int i = 0; i < kProducts<NP>; ++i)
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss(d, make_desc<HD>(alo, piece_a<NP>(i) * PLANE + kk * 32),
-               make_desc<HD>(lo, piece_b<NP>(i) * PLANE + kk * 32), i > 0 || kk > 0);
+      wgmma_ss(d, make_desc<HD>(alo, piece_a<NP>(i) * PLANE + k_step<HD, 64>(kk)),
+               make_desc<HD>(lo, piece_b<NP>(i) * PLANE + k_step<HD, 64>(kk)), i > 0 || kk > 0);
 }
 
 // d += A B, contraction over the KT rows of the [KT, HD] tile at `tile`
 // (MN-major B, NP planes of PR >= KT rows): A fragments a[piece][KT / 16].
+// At HD=128 the product's 128 columns are the tile's two column blocks, PR
+// rows apart (the descriptor's leading offset).
 template <int HD, int KT, int NP, int PR = KT>
 __device__ __forceinline__ void mma_nn(float (&d)[HD / 2], const uint32_t (&a)[NP][KT / 16][4],
                                        uint32_t tile) {
   constexpr int PLANE = PR * Cfg<HD>::ROWB;
-  const uint32_t lo = desc_lo<HD>(tile);
+  const uint32_t lo =
+      Cfg<HD>::BLOCKS == 1 ? desc_lo<HD>(tile) : desc_lo<HD>(tile, PR * Cfg<HD>::SPAN);
 #pragma unroll
   for (int i = 0; i < kProducts<NP>; ++i)
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk)
       wgmma_rs<1>(d, a[piece_a<NP>(i)][kk],
-                  make_desc<HD>(lo, piece_b<NP>(i) * PLANE + kk * 16 * Cfg<HD>::ROWB), 1);
+                  make_desc<HD>(lo, piece_b<NP>(i) * PLANE + kk * 16 * Cfg<HD>::SPAN), 1);
 }
 
 // Fragment coordinates of a thread in its warpgroup's [64, N] tile: value
@@ -777,9 +836,15 @@ __device__ __forceinline__ void rescale(float (&o)[HD / 2], const float (&alpha)
 template <int HD, int BN, int NWG, int NP, int ST>
 __device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG, ST>& ring, int b,
                                            int h, int q0, int it) {
-  // Measured wrong on the card, K4 and K2 alike, and not understood yet
-  // (PERF.md); the dQ kernel's same tile shape is right.
-  static_assert(!(HD == 64 && BN == 64), "64-key forward tiles at HD=64 give wrong results");
+  // Measured wrong on the card, K4 and K2 alike, whenever S = Q K^T and
+  // O += P V are one wgmma shape (m64nNk16, N = BN = HD: 64-key tiles at
+  // HD=64, 128-key tiles at HD=128): ctx off by ~3, lse by ~7, from the
+  // second key tile on. Either product split into two of half the width,
+  // so that the shapes differ, is right (scripts/flash-tc-variants.py).
+  // The dQ kernel's products share a shape at HD=64 and are right: no
+  // instruction touches its accumulator between them, where the forward
+  // rescales O.
+  static_assert(BN != HD, "the forward's S and P.V products must differ in shape");
   constexpr int TILE = NP * BN * Cfg<HD>::ROWB;
   const int Tn = a.T;
   int valid;
@@ -988,9 +1053,14 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_tc(const MstFlashA
 // kernel, in place of the delta kernel.
 
 // The rows' own operands of the backward's first products (Q and dO in
-// the dQ kernel, K and V in the dK/dV kernel) for float32 inputs: each
-// consumer warpgroup's NP planes of 64 rows of both, after the ring's stages.
-template <int HD, int NP> constexpr int kOwnBytes = NP == 1 ? 0 : 2 * NP * 64 * Cfg<HD>::ROWB;
+// the dQ kernel, K and V in the dK/dV kernel) in shared memory (OWN), each
+// consumer warpgroup's NP planes of 64 rows of both, after the ring's
+// stages: for float32 inputs in both kernels, whose three pieces of two
+// operands do not fit beside the accumulators; and in the dK/dV kernel at
+// HD=128, where dK and dV take 128 registers.
+template <int HD, int NP> constexpr bool kDkvOwn = NP == 3 || HD == 128;
+template <int HD, int NP, bool OWN = (NP == 3)>
+constexpr int kOwnBytes = OWN ? 2 * NP * 64 * Cfg<HD>::ROWB : 0;
 
 template <int HD, int BN, int NWG, int NP, int ST, bool DELTA>
 __device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG, ST>& ring, int b,
@@ -1215,7 +1285,9 @@ __device__ __forceinline__ int dkdv_produce(const MstFlashArgs& a, const Ring<NW
 template <int HD, int BN, int NWG, int NP, int ST>
 __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NWG, ST>& ring,
                                             uint8_t* smem_raw, int b, int h, int k0, int it) {
-  static_assert(NP == 1 || BN == 64, "the SS products are m64n64");
+  constexpr bool OWN = kDkvOwn<HD, NP>;
+  constexpr int OWN_BYTES = kOwnBytes<HD, NP, OWN>;
+  static_assert(!OWN || BN == 64, "the SS products are m64n64");
   constexpr int TILE = NP * BN * Cfg<HD>::ROWB, STAGE = DkvStage<HD, BN, NP>::BYTES;
   static_assert((NWG * 64) % BN == 0 || BN % (NWG * 64) == 0,
                 "the causal walk starts at the item's first key");
@@ -1225,19 +1297,18 @@ __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NW
   const int w0 = k0 + (threadIdx.x / 128) * 64;
   const Frag f;
   const uint8_t* const stage_ptr = smem_ptr(smem_raw, ring.stages());
-  // K and V: A fragments (NP = 1), or planes in this warpgroup's part of
+  // K and V: A fragments, or (OWN) planes in this warpgroup's part of
   // shared memory.
   uint32_t kf[1][HD / 16][4], vf[1][HD / 16][4];
-  const uint32_t own = ring.stages() + ST * STAGE + (threadIdx.x / 128) * kOwnBytes<HD, NP>;
-  if constexpr (NP == 1) {
+  const uint32_t own = ring.stages() + ST * STAGE + (threadIdx.x / 128) * OWN_BYTES;
+  if constexpr (!OWN) {
     load_frags<HD>(kf[0], head(static_cast<const bf16*>(a.k), a.sk, b, h), a.sk[2], w0, Tn, f);
     load_frags<HD>(vf[0], head(static_cast<const bf16*>(a.v), a.sv, b, h), a.sv[2], w0, Tn, f);
   } else {
     load_own_rows<HD, NP>(own, head(static_cast<const bf16*>(a.k), a.sk, b, h), a.sk[2],
                           plane_of(a), w0, Tn);
-    load_own_rows<HD, NP>(own + kOwnBytes<HD, NP> / 2,
-                          head(static_cast<const bf16*>(a.v), a.sv, b, h), a.sv[2], plane_of(a),
-                          w0, Tn);
+    load_own_rows<HD, NP>(own + OWN_BYTES / 2, head(static_cast<const bf16*>(a.v), a.sv, b, h),
+                          a.sv[2], plane_of(a), w0, Tn);
     own_rows_landed();
   }
   float dk[HD / 2], dv[HD / 2];
@@ -1255,12 +1326,12 @@ __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NW
     ring.wait_full(it);
     if (active) {
       wgmma_fence();
-      if constexpr (NP == 1) {
+      if constexpr (!OWN) {
         mma_nt<HD, 1>(s, kf, qs);
         mma_nt<HD, 1>(dp, vf, gs);
       } else {
         mma_nt_ss<HD, NP>(s, own, qs);
-        mma_nt_ss<HD, NP>(dp, own + kOwnBytes<HD, NP> / 2, gs);
+        mma_nt_ss<HD, NP>(dp, own + OWN_BYTES / 2, gs);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1401,12 +1472,16 @@ template <int HD, int BN, int NP = 1>
 constexpr int kTileSmem = 2048 + kStagesOf<HD, NP> * kKvStage<HD, BN, NP>;
 template <int HD, int BN, int NP = 1>
 constexpr int kDkvSmem = 2048 + kStagesOf<HD, NP> * DkvStage<HD, BN, NP>::BYTES;
+// K5's dK/dV kernel: its stages and its warpgroups' own rows.
+template <int HD, int NP>
+constexpr int kFlashDkvSmem =
+    kDkvSmem<HD, kDkvTile, NP> + kDkvGroups * kOwnBytes<HD, NP, kDkvOwn<HD, NP>>;
 constexpr int kMaxSmem = 232448;  // a block's shared memory on an H100
 static_assert(kTileSmem<64, kFwdTile, 3> <= kMaxSmem && kTileSmem<32, kFwdTile, 3> <= kMaxSmem,
               "K4's float32 stages");
 static_assert(kTileSmem<64, kDqTile, 3> + kDqGroups * kOwnBytes<64, 3> <= kMaxSmem &&
-                  kDkvSmem<64, kDkvTile, 3> + kDkvGroups * kOwnBytes<64, 3> <= kMaxSmem,
-              "K5's float32 stages and own rows");
+                  kFlashDkvSmem<64, 3> <= kMaxSmem && kFlashDkvSmem<128, 1> <= kMaxSmem,
+              "K5's float32 stages and own rows, and its bf16 ones at HD=128");
 
 // Blocks of `kernel` (NWG consumer warpgroups, `smem` bytes) that the card
 // holds at once, or 0 if the runtime cannot tell.
@@ -1453,7 +1528,7 @@ MstFlashArgs pieces_view(const MstFlashArgs& a) {
 
 // NP = 1: bf16 inputs; NP = 3: float32 inputs (`a` with their pieces).
 template <int HD, int NP> cudaError_t launch_forward(const MstFlashArgs& a, cudaStream_t stream) {
-  constexpr int BN = kFwdTile, NWG = kFwdGroups, smem = kTileSmem<HD, BN, NP>;
+  constexpr int BN = kFwdTileOf<HD>, NWG = kFwdGroups, smem = kTileSmem<HD, BN, NP>;
   auto kernel = flash_fwd_kernel_tc<HD, BN, NWG, NP>;
   static const cudaError_t allowed = allow_smem(kernel, smem);
   if (allowed != cudaSuccess) return allowed;
@@ -1478,8 +1553,7 @@ template <int HD, int NP> cudaError_t launch_backward(const MstFlashArgs& a, cud
     err = launch<NWG>(kernel, smem, ap, 0, stream);
     if (err != cudaSuccess) return err;
   }
-  constexpr int BN = kDkvTile, NWG = kDkvGroups;
-  constexpr int smem = kDkvSmem<HD, BN, NP> + NWG * kOwnBytes<HD, NP>;
+  constexpr int BN = kDkvTile, NWG = kDkvGroups, smem = kFlashDkvSmem<HD, NP>;
   auto kernel = flash_bwd_dkdv_kernel_tc<HD, BN, NWG, NP>;
   static const cudaError_t allowed = allow_smem(kernel, smem);
   if (allowed != cudaSuccess) return allowed;
@@ -1518,12 +1592,20 @@ template <int HD> cudaError_t launch_core_backward(const MstFlashArgs& a, cudaSt
   return launch<NWG>(kernel, smem, a, blocks, stream);
 }
 
+// bf16 at HD = 16, 32, 64, 128; float32 (NP = 3) at 32 and 64, anything
+// else cudaErrorInvalidValue.
 template <int NP> cudaError_t run_hd(const MstFlashArgs& a, bool backward, cudaStream_t s) {
   switch (a.HD) {
     case 32: return backward ? launch_backward<32, NP>(a, s) : launch_forward<32, NP>(a, s);
     case 64: return backward ? launch_backward<64, NP>(a, s) : launch_forward<64, NP>(a, s);
-    default: return cudaErrorInvalidValue;
   }
+  if constexpr (NP == 1) {
+    switch (a.HD) {
+      case 16: return backward ? launch_backward<16, 1>(a, s) : launch_forward<16, 1>(a, s);
+      case 128: return backward ? launch_backward<128, 1>(a, s) : launch_forward<128, 1>(a, s);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 cudaError_t run(const MstFlashArgs* a, bool backward, void* stream) {

@@ -15,12 +15,13 @@ never fall back from one to the other. ``flash_attention`` and
 ``torch.autograd.Function``.
 
 Two sources hold the kernels, and the wrappers choose between them by dtype
-and head dimension alone, before the launch (``kernel_route``): bfloat16 and
-float32 at head dimension 32 or 64 go to ``csrc/flash_attention_tc.cu``,
-whose matrix products run on the tensor cores (``wgmma``) from bf16
-shared-memory tiles that a producer warpgroup fills with asynchronous
-copies; the other head dimensions go to ``csrc/flash_attention.cu``
-(CUDA-core float32 FMA). float32 inputs reach the tensor cores as three bf16
+and head dimension alone, before the launch (``kernel_route``): bfloat16 at
+head dimension 16, 32, 64 or 128 and float32 at 32 or 64 go to
+``csrc/flash_attention_tc.cu``, whose matrix products run on the tensor
+cores (``wgmma``) from bf16 shared-memory tiles that a producer warpgroup
+fills with asynchronous copies; the rest (head dimension 8, and float32 at
+16 and 128) goes to ``csrc/flash_attention.cu`` (CUDA-core float32 FMA).
+float32 inputs reach the tensor cores as three bf16
 pieces each (``split_bf16x3``: x = hi + mid + lo exactly, one launch of
 ``split_bf16x3_kernel`` an operand, q with sm_scale applied first), every
 float32 product as six bf16 products into a float32 accumulator. The
@@ -65,9 +66,12 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention_core import _NEG_INF, _TC_HEAD_DIMS, _mask, _scales, core_route
+from .attention_core import _NEG_INF, _mask, _scales, core_route
 
 _SENTINEL = -1e29  # lse at or below it: a row that sees no key
+# dtype -> the head dimensions the tensor-core kernels take (float32 as three
+# bf16 pieces an operand: at 16 and 128 those outgrow the shared memory)
+TC_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128), torch.float32: (32, 64)}
 
 
 # ----------------------------------------------------------------------------
@@ -185,13 +189,13 @@ _SOURCES = {"cuda-core": ("flash_attention", "mst_flash"),
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernels take CUDA inputs of this dtype and head dimension:
-    "tensor-core" (``csrc/flash_attention_tc.cu``: bfloat16, and float32 as
-    three bf16 pieces, at head dimension 32 or 64) or "cuda-core"
-    (``csrc/flash_attention.cu``: the other head dimensions). The attention
-    core's table (``attention_core.core_route``) differs in float32, which
-    it keeps on its CUDA-core kernels."""
+    "tensor-core" (``csrc/flash_attention_tc.cu``: bfloat16 at head
+    dimension 16, 32, 64 or 128, float32 as three bf16 pieces at 32 or 64;
+    ``TC_HEAD_DIMS``) or "cuda-core" (``csrc/flash_attention.cu``: head
+    dimension 8, and float32 at 16 and 128). The attention core's table
+    (``attention_core.core_route``) is narrower: bfloat16 at 32 or 64."""
     core_route(dtype, head_dim)  # the dtype and head dimension checks
-    return "tensor-core" if head_dim in _TC_HEAD_DIMS else "cuda-core"
+    return "tensor-core" if head_dim in TC_HEAD_DIMS[dtype] else "cuda-core"
 
 
 def check_tc_layout(**tensors: torch.Tensor) -> None:

@@ -182,12 +182,13 @@ def test_kernel_input_checks(bad, match):
     (torch.float32, 32, "cuda-core"), (torch.float32, 64, "cuda-core"),
 ])
 def test_core_route(dtype, hd, route):
-    """The wrappers choose the kernels by dtype and head dimension alone,
-    and the flash wrappers by the same table, apart from float32 at head
-    dimension 32 or 64, which only the flash kernels take on the tensor
-    cores."""
+    """The wrappers choose the kernels by dtype and head dimension alone;
+    the flash wrappers' table is wider: bfloat16 at head dimension 16 and
+    128 and float32 at 32 or 64 take the flash kernels' tensor cores too,
+    not the core's."""
     assert ac.core_route(dtype, hd) == route
-    assert fa.kernel_route(dtype, hd) == ("tensor-core" if hd in (32, 64) else route)
+    flash_tc = {torch.bfloat16: (16, 32, 64, 128), torch.float32: (32, 64)}[dtype]
+    assert fa.kernel_route(dtype, hd) == ("tensor-core" if hd in flash_tc else "cuda-core")
     qkv = torch.zeros(2, 16, 2 * 3 * hd, dtype=dtype)
     assert ac._check(qkv, torch.zeros(2, dtype=torch.int32), 2)[4] == route
     assert ac._SOURCES[route] == {"tensor-core": ("flash_attention_tc", "mst_core_tc"),

@@ -13,10 +13,11 @@ differ by 2 bf16 ulps (2^-6 absolute on values below 2), the gradients by
 2e-2 relative; lse stays float32 (1e-5). Model loss and gradients: 1e-4
 relative. Remat against no remat: identical.
 
-The tensor-core kernels (bfloat16, head dimension 32 or 64) run only on a
-card; their arithmetic is emulated here in plain PyTorch (bf16 operands,
-float32 sums, their rounding points and their tiles) and held to the plain
-versions within the tolerances ``chip_smoke.py`` uses on the card
+The tensor-core kernels (bfloat16 at head dimension 16, 32, 64 or 128;
+float32 at 32 or 64) run only on a card; their arithmetic is emulated here
+in plain PyTorch (bf16 operands, float32 sums, their rounding points and
+their tiles: 128 keys a forward tile, 64 at head dimension 128) and held to
+the plain versions within the tolerances ``chip_smoke.py`` uses on the card
 (TOL_CTX, TOL_LSE, TOL_DQKV_REL).
 """
 
@@ -69,7 +70,8 @@ def _two_torch_threads():
 
 
 # (head_dim, causal, T); B=4 with key lengths [T, T//2, 1, 0], H=2.
-CASES = [(32, True, 40), (32, False, 37), (64, True, 29), (64, False, 48)]
+CASES = [(32, True, 40), (32, False, 37), (64, True, 29), (64, False, 48),
+         (16, True, 35), (16, False, 26), (128, True, 31), (128, False, 42)]
 
 
 def inputs(hd, T, seed, B=4, H=2):
@@ -291,10 +293,12 @@ def bf16_inputs(hd, T, seed):
 
 
 @pytest.mark.parametrize("tile", [64, 128])
-@pytest.mark.parametrize("hd,causal", [(32, True), (32, False), (64, True), (64, False)])
+@pytest.mark.parametrize("hd,causal", [(32, True), (32, False), (64, True), (64, False),
+                                       (16, True), (16, False), (128, True), (128, False)])
 def test_tensor_core_forward_arithmetic(hd, causal, tile):
     """Tiles of 64 and 128 keys over T=150 (a ragged last tile, a causal row
-    of key length 1, a row with no key): within TOL_CTX and TOL_LSE."""
+    of key length 1, a row with no key): within TOL_CTX and TOL_LSE. The
+    kernels take 128-key tiles, and 64-key ones at head dimension 128."""
     q, k, v, _, _, lens = bf16_inputs(hd, 150, seed=7)
     scale = hd ** -0.5
     out, lse = tc_forward_emulation(q, k, v, lens, causal, scale, tile)
@@ -307,7 +311,8 @@ def test_tensor_core_forward_arithmetic(hd, causal, tile):
 
 
 @pytest.mark.parametrize("with_lse", [False, True])
-@pytest.mark.parametrize("hd,causal", [(32, True), (32, False), (64, True), (64, False)])
+@pytest.mark.parametrize("hd,causal", [(32, True), (32, False), (64, True), (64, False),
+                                       (16, True), (16, False), (128, True), (128, False)])
 def test_tensor_core_backward_arithmetic(hd, causal, with_lse):
     """bf16 P and dS before the second products, S scaled after the product,
     dK scaled at the end: within TOL_DQKV_REL of the plain version."""
@@ -323,7 +328,7 @@ def test_tensor_core_backward_arithmetic(hd, causal, with_lse):
     assert all((x[3] == 0).all() for x in got)  # key_lens 0: no gradient
 
 
-@pytest.mark.parametrize("hd,causal", [(32, True), (64, False)])
+@pytest.mark.parametrize("hd,causal", [(32, True), (64, False), (16, True), (128, False)])
 def test_tensor_core_backward_finite_at_extreme_cotangents(hd, causal):
     q, k, v, g, _, lens = bf16_inputs(hd, 150, seed=9)
     scale = hd ** -0.5
@@ -338,14 +343,17 @@ def test_tensor_core_backward_finite_at_extreme_cotangents(hd, causal):
 
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 32, "tensor-core"), (torch.bfloat16, 64, "tensor-core"),
-    (torch.bfloat16, 8, "cuda-core"), (torch.bfloat16, 16, "cuda-core"),
-    (torch.bfloat16, 128, "cuda-core"),
+    (torch.bfloat16, 8, "cuda-core"), (torch.bfloat16, 16, "tensor-core"),
+    (torch.bfloat16, 128, "tensor-core"),
     (torch.float32, 32, "tensor-core"), (torch.float32, 64, "tensor-core"),
     (torch.float32, 16, "cuda-core"), (torch.float32, 128, "cuda-core"),
+    (torch.float32, 8, "cuda-core"),
 ])
 def test_kernel_route(dtype, hd, route):
     """The wrapper chooses the kernels by dtype and head dimension alone:
-    the tensor cores take bfloat16 and float32 at head dimension 32 or 64."""
+    the tensor cores take bfloat16 at head dimension 16, 32, 64 or 128 and
+    float32 at 32 or 64; head dimension 8, and float32 at 16 and 128, stay
+    on the CUDA cores."""
     assert fa.kernel_route(dtype, hd) == route
     q = torch.zeros(2, 2, 16, hd, dtype=dtype)
     assert fa._check(q, q, q, torch.zeros(2, dtype=torch.int32))[4] == route
@@ -407,17 +415,18 @@ def test_counters_of_the_tensor_core_route():
 # The model's flash route against the JAX model
 
 
-def flash_config(dropout=0.0, remat=False):
-    """Post-LN, per_step, the long recipe's ring flags; flash from T=16."""
+def flash_config(dropout=0.0, remat=False, sizes=(64, 32), heads=2):
+    """Post-LN, per_step, the long recipe's ring flags; flash from T=16;
+    encoder and decoder widths ``sizes``, ``heads`` heads each."""
     def tc(size, layers):
-        return TransformerConfig(model_size=size, num_layers=layers, num_heads=2,
+        return TransformerConfig(model_size=size, num_layers=layers, num_heads=heads,
                                  dropout=dropout, vocab_size=293, use_flash_attention=True,
                                  flash_min_seq_len=16, ring_attention=True,
                                  sequence_sharding=True, remat=remat)
 
     return ModelConfig(
-        encoder_config=EncoderConfig(transformer_config=tc(64, 2), latent_dim=16),
-        decoder_config=DecoderConfig(transformer_config=tc(32, 1), latent_dim=16,
+        encoder_config=EncoderConfig(transformer_config=tc(sizes[0], 2), latent_dim=16),
+        decoder_config=DecoderConfig(transformer_config=tc(sizes[1], 1), latent_dim=16,
                                      class_conditioning="per_step"),
         dtype="float32")
 
@@ -444,7 +453,23 @@ def test_flash_route_model_matches_jax(monkeypatch):
     """vae_loss and every parameter gradient of a StyleVAE whose every
     attention takes the flash route (T=25 and 26 >= 16), against the JAX
     model running its Pallas flash kernels in interpret mode."""
-    cfg = flash_config()
+    check_flash_route_model(monkeypatch, flash_config())
+
+
+@pytest.mark.parametrize("hd,sizes,heads", [(16, (64, 64), 4), (128, (256, 256), 2)])
+def test_flash_route_model_matches_jax_at_head_dim(monkeypatch, hd, sizes, heads):
+    """The same at the head dimensions that the tensor-core kernels take
+    since the bf16 tiles of 32- and 256-byte rows: every attention of the
+    model at head dimension 16 (model size 64, 4 heads) or 128 (model size
+    256, 2 heads)."""
+    shapes = check_flash_route_model(monkeypatch, flash_config(sizes=sizes, heads=heads))
+    assert {s[3] for s in shapes} == {hd}
+
+
+def check_flash_route_model(monkeypatch, cfg):
+    """vae_loss and the parameter gradients of the port's model of ``cfg``
+    against the JAX model's (1e-4 relative); returns the shapes of q that
+    the flash forward took."""
     jmodel = make_model(cfg)
     jparams = init_params(jmodel, jax.random.key(0), max_seq_len=24)
     tokens, seq_lens, classes, labels, eps = batch(1)
@@ -483,6 +508,7 @@ def test_flash_route_model_matches_jax(monkeypatch):
         scale = max(float(g.abs().max()), 1.0)
         np.testing.assert_allclose(got[name].numpy(), g.numpy(), rtol=1e-4, atol=1e-5 * scale,
                                    err_msg=name)
+    return calls
 
 
 def test_remat_equals_no_remat_with_dropout():

@@ -14,7 +14,8 @@ on the context and lse (values O(1)); K3 1e-4 relative to dqkv's largest
 magnitude, and finite at 1e19 cotangents; K4 and K5 as K2 and K3, on
 strided [B, T, H, hd] views and with an lse cotangent. bfloat16 at head
 dimension 32 or 64 takes the tensor-core kernels (K2 and K3 through the
-core's entry points of the same source), which round P and dS to bf16
+core's entry points of the same source; K4 and K5 at 16 and 128 too), which
+round P and dS to bf16
 before their second products: out 3e-2, lse 1e-3, gradients 2e-2 relative
 to their largest magnitude (``chip_smoke.py``'s tolerances). float32 at
 head dimension 32 or 64 takes the flash tensor-core kernels too, every
@@ -440,6 +441,19 @@ def test_tensor_core_flash_kernels_match_plain_versions(cuda, hd, causal, T, dty
     cotangent, at 1e19 cotangents, and twice for the same bits; only the
     tensor-core counters and ``launches`` move (and, in float32, the split's:
     q, k, v for K4, and dO for K5)."""
+    check_tensor_core_flash(cuda, hd, causal, T, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [70, 300])
+@pytest.mark.parametrize("hd,causal", [(16, True), (16, False), (128, True), (128, False)])
+def test_bf16_tensor_core_flash_kernels_at_head_dims_16_and_128(cuda, hd, causal, T):
+    """The same for bfloat16 at head dimension 16 (32-byte tile rows) and
+    128 (two 128-byte column blocks a row, 64-key forward tiles)."""
+    check_tensor_core_flash(cuda, hd, causal, T, torch.bfloat16)
+
+
+def check_tensor_core_flash(cuda, hd, causal, T, dtype):
     q, k, v, g, lens, g_lse = (x.to(dtype) if x.dtype == torch.float32 and x.dim() == 4 else x
                                for x in flash_inputs(cuda, T, hd, seed=T + hd))
     scale = hd ** -0.5
@@ -501,12 +515,13 @@ def test_split_kernel_equals_plain_version(cuda):
 
 @pytest.mark.gpu
 def test_flash_routes_by_dtype_and_head_dim(cuda):
-    """Head dimension 16 stays on the CUDA-core kernels in float32 and
-    bfloat16; float32 and bfloat16 at head dimension 64 launch the
-    tensor-core kernels; a bfloat16 tensor whose rows do not start on 16
-    bytes raises."""
-    for dtype, hd, tc in ((torch.float32, 64, 1), (torch.float32, 16, 0), (torch.bfloat16, 16, 0),
-                          (torch.bfloat16, 64, 1)):
+    """float32 at head dimension 16 and 128, and both dtypes at 8, stay on
+    the CUDA-core kernels; float32 at head dimension 64 and bfloat16 at 16,
+    64 and 128 launch the tensor-core kernels; a bfloat16 tensor whose rows
+    do not start on 16 bytes raises."""
+    for dtype, hd, tc in ((torch.float32, 64, 1), (torch.float32, 16, 0), (torch.bfloat16, 16, 1),
+                          (torch.bfloat16, 64, 1), (torch.bfloat16, 128, 1),
+                          (torch.float32, 128, 0), (torch.bfloat16, 8, 0), (torch.float32, 8, 0)):
         q, k, v, g, lens, _ = flash_inputs(cuda, 40, hd, seed=2)
         q, k, v, g = (x.to(dtype) for x in (q, k, v, g))
         before = (fa.flash_forward.launches, fa.flash_forward.tc_launches,
