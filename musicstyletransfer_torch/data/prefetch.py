@@ -19,6 +19,7 @@ from typing import Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .dataset import Batch
 
 _SENTINEL = object()
@@ -70,7 +71,11 @@ def prefetch_batches(batches: Iterable[Batch], size: int = 2,
     def producer() -> None:
         try:
             for batch in batches:
-                if stop.is_set() or not put(_stage(batch, device, stream)):
+                if stop.is_set():
+                    return
+                with tracing.span("prefetch.stage"):
+                    staged = _stage(batch, device, stream)
+                if not put(staged):
                     return
         except BaseException as exc:  # raised again in the consumer
             err.append(exc)
@@ -81,15 +86,16 @@ def prefetch_batches(batches: Iterable[Batch], size: int = 2,
     thread.start()
     try:
         while True:
-            item = q.get()
-            if item is _SENTINEL:
-                break
-            staged, event = item
-            if event is not None:
-                current = torch.cuda.current_stream(device)
-                current.wait_event(event)
-                for t in staged.tensors:  # not reused while the consumer's work is queued
-                    t.record_stream(current)
+            with tracing.span("prefetch.wait"):
+                item = q.get()
+                if item is _SENTINEL:
+                    break
+                staged, event = item
+                if event is not None:
+                    current = torch.cuda.current_stream(device)
+                    current.wait_event(event)
+                    for t in staged.tensors:  # not reused while the consumer's work is queued
+                        t.record_stream(current)
             yield staged
         if err:
             raise err[0]

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import tracing
 from ..midi.vocab import EOS_ID, PAD_ID, SOS_ID
 from ..models.vae import StyleVAE
 from ..ops.fused_decode import decode_loop, fused_decode
@@ -32,7 +33,8 @@ _NEG_INF = -1e30  # filtered-out logits (avoids inf-inf NaNs in softmax)
 def _encode_deterministic(model: StyleVAE, tokens: torch.Tensor,
                           seq_lens: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
     """z = mu: deterministic encode at inference."""
-    mu, _ = model.encode(tokens, seq_lens, classes)
+    with tracing.span("decode.encode"):
+        mu, _ = model.encode(tokens, seq_lens, classes)
     return mu
 
 
@@ -67,12 +69,13 @@ def decode_sampled(model: StyleVAE, z: torch.Tensor, classes: torch.Tensor,
     if model.is_lstm:
         return decode_stepwise(model, z, classes, max_len, seed, temperature, mode,
                                top_k=0 if greedy else top_k, top_p=0.0 if greedy else top_p)
-    x0 = model.decode_init(z, classes).contiguous()
-    return fused_decode(
-        model, x0, max_len, seed, temperature, mode=mode,
-        top_k=0 if greedy else top_k, top_p=0.0 if greedy else top_p,
-        classes=classes,
-    )
+    with tracing.span("decode.k1"):
+        x0 = model.decode_init(z, classes).contiguous()
+        return fused_decode(
+            model, x0, max_len, seed, temperature, mode=mode,
+            top_k=0 if greedy else top_k, top_p=0.0 if greedy else top_p,
+            classes=classes,
+        )
 
 
 @torch.inference_mode()

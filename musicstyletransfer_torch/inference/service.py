@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..midi import smf
 from ..midi.codec import MelodyWriter, melody_from_ids, tokenize_track
 from ..midi.vocab import PAD_ID, SOS_ID, note_on_id
@@ -160,14 +161,17 @@ def tokens_from_midi(midi_bytes: bytes, max_seq_len: int) -> np.ndarray:
     raise ValueError("no note events in MIDI request")
 
 
-def result_of(rows: Dict[int, np.ndarray], writer: MelodyWriter) -> TransferResult:
-    """A ``TransferResult`` from each class's generated token row."""
-    midi_by_class, tokens_by_class = {}, {}
-    for c, row in rows.items():
-        melody = melody_from_ids(row)
-        tokens_by_class[c] = melody.tokens
-        midi_by_class[c] = smf.dump_midifile(writer.to_midifile(melody))
-    return TransferResult(midi_by_class, tokens_by_class)
+def results_of(rows: List[Dict[int, np.ndarray]],
+               writer: MelodyWriter) -> List[TransferResult]:
+    """A ``TransferResult`` a request from each class's generated token row,
+    each phase over all the requests at once, so that it is one span."""
+    with tracing.span("service.detokenize"):
+        melodies = [{c: melody_from_ids(row) for c, row in r.items()} for r in rows]
+    with tracing.span("service.midi_write"):
+        midi = [{c: smf.dump_midifile(writer.to_midifile(m)) for c, m in ms.items()}
+                for ms in melodies]
+    return [TransferResult(mid, {c: m.tokens for c, m in ms.items()})
+            for mid, ms in zip(midi, melodies)]
 
 
 class StyleTransferService:
@@ -283,24 +287,26 @@ class StyleTransferService:
         copies it to the host and detokenizes."""
         if not 0 < len(token_lists) <= self.batch_size:
             raise ValueError(f"{len(token_lists)} requests for a batch of {self.batch_size}")
-        bucket = self._pick_bucket(token_lists)
-        tokens, seq_lens = self._make_batch(token_lists, bucket)
-        if self.mesh is not None:
-            if not self.is_primary:
-                raise RuntimeError("only the mesh's primary rank takes requests; the "
-                                   "others run serve_follower()")
-            with self._mesh_lock:
-                if self._stopped:
-                    raise RuntimeError("the sharded service was stopped")
-                packed = np.concatenate([tokens, seq_lens[:, None]], axis=1)
-                return self._sharded(*self._broadcast(
-                    len(token_lists), bucket, self._next_seed(), packed))
-        seqs, _scores = style_transfer_all_classes(
-            self.model,
-            torch.as_tensor(tokens, device=self.device),
-            torch.as_tensor(seq_lens, device=self.device),
-            2 * (bucket + 1), self.num_classes, self._next_seed(), greedy=self.greedy,
-        )
+        with tracing.span("service.dispatch"):
+            with tracing.span("service.batch"):
+                bucket = self._pick_bucket(token_lists)
+                tokens, seq_lens = self._make_batch(token_lists, bucket)
+            if self.mesh is not None:
+                if not self.is_primary:
+                    raise RuntimeError("only the mesh's primary rank takes requests; the "
+                                       "others run serve_follower()")
+                with self._mesh_lock:
+                    if self._stopped:
+                        raise RuntimeError("the sharded service was stopped")
+                    packed = np.concatenate([tokens, seq_lens[:, None]], axis=1)
+                    return self._sharded(*self._broadcast(
+                        len(token_lists), bucket, self._next_seed(), packed))
+            seqs, _scores = style_transfer_all_classes(
+                self.model,
+                torch.as_tensor(tokens, device=self.device),
+                torch.as_tensor(seq_lens, device=self.device),
+                2 * (bucket + 1), self.num_classes, self._next_seed(), greedy=self.greedy,
+            )
         return seqs
 
     # -- the mesh: the primary's broadcasts and every rank's sharded call ----
@@ -346,9 +352,11 @@ class StyleTransferService:
             self._sharded(*message)
 
     def _finish(self, seqs: torch.Tensor, n_requests: int) -> List[TransferResult]:
-        seqs = seqs.cpu().numpy()  # [C, n, T]; waits for the device
-        return [result_of({c: seqs[c, i] for c in range(self.num_classes)}, self._writer)
-                for i in range(n_requests)]
+        with tracing.span("service.finish"):
+            with tracing.span("service.copy_back"):
+                seqs = seqs.cpu().numpy()  # [C, n, T]; waits for the device
+            return results_of([{c: seqs[c, i] for c in range(self.num_classes)}
+                               for i in range(n_requests)], self._writer)
 
     def submit_midi(self, midi_bytes: bytes) -> TransferResult:
         """Blocking single-request convenience path."""

@@ -85,7 +85,7 @@ from ..models.transformer import Cache
 from ..parallel.mesh import AXIS_DATA, Mesh, mesh_device, use_mesh
 from .decode import _filter_logits
 from .sampler import load_inference_model
-from .service import ServiceStats, TransferResult, result_of, tokens_from_midi, use_card
+from .service import ServiceStats, TransferResult, results_of, tokens_from_midi, use_card
 from .sharded import gather_rows, prepare_params
 
 _logger = logging.getLogger(__name__)
@@ -694,7 +694,7 @@ class StreamingTransferEngine:
             served=len(latencies))
 
     def _result_of(self, req: _Request) -> TransferResult:
-        return result_of(req.results_tokens, self._writer)
+        return results_of([req.results_tokens], self._writer)[0]
 
     def _cycle(self, block: bool) -> bool:
         """One host pass: harvest a landed readout first (it frees slots for

@@ -36,6 +36,7 @@ from typing import Callable, Dict, Hashable, List, Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from ..ops import counters
 from .train_step import LossConfig, TrainState, step_body
 
@@ -97,25 +98,29 @@ class GraphedGroups:
         n = len(group)
         if not 1 <= n <= self.max_steps:
             raise ValueError(f"a group of {n} steps; the buffers hold 1 to {self.max_steps}")
-        if not self.inputs:
-            self.inputs = [torch.empty((self.max_steps, *x.shape), dtype=x.dtype, device=x.device)
-                           for x in group[0]]
-        for i, batch in enumerate(group):
-            for buf, x in zip(self.inputs, batch):
-                if x.shape != buf.shape[1:]:
-                    raise ValueError(f"a batch of shape {tuple(x.shape)} in buffers of "
-                                     f"{tuple(buf.shape[1:])}")
-                buf[i].copy_(x, non_blocking=True)
+        with tracing.span("graph.copy_in"):
+            if not self.inputs:
+                self.inputs = [torch.empty((self.max_steps, *x.shape), dtype=x.dtype,
+                                           device=x.device) for x in group[0]]
+            for i, batch in enumerate(group):
+                for buf, x in zip(self.inputs, batch):
+                    if x.shape != buf.shape[1:]:
+                        raise ValueError(f"a batch of shape {tuple(x.shape)} in buffers of "
+                                         f"{tuple(buf.shape[1:])}")
+                    buf[i].copy_(x, non_blocking=True)
         cls = type(self)
         if key not in self.graphs:
-            self.graphs[key] = self._capture(key)
+            with tracing.span("graph.capture"):
+                self.graphs[key] = self._capture(key)
             cls.captures += 1
         graph, delta = self.graphs[key]
-        graph.replay()
+        with tracing.span("graph.replay"):
+            graph.replay()
         cls.replays += 1
-        counters.add(delta)
-        for opt in self.optimizers:
-            opt.params_changed()  # the replay ran no Python
+        with tracing.span("graph.after"):
+            counters.add(delta)
+            for opt in self.optimizers:
+                opt.params_changed()  # the replay ran no Python
 
 
 class GraphedSteps(GraphedGroups):

@@ -57,6 +57,7 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..data.dataset import Dataset
 from ..data.prefetch import DeviceBatch, PrefetchingDataset
 from ..midi.vocab import EOS_ID, PAD_ID
@@ -279,7 +280,7 @@ class Trainer:
     def train_batches(self, group) -> None:
         """One training step per (tokens, seq_lens, classes, labels) of
         ``group``: one graph replay on CUDA, eager steps on the CPU."""
-        with use_mesh(self.mesh):
+        with tracing.span("train.dispatch"), use_mesh(self.mesh):
             if self.graphs is not None:
                 self.graphs.run(group)
                 return

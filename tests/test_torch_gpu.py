@@ -1045,3 +1045,36 @@ def test_k1_on_each_shards_rows_equals_the_whole_batch(cuda, nccl_world, dtype):
                                       nccl_world, greedy=True)
     assert fd.fused_decode.launches == launches + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_k1_span_holds_the_launch_of_its_kernel(cuda):
+    """``decode.k1``'s interval (``tracing``, on ``time.time_ns``) holds the
+    host-side launch that the profiler correlates with ``fused_decode_kernel``:
+    the program's spans and the profiler's events share one clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from musicstyletransfer_torch import tracing
+    from musicstyletransfer_torch.inference.decode import decode_sampled
+
+    model = seeded_model("post", "initial", cuda)
+    rng = np.random.default_rng(5)
+    z = torch.as_tensor(rng.normal(size=(8, 32)), dtype=torch.float32, device=cuda)
+    classes = torch.as_tensor(rng.integers(0, 2, 8), device=cuda)
+    decode_sampled(model, z, classes, 20, 0)  # K1 built and loaded outside the trace
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        decode_sampled(model, z, classes, 20, 1)
+        torch.cuda.synchronize()
+    (k1,) = [s for s in tracing.spans() if s.name == "decode.k1"]
+    tracing.clear()
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [str(e.device_type()).endswith("CUDA") for e in events]
+    (kernel,) = [e for e, dev in zip(events, on_card) if dev and "fused_decode_kernel" in e.name()]
+    launches = [e for e, dev in zip(events, on_card)
+                if not dev and e.correlation_id() == kernel.correlation_id()]
+    assert launches, "no host event correlated with the kernel"
+    for e in launches:
+        where = (e.name(), e.start_ns() - k1.start_ns, k1.end_ns - e.start_ns() - e.duration_ns())
+        assert k1.start_ns <= e.start_ns() <= e.start_ns() + e.duration_ns() <= k1.end_ns, where
