@@ -49,7 +49,7 @@ import torch
 import torch.distributed as dist
 
 from .. import tracing
-from ..midi import smf
+from ..midi import native_writer, smf
 from ..midi.codec import MelodyWriter, melody_from_ids, tokenize_track
 from ..midi.vocab import PAD_ID, SOS_ID, note_on_id
 from ..parallel.mesh import mesh_device
@@ -164,7 +164,43 @@ def tokens_from_midi(midi_bytes: bytes, max_seq_len: int) -> np.ndarray:
 def results_of(rows: List[Dict[int, np.ndarray]],
                writer: MelodyWriter) -> List[TransferResult]:
     """A ``TransferResult`` a request from each class's generated token row,
-    each phase over all the requests at once, so that it is one span."""
+    each phase over all the requests at once, so that it is one span. The
+    MIDI of every row is written in one call of the native writer
+    (``midi/native_writer.py``) where its library loads, else with
+    ``writer``; ``results_of.native_rows`` and ``results_of.python_rows``
+    count the rows written each way."""
+    if native_writer.load_library() is None:
+        _count_rows("python_rows", sum(len(r) for r in rows))
+        return _results_in_python(rows, writer)
+    flat = [row for r in rows for row in r.values()]
+    with tracing.span("service.detokenize"):
+        tokens, offsets = native_writer.pack(flat)
+        ids = native_writer.event_ids(tokens, offsets)
+    with tracing.span("service.midi_write"):
+        midi = native_writer.write_midi(tokens, offsets)
+    _count_rows("native_rows", len(flat))
+    out, k = [], 0
+    for r in rows:
+        out.append(TransferResult(dict(zip(r, midi[k:k + len(r)])),
+                                  dict(zip(r, ids[k:k + len(r)]))))
+        k += len(r)
+    return out
+
+
+results_of.native_rows = 0
+results_of.python_rows = 0
+_counts_lock = threading.Lock()
+
+
+def _count_rows(counter: str, rows: int) -> None:
+    """Add to a counter of ``results_of``: it may run on several threads."""
+    with _counts_lock:
+        setattr(results_of, counter, getattr(results_of, counter) + rows)
+
+
+def _results_in_python(rows: List[Dict[int, np.ndarray]],
+                       writer: MelodyWriter) -> List[TransferResult]:
+    """``results_of`` through ``melody_from_ids`` and ``writer``."""
     with tracing.span("service.detokenize"):
         melodies = [{c: melody_from_ids(row) for c, row in r.items()} for r in rows]
     with tracing.span("service.midi_write"):

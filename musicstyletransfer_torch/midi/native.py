@@ -10,7 +10,8 @@ flags of ``native/Makefile`` into ``build/native/`` under the repository
 root, the file name carrying the hash of the source and the flags, so an
 edited source is rebuilt and ``native/`` is never written. Where no
 compiler builds it, ``load_library`` returns None and the Loader reads with
-the Python codec, as the JAX package's does.
+the Python codec, as the JAX package's does. ``compile_library`` builds the
+port's batched MIDI writer (``native_writer.py``) the same way.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -48,33 +50,40 @@ _lib_load_failed = False
 build_error = ""  # why the last build failed, for the fallback's message
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libmst_native-{digest.hexdigest()[:16]}.so"
+def library_path(source: Path = SOURCE, stem: str = "libmst_native") -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"{stem}-{digest.hexdigest()[:16]}.so"
+
+
+def compile_library(source: Path, stem: str) -> Tuple[Optional[Path], str]:
+    """Compile ``source`` into ``BUILD_DIR`` unless a build of this exact
+    source exists: (the library, "") or, where it cannot be built, (None,
+    why)."""
+    if not source.exists():
+        return None, f"{source} is missing"
+    out = library_path(source, stem)
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(source)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+    except (subprocess.SubprocessError, OSError) as exc:
+        return None, f"{' '.join(cmd)}: {exc}"
+    if proc.returncode != 0:
+        return None, f"{' '.join(cmd)} exited {proc.returncode}: {proc.stderr[-2000:]}"
+    os.replace(tmp, out)
+    return out, ""
 
 
 def build() -> Optional[Path]:
     """Compile the tokenizer unless a build of this exact source exists;
     None (reason in ``build_error``) where it cannot be built."""
     global build_error
-    if not SOURCE.exists():
-        build_error = f"{SOURCE} is missing"
-        return None
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-    except (subprocess.SubprocessError, OSError) as exc:
-        build_error = f"{' '.join(cmd)}: {exc}"
-        return None
-    if proc.returncode != 0:
-        build_error = f"{' '.join(cmd)} exited {proc.returncode}: {proc.stderr[-2000:]}"
-        return None
-    os.replace(tmp, out)
+    out, error = compile_library(SOURCE, "libmst_native")
+    if out is None:
+        build_error = error
     return out
 
 
