@@ -769,6 +769,126 @@ def check_flash(fa, enc_lens) -> dict:
     return worst
 
 
+# K4/K5 at the mellum2_train cell's attention, bf16: (name, B, H, H_kv, T,
+# hd, window). The decoder's 32 query heads over 4 K/V heads at hd 128 with
+# the window of its sliding layers (1024) and without (its full layer), and
+# the long encoder at hd 64; rows of the long corpus's lengths, 1 and 0
+# among them (cut to T).
+GQA_SHAPES = (("decoder sliding", 16, 32, 4, 2048, 128, 1024),
+              ("decoder full", 16, 32, 4, 2048, 128, 0),
+              ("encoder", 16, 8, 8, 2047, 64, 0))
+GQA_LENS = (2047, 2047, 1950, 1600, 1300, 1100, 1040, 1025, 1024, 1000, 800, 512, 300, 64, 1, 0)
+WINDOW_COUNTERS = ("launches", "tc_launches", "windowed_launches", "grouped_launches")
+
+
+def gqa_inputs(B: int, H: int, Hkv: int, T: int, hd: int, seed: int):
+    """bf16 q, k, v, dO: q and dO [B, H, T, hd], k and v [B, Hkv, T, hd],
+    views of [B, T, heads, hd] tensors (the model's layout)."""
+    g = np.random.default_rng(seed)
+
+    def bthd(heads):
+        x = torch.as_tensor(g.normal(size=(B, T, heads, hd)), dtype=torch.float32)
+        return x.to(torch.bfloat16).cuda().transpose(1, 2)
+
+    return bthd(H), bthd(Hkv), bthd(Hkv), bthd(H)
+
+
+def check_gqa(fa) -> dict:
+    """K4/K5 at GQA_SHAPES through ``flash_attention``'s autograd (so K4
+    writes out_lo and K5's delta reads it, as in training) against the
+    float32 plain versions of the same bf16 inputs, a row at a time, at the
+    bf16 tolerances (out TOL_CTX; dq, dk, dv TOL_DQKV_REL of the largest,
+    dk and dv summed over each group); one tensor-core launch each way,
+    windowed and grouped as the shape is; the kernels' tile counts equal to
+    ``walked_tiles``. Returns {name: (out max|err|, the gradients' largest
+    relative error)}."""
+    bf16 = torch.bfloat16
+    out = {}
+    for name, B, H, Hkv, T, hd, W in GQA_SHAPES:
+        tag = f"{name} B={B} H={H}/{Hkv} T={T} hd={hd} window={W}"
+        lens = [min(n, T) for n in GQA_LENS[:B]]
+        q, k, v, dout = gqa_inputs(B, H, Hkv, T, hd, seed=T + hd + W)
+        L = torch.tensor(lens, dtype=torch.int32).cuda()
+        scale = hd ** -0.5
+        wrappers = (fa.flash_forward, fa.flash_backward)
+        before = [getattr(fn, c) for fn in wrappers for c in WINDOW_COUNTERS]
+        x = [t.detach().requires_grad_() for t in (q, k, v)]
+        fa.tile_stats.track_tiles(q.device)
+        try:
+            o = fa.flash_attention(*x, L, True, window=W)
+            o.backward(dout)
+            torch.cuda.synchronize()
+            tiles = fa.tile_stats.read()
+        finally:
+            fa.tile_stats.track_tiles(q.device, on=False)
+        moved = [getattr(fn, c) - n for (fn, c), n in
+                 zip([(fn, c) for fn in wrappers for c in WINDOW_COUNTERS], before)]
+        check(moved == [1, 1, int(W > 0), int(H != Hkv)] * 2,
+              f"K4/K5 {tag}: launches (all, tensor cores, windowed, grouped) {moved}")
+        check(tiles == list(fa.walked_tiles(lens, T, H, W, hd)),
+              f"K4/K5 {tag}: tiles {tiles}, the walks' rule {fa.walked_tiles(lens, T, H, W, hd)}")
+        check(bool(torch.isfinite(o.float()).all()) and bool((o[L == 0] == 0).all()),
+              f"K4 {tag}: non-finite out, or a key_lens=0 row not zeros")
+        out_err, errs, tops = 0.0, [0.0] * 3, [0.0] * 3
+        for b in range(B):
+            r = slice(b, b + 1)
+            qf, kf, vf, gf = (t[r].float() for t in (q, k, v, dout))
+            pout, plse = fa.flash_forward_reference(qf, kf, vf, L[r], True, scale, W)
+            pgrads = fa.flash_backward_reference(qf, kf, vf, L[r], plse, pout, gf, True, scale,
+                                                 None, W)
+            out_err = max(out_err, float((o[r].float() - pout).abs().max()))
+            for i, (t, pd) in enumerate(zip(x, pgrads)):
+                check(bool(torch.isfinite(t.grad[r].float()).all()), f"K5 {tag}: non-finite d{i}")
+                errs[i] = max(errs[i], float((t.grad[r].float() - pd).abs().max()))
+                tops[i] = max(tops[i], float(pd.abs().max()))
+            del pout, plse, pgrads
+        rels = [e / max(m, 1e-30) for e, m in zip(errs, tops)]
+        check(out_err <= TOL_CTX[bf16], f"K4 {tag}: out max|err| {out_err} > {TOL_CTX[bf16]}")
+        check(max(rels) <= TOL_DQKV_REL[bf16],
+              f"K5 {tag}: rel errs (dq, dk, dv) {rels} > {TOL_DQKV_REL[bf16]}")
+        log(f"[bfloat16] K4/K5 {tag} key_lens={lens}, autograd with out_lo, against float32 "
+            f"plain versions: out max|err| {out_err:.3g} (tol {TOL_CTX[bf16]}); dq, dk, dv rel "
+            f"{', '.join(f'{e:.3g}' for e in rels)} (tol {TOL_DQKV_REL[bf16]}); launches {moved}; "
+            f"tiles (K4 + dQ keys, dK/dV queries) {tiles}, as walked_tiles")
+        out[name] = (out_err, max(rels))
+    return out
+
+
+def time_gqa(fa) -> dict:
+    """K4 and K5 per launch at GQA_SHAPES as training runs them (bf16, K4
+    writing out_lo, K5's delta reading it), CUDA events with the card held
+    back while the host enqueues, beside their bounds: products (4 hd a
+    visible pair forward, 10 hd backward) at the bf16 peak, an exponential a
+    pair each way, or each input read and each output written once (K/V at
+    H_kv heads). Returns {name: {"K4": (ms, bound ms, bound by), "K5": ...}}."""
+    out = {}
+    for name, B, H, Hkv, T, hd, W in GQA_SHAPES:
+        lens = [min(n, T) for n in GQA_LENS[:B]]
+        q, k, v, dout = gqa_inputs(B, H, Hkv, T, hd, seed=1)
+        L = torch.tensor(lens, dtype=torch.int32).cuda()
+        scale, lo = hd ** -0.5, fa.new_out_lo(q)
+        fwd = lambda: fa.flash_forward(q, k, v, L, True, scale, window=W, out_lo=lo)  # noqa: E731
+        o, lse = fwd()
+        bwd = lambda: fa.flash_backward(q, k, v, L, lse, o, dout, True, scale,  # noqa: E731
+                                        window=W, out_lo=lo)
+        k4 = min(time_cuda(fwd, 20, queued=True) for _ in range(2))
+        k5 = min(time_cuda(bwd, 20, queued=True) for _ in range(2))
+        i = torch.arange(T)
+        visible = (i[None, :] <= i[:, None]) & ((i[None, :] > i[:, None] - W) if W else True)
+        pairs = H * sum(int(visible[:, :n].sum()) for n in lens)
+        rows, kv_rows = B * H * T * hd * 2, B * Hkv * T * hd * 2
+        lse_b = B * H * T * 4
+        fbytes = rows + 2 * kv_rows + 2 * rows + lse_b  # q, k, v in; out, out_lo, lse out
+        bbytes = 4 * rows + 2 * kv_rows + lse_b + rows + 2 * kv_rows  # q, out, out_lo, dO, k, v, lse; dq, dk, dv
+        b4, by4 = bound(4 * hd * pairs, fbytes, torch.bfloat16, None, pairs)
+        b5, by5 = bound(10 * hd * pairs, bbytes, torch.bfloat16, None, pairs)
+        log(f"K4/K5 {name} B={B} H={H}/{Hkv} T={T} hd={hd} window={W} (bf16, out_lo): {pairs} "
+            f"visible pairs; K4 {k4:.4f} ms (bound {b4:.4f} ms, {by4}, {100 * b4 / k4:.1f}%), "
+            f"K5 {k5:.4f} ms (bound {b5:.4f} ms, {by5}, {100 * b5 / k5:.1f}%)")
+        out[name] = {"K4": (k4, b4, by4), "K5": (k5, b5, by5)}
+    return out
+
+
 def recipe_argv(script: str, data: str, model_output: str, out_samples: str,
                 required=("--use-flash-attention", "--max-seq-len", "--batch-size"),
                 module: str = "main"):
@@ -1609,10 +1729,13 @@ def time_flash(fa, ac, name: str, T: int, hd: int, causal: bool, key_lens, reps:
     lens = torch.tensor(key_lens, dtype=torch.int32).cuda()
     q, k, v, dout, _ = flash_inputs(len(key_lens), T, hd, dtype, seed=1)
     scale = hd ** -0.5
-    fwd = lambda: fa.flash_forward(q, k, v, lens, causal, scale, route=route)  # noqa: E731
+    # bf16 on the tensor cores as training runs it: K4 writes out_lo, K5 reads it
+    lo = fa.new_out_lo(q) if (route or fa.kernel_route(dtype, hd)) == "tensor-core" else None
+    fwd = lambda: fa.flash_forward(q, k, v, lens, causal, scale, route=route,  # noqa: E731
+                                   out_lo=lo)
     o, lse = fwd()
     bwd = lambda: fa.flash_backward(q, k, v, lens, lse, o, dout, causal, scale,  # noqa: E731
-                                    route=route)
+                                    route=route, out_lo=lo)
     k4 = [time_cuda(fwd, 2 * reps, queued=True), time_cuda(fwd, 2 * reps, queued=True)]
     k5 = [time_cuda(bwd, 2 * reps, queued=True), time_cuda(bwd, 2 * reps, queued=True)]
     host = []  # us of host time a wrapper call, the card left to run behind
@@ -3327,6 +3450,7 @@ def main() -> int:
     long_batch = next(iter(MelodyDataset(LONG_B, LONG_L, long_loader.melodies)))
     split_err = check_split(fa)
     flash_err = check_flash(fa, long_batch.seq_lens)
+    gqa_err = check_gqa(fa)
 
     wide_batch = next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
     corpus_batches = list(MelodyDataset(32, L, Loader(corpus, L).melodies))
@@ -3365,6 +3489,7 @@ def main() -> int:
                                        "K3": ("core_bwd_dq_kernel_tc",
                                               "core_bwd_dkdv_kernel_tc")}, 4)}
     flash = measure_flash(fa, ac, long_batch)
+    gqa = time_gqa(fa)
     steps["long"] = measure_training(long_batch, "long", "train-vae-long.sh",
                                      {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",)}, 1)
     steps["long float32"] = measure_training(
@@ -3446,6 +3571,21 @@ def main() -> int:
                 "max_abs_err": flash_err[f"{kid} hd {hd}"], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
             })
+    # grouped K/V heads and the window at the mellum2_train cell's decoder;
+    # launches from that cell's window (benchmark/drivers/train_window_mellum2.py)
+    for kid, name, replaces in (
+            ("K4", "flash_attention_forward_gqa_window",
+             "musicstyletransfer_tpu/ops/flash_attention.py:367"),
+            ("K5", "flash_attention_backward_gqa_window",
+             "musicstyletransfer_tpu/ops/flash_attention.py:786")):
+        ms, bound_ms, bound_by = gqa["decoder sliding"][kid]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "musicstyletransfer_torch/ops/csrc/flash_attention_tc.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": gqa_err["decoder sliding"][0 if kid == "K4" else 1], "ms": ms,
+            "plain_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
     ms, plain_ms, bound_ms, bound_by = split_ms
     kernels.append({
         "name": "split_bf16x3", "route": "cuda",

@@ -184,6 +184,44 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def add_decoder_block_flags(parser: argparse.ArgumentParser) -> None:
+    """The transformer decoder's block beyond the reference's (the port's own
+    flags, ``cli.main`` only; ``build_parser`` stays the JAX package's):
+    grouped-query attention, a sliding window on the layers named so, rotary
+    positions with YaRN on the full layers, RMSNorm and a top-k mixture of
+    SwiGLU experts (``models.config.TransformerConfig``). The defaults keep
+    the reference's block."""
+    blk = parser.add_argument_group("Decoder block (PyTorch port)")
+    blk.add_argument("--d-num-heads", type=int, default=0,
+                     help="decoder query heads (0: --e-num-heads, as the reference)")
+    blk.add_argument("--d-num-kv-heads", type=int, default=0,
+                     help="decoder K/V heads (0: as many as query heads)")
+    blk.add_argument("--d-head-dim", type=int, default=0,
+                     help="decoder head width (0: hidden // heads)")
+    blk.add_argument("--d-layer-types", type=str, default="",
+                     help="comma list, one full_attention or sliding_attention a layer")
+    blk.add_argument("--d-sliding-window", type=int, default=0,
+                     help="keys a sliding_attention query sees, itself included")
+    blk.add_argument("--d-no-bias", action="store_true",
+                     help="no biases in the decoder's attention projections")
+    blk.add_argument("--d-norm", choices=["layernorm", "rmsnorm"], default="layernorm")
+    blk.add_argument("--d-norm-scheme", choices=["post", "pre"], default=None,
+                     help="the decoder's residual-norm placement (default: --norm-scheme)")
+    blk.add_argument("--d-ffn", choices=["relu", "moe"], default="relu")
+    blk.add_argument("--d-num-experts", type=int, default=0)
+    blk.add_argument("--d-experts-per-token", type=int, default=0)
+    blk.add_argument("--d-expert-width", type=int, default=0)
+    blk.add_argument("--d-positions", choices=["sinusoidal", "rope"], default="sinusoidal")
+    blk.add_argument("--d-rope-theta", type=float, default=10000.0)
+    blk.add_argument("--d-yarn-factor", type=float, default=0.0,
+                     help="YaRN on the full_attention layers' rotary frequencies (0: off)")
+    blk.add_argument("--d-yarn-original-max-positions", type=int, default=0)
+    blk.add_argument("--d-yarn-beta-fast", type=float, default=32.0)
+    blk.add_argument("--d-yarn-beta-slow", type=float, default=1.0)
+    blk.add_argument("--d-yarn-attention-factor", type=float, default=0.0,
+                     help="the factor on cos and sin (0: 0.1 ln(factor) + 1)")
+
+
 def get_config(argv=None) -> argparse.Namespace:
     """parse_known_args like the reference (config.py:73-75)."""
     config, _unparsed = build_parser().parse_known_args(argv)

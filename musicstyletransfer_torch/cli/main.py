@@ -59,20 +59,42 @@ from ..parallel.distributed import data_process_info
 from ..training.optimizer import OptimizerConfig
 from ..training.trainer import TrainConfig, Trainer
 from ..utils import resolve_device
-from .flags import build_parser
+from .flags import add_decoder_block_flags, build_parser
+
+
+def decoder_block(args) -> dict:
+    """The decoder's block fields from ``add_decoder_block_flags`` (none
+    where a namespace lacks them: the reference's block)."""
+    if not hasattr(args, "d_ffn"):
+        return {}
+    return dict(
+        num_heads=args.d_num_heads or args.e_num_heads, num_kv_heads=args.d_num_kv_heads,
+        head_dim=args.d_head_dim,
+        layer_types=tuple(t for t in args.d_layer_types.split(",") if t),
+        sliding_window=args.d_sliding_window, bias=not args.d_no_bias, norm=args.d_norm,
+        norm_scheme=args.d_norm_scheme or args.norm_scheme, ffn=args.d_ffn,
+        num_experts=args.d_num_experts, experts_per_token=args.d_experts_per_token,
+        expert_width=args.d_expert_width, positions=args.d_positions,
+        rope_theta=args.d_rope_theta, yarn_factor=args.d_yarn_factor,
+        yarn_original_max_positions=args.d_yarn_original_max_positions,
+        yarn_beta_fast=args.d_yarn_beta_fast, yarn_beta_slow=args.d_yarn_beta_slow,
+        yarn_attention_factor=args.d_yarn_attention_factor)
 
 
 def create_model_config(args, dataset) -> ModelConfig:
     """The JAX CLI's ``create_model_config`` (the decoder takes the
-    encoder's head count, as there)."""
-    def transformer(size, dropout, layers):
-        return TransformerConfig(
+    encoder's head count, as there), with the decoder's block from the
+    port's own flags (``decoder_block``)."""
+    def transformer(size, dropout, layers, **block):
+        kw = dict(
             model_size=size, dropout=dropout, num_layers=layers,
             vocab_size=dataset.num_tokens(), num_heads=args.e_num_heads,
             use_flash_attention=args.use_flash_attention,
             attention_core_xla_backward=args.attention_core_xla_backward,
             norm_scheme=args.norm_scheme, remat=args.remat,
             ring_attention=args.ring_attention, sequence_sharding=args.ring_attention)
+        kw.update(block)
+        return TransformerConfig(**kw)
 
     return ModelConfig(
         encoder_config=EncoderConfig(
@@ -82,7 +104,7 @@ def create_model_config(args, dataset) -> ModelConfig:
             input_dim=dataset.num_tokens()),
         decoder_config=DecoderConfig(
             transformer_config=transformer(args.d_rnn_hidden_dim, args.d_dropout,
-                                           args.d_n_layers),
+                                           args.d_n_layers, **decoder_block(args)),
             latent_dim=args.latent_dim, num_classes=dataset.num_classes(),
             output_dim=dataset.num_tokens(), decoder_type=args.decoder_type,
             lstm_config=(LSTMConfig(n_layers=args.d_n_layers,
@@ -193,6 +215,7 @@ def main(argv=None) -> None:
     parser = build_parser()
     parser.add_argument("--log-every", type=int, default=50,
                         help="log (print and scalars.jsonl) every N steps")
+    add_decoder_block_flags(parser)
     args, _ = parser.parse_known_args(argv)
     _refuse_unported(args)
     if args.toy:

@@ -10,6 +10,10 @@ path for path (``/`` becomes ``.``), with four renames:
 - a LayerNorm ``scale`` becomes ``weight``;
 - ``layer{i}`` of a stack becomes ``layers.{i}`` (an ``nn.ModuleList``).
 
+An RMSNorm's weight is a ``scale`` too (a 1-D ``weight`` that no Embed or
+LayerNorm holds); the experts' ``w_gate_up`` and ``w_down`` ([E, in, out],
+``models/moe.py``) keep their names and layouts.
+
 ``params_to_jax`` is the inverse: the port's trainer writes its checkpoints'
 ``torch/params.npz`` with it, in the layout ``scripts/export-torch-weights.py``
 writes.
@@ -36,6 +40,9 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+_RAW_LEAVES = ("w_gate_up", "w_down")  # the experts' stacked kernels, as they are
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Nested flax tree of arrays, or a flat ``/``-joined dict -> state_dict."""
     sd: Dict[str, torch.Tensor] = {}
@@ -48,7 +55,7 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr, leaf = arr.T, "weight"
         elif leaf in ("embedding", "scale"):
             leaf = "weight"
-        elif leaf != "bias":
+        elif leaf not in ("bias",) + _RAW_LEAVES:
             raise ValueError(f"{path}: unknown flax parameter {leaf!r}")
         name = ".".join(parts[:-1] + [leaf])
         name = re.sub(r"(^|\.)layer(\d+)\.", r"\1layers.\2.", name)
@@ -70,7 +77,7 @@ def _flax_leaves(model: nn.Module):
             transpose = False
             if isinstance(module, nn.Embedding):
                 leaf = "embedding"
-            elif isinstance(module, nn.LayerNorm):
+            elif isinstance(module, nn.LayerNorm) or (leaf == "weight" and p.dim() == 1):
                 leaf = "scale" if leaf == "weight" else leaf
             elif leaf == "weight":
                 leaf, transpose = "kernel", True

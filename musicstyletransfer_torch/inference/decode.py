@@ -3,7 +3,9 @@
 
 ``decode_sampled`` runs a transformer decoder's whole decode loop through
 ``ops.fused_decode``: one launch of the CUDA kernel for tensors on the card,
-the plain PyTorch loop for tensors on the CPU. An LSTM decoder takes
+the plain PyTorch loop for tensors on the CPU. A decoder K1 does not take
+(``StyleVAE.k1_decodes``: the LSTM, and a transformer block with grouped K/V
+heads, a window, rotary positions, RMSNorm or experts) takes
 ``decode_stepwise``, a plain PyTorch step loop over the model's cached
 ``decode_step`` on either device (the JAX package's ``supports_fused_decode``
 refuses the LSTM too, and its XLA loop decodes it). Sampling is seeded by an
@@ -66,7 +68,7 @@ def decode_sampled(model: StyleVAE, z: torch.Tensor, classes: torch.Tensor,
     under the unfiltered, untempered distribution). ``greedy`` takes the
     argmax instead of sampling."""
     mode = "greedy" if greedy else "sample"
-    if model.is_lstm:
+    if not model.k1_decodes:
         return decode_stepwise(model, z, classes, max_len, seed, temperature, mode,
                                top_k=0 if greedy else top_k, top_p=0.0 if greedy else top_p)
     with tracing.span("decode.k1"):
@@ -84,7 +86,7 @@ def decode_stepwise(model: StyleVAE, z: torch.Tensor, classes: torch.Tensor, max
                     forced_tokens: Optional[torch.Tensor] = None, top_k: int = 0,
                     top_p: float = 0.0):
     """The decode loop one step at a time through ``model.decode_step`` from
-    ``model.decode_prefill`` (the LSTM decoder's route): ``ops.fused_decode.
+    ``model.decode_prefill`` (the route of every decoder K1 does not take): ``ops.fused_decode.
     decode_loop``, the kernel's semantics and noise. Returns (seqs [B,
     max_len] int32 with SOS at 0, scores [B] float32), plus logits [B,
     max_len, V] float32 in ``"forced"`` mode (row 0 zeros)."""

@@ -71,7 +71,7 @@ def _fused_shard_eligible(model: StyleVAE, mesh: Mesh, per_shard_batch: int, max
     takes at the shard's rows (the filtered token choice is in the kernel,
     so ``top_k``/``top_p`` do not decide)."""
     del top_k, top_p
-    if mesh.tp != 1 or model.device.type != "cuda" or model.is_lstm:
+    if mesh.tp != 1 or model.device.type != "cuda" or not model.k1_decodes:
         return False
     if not 1 <= max_len <= model.decoder.config.transformer_config.max_positions:
         return False
@@ -146,8 +146,9 @@ def sharded_sample_sequences(
         if mesh.tp != 1:
             raise ValueError("use_fused=True requires a pure data-parallel mesh (tp=1); "
                              "the kernel holds full-width weights per card")
-        if model.is_lstm:
-            raise ValueError("use_fused=True: the LSTM decoder has no fused kernel")
+        if not model.k1_decodes:
+            raise ValueError("use_fused=True: K1 does not take this decoder (the LSTM, or a "
+                             "block off the reference's)")
     keys = draw_keys(generator, dp)
     lo = mesh.data_rank * rows
     tokens, seq_lens, classes = (_pad_rows(x, rows * dp)[lo:lo + rows]

@@ -221,11 +221,11 @@ class StreamingTransferEngine:
         self.model = load_inference_model(model_folder, checkpoint, self.device)
         if mesh is not None:
             prepare_params(self.model, mesh)
-        if self.model.is_lstm:
+        if not self.model.k1_decodes:
             raise ValueError(
-                "streaming engine requires the transformer decoder "
-                "(per-slot ragged KV positions); use StyleTransferService "
-                "for the LSTM decoder"
+                "streaming engine requires the transformer decoder of the "
+                "reference's block (per-slot ragged KV positions); use "
+                "StyleTransferService for the LSTM decoder and the modern block"
             )
         self.num_classes = self.model.config.decoder_config.num_classes
         self.slots = int(slots)

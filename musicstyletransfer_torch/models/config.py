@@ -90,6 +90,75 @@ class TransformerConfig(Config):
     sequence_sharding: bool = False
     ring_attention: bool = False
     remat: bool = False  # recompute each layer in the backward (training)
+    # The block of today's open decoders (models/transformer.py, models/moe.py);
+    # the defaults are the reference's block, so every earlier configuration
+    # and checkpoint reads as it did. num_kv_heads 0: as many K/V heads as
+    # query heads (grouped-query attention below that); head_dim 0:
+    # model_size // num_heads. layer_types: one "full_attention" or
+    # "sliding_attention" a layer (empty: all full); a sliding layer's query i
+    # sees keys i - sliding_window < j <= i. bias False drops the attention
+    # projections' biases. norm "layernorm" | "rmsnorm" (eps 1e-6, a weight);
+    # ffn "relu" (the 4x FFN) | "moe" (num_experts SwiGLU experts of
+    # expert_width, the top experts_per_token of a softmax router, their
+    # weights renormalised to sum 1). positions "sinusoidal" (the table added
+    # at the input) | "rope" (rotary q and k, theta rope_theta; with
+    # yarn_factor > 0 the full_attention layers take YaRN frequencies,
+    # Hugging Face's _compute_yarn_parameters, yarn_attention_factor on cos
+    # and sin, 0 meaning 0.1 ln(factor) + 1).
+    num_kv_heads: int = 0
+    head_dim: int = 0
+    layer_types: Tuple[str, ...] = ()
+    sliding_window: int = 0
+    bias: bool = True
+    norm: str = "layernorm"
+    ffn: str = "relu"
+    num_experts: int = 0
+    experts_per_token: int = 0
+    expert_width: int = 0
+    positions: str = "sinusoidal"
+    rope_theta: float = 10000.0
+    yarn_factor: float = 0.0
+    yarn_original_max_positions: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_attention_factor: float = 0.0
+
+    def __post_init__(self):
+        if self.layer_types and len(self.layer_types) != self.num_layers:
+            raise ValueError(f"layer_types names {len(self.layer_types)} layers, num_layers is "
+                             f"{self.num_layers}")
+        for t in self.layer_types:
+            if t not in ("full_attention", "sliding_attention"):
+                raise ValueError(f"unknown layer type {t!r}")
+        if "sliding_attention" in self.layer_types and self.sliding_window <= 0:
+            raise ValueError("sliding_attention layers need sliding_window > 0")
+        if self.norm not in ("layernorm", "rmsnorm") or self.ffn not in ("relu", "moe") \
+                or self.positions not in ("sinusoidal", "rope"):
+            raise ValueError(f"unknown norm {self.norm!r}, ffn {self.ffn!r} or positions "
+                             f"{self.positions!r}")
+        if self.ffn == "moe" and not 0 < self.experts_per_token <= self.num_experts:
+            raise ValueError(f"ffn 'moe' needs 0 < experts_per_token ({self.experts_per_token}) "
+                             f"<= num_experts ({self.num_experts})")
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_size(self) -> int:
+        return self.head_dim or self.model_size // self.num_heads
+
+    @property
+    def reference_block(self) -> bool:
+        """Whether this is the reference's block (K1 decodes only that one)."""
+        return (self.kv_heads == self.num_heads and self.head_size * self.num_heads
+                == self.model_size and not self.sliding_window and self.bias
+                and self.norm == "layernorm" and self.ffn == "relu"
+                and self.positions == "sinusoidal")
+
+    def layer_type(self, i: int) -> str:
+        return self.layer_types[i] if self.layer_types else "full_attention"
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TransformerConfig":

@@ -33,6 +33,16 @@ Under a mesh (``parallel/mesh.py``, read through ``current_mesh``):
   gathered at the stack's end, before the latent head's readout and the
   output logits (where the JAX package's GSPMD would gather).
 
+Beyond the JAX package's block, a ``TransformerConfig`` off the reference's
+(``reference_block``) builds today's open decoders' layer: grouped-query
+attention with rotary positions (YaRN on ``full_attention`` layers where set)
+and a left window on ``sliding_attention`` layers (``GroupedQueryAttention``:
+the flash route with the K/V group and the window, or dense attention),
+RMSNorm, and the experts of ``models/moe.py`` in place of the FFN; no
+biases where ``bias`` is off. It is a causal decoder's only, on one device
+(no TP slices, no ring), and decodes through ``step`` (K1 takes only the
+reference's block).
+
 Dropout sits where flax has it (after the FFN's ReLU, and on both residual
 branches) and applies only in training mode, drawing its masks from the
 ``torch.Generator`` passed down from ``StyleVAE.forward``. ``remat`` in
@@ -44,6 +54,7 @@ those of a run without it.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -90,8 +101,8 @@ class Dense(nn.Linear):
     group before the bias is added once."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +110,7 @@ class Dense(nn.Linear):
         y = F.linear(x.to(dt), self.weight.to(dt))
         if self.weight.shape[1] != self.in_features:
             y = reduce_from_model(y, current_mesh())
-        return y + self.bias.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -113,6 +124,73 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
                          self.bias, self.eps)
         return y.to(self.compute_dtype)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm with a weight (no bias), eps 1e-6: float32 statistics and
+    product, output in the compute dtype (Hugging Face's ``LlamaRMSNorm``
+    rounds the normalised x to the input dtype before the weight; here the
+    weight multiplies in float32)."""
+
+    def __init__(self, size: int, dtype: torch.dtype = torch.float32, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(size))
+        self.eps = eps
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.rms_norm(x.float(), self.weight.shape, self.weight, self.eps)
+        return y.to(self.compute_dtype)
+
+
+def make_norm(config: TransformerConfig, dtype: torch.dtype) -> nn.Module:
+    return (RMSNorm(config.model_size, dtype) if config.norm == "rmsnorm"
+            else LayerNorm(config.model_size, dtype))
+
+
+def yarn_inv_freq(head_dim: int, theta: float, factor: float, original_max: int,
+                  beta_fast: float, beta_slow: float) -> torch.Tensor:
+    """YaRN's inverse frequencies [head_dim / 2], float32, as Hugging Face
+    transformers' ``_compute_yarn_parameters`` (truncated correction range):
+    the interpolated 1 / (factor theta^(2i/d)) below the range, the
+    extrapolated 1 / theta^(2i/d) above it, a linear ramp between."""
+    def correction_dim(rotations):
+        return head_dim * math.log(original_max / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(correction_dim(beta_fast)), 0)
+    high = min(math.ceil(correction_dim(beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    pos_freqs = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim)
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32) - low) / (high - low)).clamp(0, 1)
+    return (1.0 / (factor * pos_freqs)) * ramp + (1.0 / pos_freqs) * (1 - ramp)
+
+
+def rope_parameters(config: TransformerConfig, layer_type: str) -> Tuple[torch.Tensor, float]:
+    """(inverse frequencies [head_dim / 2] float32, the factor on cos and
+    sin) of a layer: YaRN on ``full_attention`` layers where ``yarn_factor``
+    is set, else the default rotary frequencies 1 / theta^(2i/d)."""
+    hd, theta = config.head_size, config.rope_theta
+    if layer_type == "full_attention" and config.yarn_factor > 0:
+        factor = config.yarn_factor
+        attention_factor = config.yarn_attention_factor or 0.1 * math.log(factor) + 1.0
+        return yarn_inv_freq(hd, theta, factor, config.yarn_original_max_positions,
+                             config.yarn_beta_fast, config.yarn_beta_slow), attention_factor
+    return 1.0 / theta ** (torch.arange(0, hd, 2, dtype=torch.float32) / hd), 1.0
+
+
+def rotate(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor,
+           factor: float) -> torch.Tensor:
+    """Rotary positions on x [..., T, heads, head_dim] at ``positions`` [T]:
+    the halves layout (``rotate_half``), cos and sin times ``factor``, in
+    float32, the result in x's dtype."""
+    freqs = positions.float()[:, None] * inv_freq[None, :]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    cos, sin = (emb.cos() * factor)[:, None, :], (emb.sin() * factor)[:, None, :]
+    xf = x.float()
+    half = xf.shape[-1] // 2
+    rotated = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rotated * sin).to(x.dtype)
 
 
 class DrawnMasks:
@@ -321,20 +399,125 @@ class MultiHeadSelfAttention(nn.Module):
         return self.w_o(out.reshape(S, -1))
 
 
-class TransformerLayer(nn.Module):
-    """Post-LN (the reference's) or pre-LN residual block: attention + FFN."""
+class GroupedQueryAttention(nn.Module):
+    """Causal self-attention of today's open decoders: H query heads over
+    H_kv K/V heads (query head h reads K/V head h // (H / H_kv)), rotary
+    positions on q and k, on a ``sliding_attention`` layer a left window
+    (query i sees keys i - W < j <= i), projections with or without biases.
+    The batched path is the flash route (K4/K5 with the K/V group and the
+    window, ``ops/flash_attention.py``) from ``flash_min_seq_len`` on with
+    ``use_flash_attention``, else dense attention over the K/V heads
+    repeated; ``step`` decodes one position through a cache of H_kv heads.
+    Under a mesh it runs whole (no heads sliced, no ring)."""
 
-    def __init__(self, config: TransformerConfig, causal: bool, dtype: torch.dtype):
+    def __init__(self, config: TransformerConfig, layer_type: str, dtype: torch.dtype):
+        super().__init__()
+        c = config
+        if c.num_heads % c.kv_heads:
+            raise ValueError(f"num_heads {c.num_heads} is not a multiple of num_kv_heads "
+                             f"{c.kv_heads}")
+        self.num_heads, self.kv_heads, self.head_dim = c.num_heads, c.kv_heads, c.head_size
+        self.group = c.num_heads // c.kv_heads
+        self.window = c.sliding_window if layer_type == "sliding_attention" else 0
+        self.compute_dtype = dtype
+        self.use_flash = c.use_flash_attention
+        self.flash_min_seq_len = c.flash_min_seq_len
+        self.rope = c.positions == "rope"
+        D, Hd, Kd = c.model_size, c.num_heads * c.head_size, c.kv_heads * c.head_size
+        self.w_q = Dense(D, Hd, dtype, c.bias)
+        self.w_k = Dense(D, Kd, dtype, c.bias)
+        self.w_v = Dense(D, Kd, dtype, c.bias)
+        self.w_o = Dense(Hd, D, dtype, c.bias)
+        inv_freq, self.rope_factor = rope_parameters(c, layer_type)
+        self.register_buffer("inv_freq", inv_freq, persistent=False)
+        self.register_buffer("scale", sqrt_in(self.head_dim, dtype), persistent=False)
+
+    def _project(self, x: torch.Tensor, positions: torch.Tensor):
+        """q [..., H, hd], k and v [..., H_kv, hd], q and k rotated."""
+        q, k, v = (y.reshape(*x.shape[:-1], -1, self.head_dim)
+                   for y in (self.w_q(x), self.w_k(x), self.w_v(x)))
+        if self.rope:
+            q = rotate(q, positions, self.inv_freq, self.rope_factor)
+            k = rotate(k, positions, self.inv_freq, self.rope_factor)
+        return q, k, v
+
+    def visible(self, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+        """[..., Tq, Tk] True where a query sees a key: causal, in the window."""
+        d = q_pos[..., :, None] - k_pos[..., None, :]
+        ok = d >= 0
+        return ok & (d < self.window) if self.window else ok
+
+    def forward(self, x: torch.Tensor, key_mask: torch.Tensor) -> torch.Tensor:
+        B, T, _ = x.shape
+        pos = torch.arange(T, device=x.device)
+        q, k, v = self._project(x, pos)
+        if self.use_flash and T >= self.flash_min_seq_len:
+            key_lens = key_mask.sum(-1, dtype=torch.int32)
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  key_lens, True, window=self.window).transpose(1, 2)
+        else:
+            k, v = (y.repeat_interleave(self.group, dim=2) for y in (k, v))
+            ok = key_mask[:, None, None, :].bool() & self.visible(pos, pos)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / self.scale
+            probs = torch.softmax(logits + torch.where(ok, 0.0, NEG_INF).to(logits.dtype), -1)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return self.w_o(out.reshape(B, T, -1))
+
+    def step(self, x_t: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+             t: int) -> torch.Tensor:
+        """One cached position: x_t [B, D]; cache_{k,v} [B, T_max, H_kv, hd],
+        written at ``t`` in place; the query attends over the keys it sees."""
+        B, T = x_t.shape[0], cache_k.shape[1]
+        pos = torch.full((1,), t, device=x_t.device)
+        q, k, v = self._project(x_t[:, None], pos)
+        cache_k[:, t] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, t] = v[:, 0].to(cache_v.dtype)
+        qg = q[:, 0].reshape(B, self.kv_heads, self.group, self.head_dim)
+        logits = torch.einsum("bkgd,bjkd->bkgj", qg, cache_k) / self.scale
+        ok = self.visible(pos, torch.arange(T, device=x_t.device))[0]
+        probs = torch.softmax(logits.masked_fill(~ok, NEG_INF), dim=-1)
+        out = torch.einsum("bkgj,bjkd->bkgd", probs, cache_v)
+        return self.w_o(out.reshape(B, -1))
+
+    def step_ragged(self, *args, **kwargs):
+        raise NotImplementedError("the ragged step (the streaming engine's) takes the "
+                                  "reference's block only")
+
+
+class TransformerLayer(nn.Module):
+    """Post-LN (the reference's) or pre-LN residual block: attention + FFN.
+    A configuration off the reference's block (``TransformerConfig``'s
+    modern fields) takes ``GroupedQueryAttention``, RMSNorm and the
+    experts (``models/moe.py``) where it names them."""
+
+    def __init__(self, config: TransformerConfig, causal: bool, dtype: torch.dtype,
+                 layer_type: str = "full_attention"):
         super().__init__()
         c = config
         self.pre_ln = c.norm_scheme == "pre"
         self.rate = c.dropout
-        self.attention = MultiHeadSelfAttention(c.model_size, c.num_heads,
-                                                causal, dtype, c)
-        self.ln1 = LayerNorm(c.model_size, dtype)
-        self.ff = FeedForward(c.model_size, c.model_size * c.ffn_multiplier, dtype,
-                              c.dropout)
-        self.ln2 = LayerNorm(c.model_size, dtype)
+        if c.reference_block:
+            self.attention = MultiHeadSelfAttention(c.model_size, c.num_heads,
+                                                    causal, dtype, c)
+        else:
+            if not causal:
+                raise ValueError("the modern block is a causal decoder's")
+            self.attention = GroupedQueryAttention(c, layer_type, dtype)
+        self.ln1 = make_norm(c, dtype)
+        if c.ffn == "moe":
+            from .moe import MoE
+
+            self.ff = MoE(c.model_size, c.expert_width, c.num_experts, c.experts_per_token,
+                          dtype)
+        else:
+            self.ff = FeedForward(c.model_size, c.model_size * c.ffn_multiplier, dtype,
+                                  c.dropout)
+        self.ln2 = make_norm(c, dtype)
+
+    def _ff(self, x, key_mask=None, generator=None, seq=None):
+        if isinstance(self.ff, FeedForward):
+            return self.ff(x, generator, seq)
+        return self.ff(x, key_mask)
 
     def forward(self, x: torch.Tensor, key_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -344,16 +527,16 @@ class TransformerLayer(nn.Module):
 
         if self.pre_ln:
             x = x + drop(self.attention(self.ln1(x), key_mask))
-            return x + drop(self.ff(self.ln2(x), generator, seq))
+            return x + drop(self._ff(self.ln2(x), key_mask, generator, seq))
         x = self.ln1(x + drop(self.attention(x, key_mask)))
-        return self.ln2(x + drop(self.ff(x, generator, seq)))
+        return self.ln2(x + drop(self._ff(x, key_mask, generator, seq)))
 
     def step(self, x_t: torch.Tensor, cache: LayerCache, t: int) -> torch.Tensor:
         if self.pre_ln:
             x_t = x_t + self.attention.step(self.ln1(x_t), cache[0], cache[1], t)
-            return x_t + self.ff(self.ln2(x_t))
+            return x_t + self._ff(self.ln2(x_t))
         x_t = self.ln1(x_t + self.attention.step(x_t, cache[0], cache[1], t))
-        return self.ln2(x_t + self.ff(x_t))
+        return self.ln2(x_t + self._ff(x_t))
 
     def step_ragged(self, x_t: torch.Tensor, cache: LayerCache,
                     t: torch.Tensor) -> torch.Tensor:
@@ -373,10 +556,12 @@ class TransformerStack(nn.Module):
         self.config = config
         self.compute_dtype = dtype
         self.layers = nn.ModuleList(
-            TransformerLayer(config, causal, dtype) for _ in range(config.num_layers)
+            TransformerLayer(config, causal, dtype, config.layer_type(i))
+            for i in range(config.num_layers)
         )
         if config.norm_scheme == "pre":
-            self.final_ln = LayerNorm(config.model_size, dtype)
+            self.final_ln = make_norm(config, dtype)
+        self.table = config.positions == "sinusoidal"
         self.register_buffer(
             "pos_table",
             torch.from_numpy(positional_encodings(config.model_size,
@@ -392,7 +577,7 @@ class TransformerStack(nn.Module):
         ``generator`` draws the dropout masks in training mode. Under ring
         attention on a model axis > 1 the layers run on this rank's time
         chunk and the output is gathered whole."""
-        x = self.scale * x + self.pos_table[: x.shape[1]]
+        x = self.scale * x + self.pos_table[: x.shape[1]] if self.table else self.scale * x
         mesh = current_mesh()
         seq = None
         if self.config.ring_attention and mesh is not None and mesh.tp > 1:
@@ -411,7 +596,7 @@ class TransformerStack(nn.Module):
 
     def step(self, x_t: torch.Tensor, cache: Cache, t: int) -> torch.Tensor:
         """One incremental decode position. x_t: [B, D] (before scaling)."""
-        x_t = self.scale * x_t + self.pos_table[t]
+        x_t = self.scale * x_t + self.pos_table[t] if self.table else self.scale * x_t
         for layer, layer_cache in zip(self.layers, cache):
             x_t = layer.step(x_t, layer_cache, t)
         if self.config.norm_scheme == "pre":
@@ -434,7 +619,8 @@ class TransformerStack(nn.Module):
         cache = []
         for layer in self.layers:
             att = layer.attention
-            shape = (batch_size, max_len, att.local_heads, att.head_dim)
+            heads = getattr(att, "kv_heads", None) or att.local_heads
+            shape = (batch_size, max_len, heads, att.head_dim)
             cache.append((torch.zeros(shape, dtype=self.compute_dtype, device=dev),
                           torch.zeros(shape, dtype=self.compute_dtype, device=dev)))
         return cache
@@ -446,17 +632,19 @@ def _remat_layer(layer: TransformerLayer, x: torch.Tensor, key_mask: torch.Tenso
     """``layer`` under ``torch.utils.checkpoint`` (non-reentrant). The
     layer's dropout masks are drawn from ``generator`` before it runs, in the
     order and shapes the layer draws them (the attention branch [B, T, D],
-    the FFN's hidden [B, T, FF], the FFN branch [B, T, D]), so they and the
+    the FFN's hidden [B, T, FF] where the layer has the FFN, the FFN or
+    experts' branch [B, T, D]), so they and the
     generator's state equal a run without remat; the forward and the
     recompute read the same kept masks, and no generator state is saved or
     set, which a CUDA graph's capture does not allow."""
     masks = []
     if layer.training and layer.rate > 0.0:
         B, T, D = x.shape
-        ff = layer.ff.ff1.weight.shape[0]
+        shapes = [((B, T, D), False), ((B, T, D), False)]
+        if isinstance(layer.ff, FeedForward):  # the FFN's hidden mask between the two
+            shapes.insert(1, ((B, T, layer.ff.ff1.weight.shape[0]), layer.ff.sharded))
         masks = [keep_mask(shape, layer.rate, generator, x.device, seq, cols)
-                 for shape, cols in (((B, T, D), False), ((B, T, ff), layer.ff.sharded),
-                                     ((B, T, D), False))]
+                 for shape, cols in shapes]
 
     def run(x_, mask_):
         return layer(x_, mask_, DrawnMasks(masks), seq)

@@ -20,6 +20,7 @@ from ..parallel.mesh import current_mesh
 
 from .config import DecoderConfig, EncoderConfig, ModelConfig
 from .lstm import LSTMCell, LSTMDecoder
+from .moe import MoE
 from .transformer import Cache, Dense, TransformerStack, compute_dtype
 
 # flax's lecun_normal: a normal truncated at two standard deviations, its
@@ -149,6 +150,15 @@ class StyleVAE(nn.Module):
         return isinstance(self.decoder, LSTMDecoder)
 
     @property
+    def k1_decodes(self) -> bool:
+        """Whether K1 (``ops/fused_decode.py``) takes this decoder: the
+        reference's transformer block. The LSTM and a decoder with grouped
+        K/V heads, a window, rotary positions, RMSNorm or experts decode
+        step by step (``inference.decode.decode_stepwise``)."""
+        return (not self.is_lstm
+                and self.config.decoder_config.transformer_config.reference_block)
+
+    @property
     def device(self) -> torch.device:
         return self.decoder.output_layer.weight.device
 
@@ -201,7 +211,8 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
     package's ``init_params``; the numbers differ, the distributions do
     not): Dense kernels lecun_normal and biases zero, an LSTM cell's hidden
     kernels orthogonal, embeddings normal(0, 1/sqrt(features)), LayerNorms
-    one and zero. Drawn on the CPU, so a seed gives the same weights on
+    one and zero (an RMSNorm's weight one), each expert's gate, up and down
+    products lecun_normal. Drawn on the CPU, so a seed gives the same weights on
     every device. Serves any module built of these layers (``StyleVAE``,
     the GAN's ``Generator`` and ``Discriminator``)."""
     g = torch.Generator().manual_seed(seed)
@@ -224,4 +235,10 @@ def init_params(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(module, nn.LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
+        elif isinstance(module, MoE):  # each expert's products as a Dense kernel [in, out]
+            for w in (module.w_gate_up, module.w_down):
+                std = w.shape[1] ** -0.5 / _TRUNCATED_STD
+                t = torch.empty(w.shape)
+                nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=g)
+                w.copy_(t)
     return model

@@ -2,7 +2,8 @@
 of float32 inputs for K4/K5's tensor-core route).
 
 Each wrapper adds one to its counter where it launches its kernel, and
-each plain version adds one where it runs on a CUDA tensor. They are host
+each plain version adds one where it runs on a CUDA tensor; K4/K5 count
+apart their launches with a window and with grouped K/V heads. They are host
 counters: a CUDA graph that captured launches runs no Python when it is
 replayed, so ``training/graph.py`` records the counts a capture added and
 adds them again at every replay (``add``).
@@ -27,6 +28,10 @@ COUNTERS = {
     "K3 tc": (ac.core_backward, "tc_launches"),
     "K4 tc": (fa.flash_forward, "tc_launches"),
     "K5 tc": (fa.flash_backward, "tc_launches"),
+    "K4 windowed": (fa.flash_forward, "windowed_launches"),
+    "K5 windowed": (fa.flash_backward, "windowed_launches"),
+    "K4 grouped": (fa.flash_forward, "grouped_launches"),
+    "K5 grouped": (fa.flash_backward, "grouped_launches"),
     "split": (fa.split_bf16x3, "launches"),
     "K1 plain": (fd.fused_decode_reference, "cuda_runs"),
     "K2 plain": (ac.core_forward_reference, "cuda_runs"),

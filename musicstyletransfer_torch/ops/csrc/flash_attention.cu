@@ -377,7 +377,9 @@ cudaError_t launch_hd(const MstFlashArgs& a, bool backward, cudaStream_t stream)
 }
 
 cudaError_t run(const MstFlashArgs* a, bool backward, void* stream) {
-  if (a->B < 1 || a->T < 1 || a->H < 1 || a->H > 65535 || a->B > 65535)
+  // windows and grouped K/V heads are flash_attention_tc.cu's
+  if (a->B < 1 || a->T < 1 || a->H < 1 || a->H > 65535 || a->B > 65535 || a->window != 0 ||
+      a->group > 1)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return a->is_bf16 ? launch_hd<__nv_bfloat16>(*a, backward, s) : launch_hd<float>(*a, backward, s);

@@ -32,5 +32,18 @@ struct MstFlashArgs {
   const void* k3;
   const void* v3;
   const void* dout3;
+  // flash_attention_tc.cu's bf16 kernels only (the wrapper sends the rest
+  // 0, 1, null): window W > 0 with causal, query i sees keys i - W < j <= i;
+  // group G, query head h reads K/V head h / G of k and v (H / G heads), and
+  // dk, dv are [B, H / G, T, HD], summed over each group; tile_stats, when
+  // not null, gathers int64 [2]: the key tiles K4 and the dQ kernel loaded,
+  // then the dK/dV kernel's query tiles.
+  int window;
+  int group;
+  unsigned long long* tile_stats;
+  // bf16 inputs on the tensor cores: K4 writes here, when not null, what
+  // rounding out to bf16 left over (out32 - out, rounded to bf16), strided as
+  // out; K5's delta then sums dout * (out + out_lo), the float32 out to 2^-16.
+  void* out_lo;
 };
 }

@@ -113,6 +113,19 @@
 // - The backward stays three kernels (two for the core) without atomics or a
 //   [T, T] buffer: delta, dQ (per query tile), dK/dV (per key tile, from the
 //   diagonal on), so gradients are identical from run to run.
+// - Grouped K/V heads and a left window are bf16's alone (window_of,
+//   group_of): the float32 instances compile without them.
+// - Grouped K/V heads (a.group G > 1): K4's and the dQ kernel's blocks of
+//   query head h read K/V head h / G; the dK/dV kernel's grid runs over the
+//   K/V heads and a block walks the query tiles of each of its G query heads
+//   in turn, one ring, so dK and dV sum over the group in registers.
+// - A left window (a.window W > 0, causal): query i sees keys i - W < j <= i.
+//   A block's walk starts at the first key tile any of its queries sees (K4,
+//   dQ) or ends after the last query tile that sees any of its keys (dK/dV):
+//   tiles wholly outside the window are neither copied nor computed; a
+//   warpgroup skips the tiles wholly outside its own rows' window as it
+//   skips those above the diagonal, and masks those that cross the window's
+//   edge.
 //
 // Rounding points: the forward's are the reference's (q * sm_scale rounded to
 // bf16 with the scale rounded first; float32 scores; masked scores -1e30;
@@ -179,6 +192,33 @@ template <int HD, int R> __device__ __forceinline__ constexpr int k_step(int kk)
 template <typename P>
 __device__ __forceinline__ P* head(P* base, const long long* s, int b, int h) {
   return base + b * s[0] + h * s[1];
+}
+
+// The window and the K/V group of an instance of NP-piece operands: the
+// arguments' for bf16 (NP = 1); none for float32's pieces, which are laid
+// out at the query heads and take no window (run() refuses both), so its
+// instances compile without either.
+template <int NP> __device__ __forceinline__ int window_of(const MstFlashArgs& a) {
+  return NP == 1 ? a.window : 0;
+}
+template <int NP> __device__ __forceinline__ int group_of(const MstFlashArgs& a) {
+  return NP == 1 && a.group > 1 ? a.group : 1;
+}
+
+// The K/V head of query head h (group_of query heads a K/V head).
+template <int NP> __device__ __forceinline__ int kv_head(const MstFlashArgs& a, int h) {
+  return h / group_of<NP>(a);
+}
+
+// Whether key `col` is visible to query `row` (beside key_lens): causal and
+// in the window W.
+__device__ __forceinline__ bool sees(const MstFlashArgs& a, int W, int row, int col) {
+  return (!a.causal || col <= row) && (W <= 0 || col > row - W);
+}
+
+// Adds a block's loaded tiles to tile_stats[at].
+__device__ __forceinline__ void add_tile_stats(const MstFlashArgs& a, int at, int loaded) {
+  if (a.tile_stats != nullptr) atomicAdd(a.tile_stats + at, (unsigned long long)loaded);
 }
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -586,18 +626,31 @@ __device__ __forceinline__ void to_frags(uint32_t (&a)[NP][N / 16][4], const flo
     }
 }
 
-// Write an accumulator as rows first + f.row (+ 8) of a head, rows below `end`.
+// Write an accumulator as rows first + f.row (+ 8) of a head, rows below
+// `end`; with bf16 rows and `lo`, laid out as `rows`, also what rounding it
+// to bf16 left over, rounded to bf16, beside each pair.
 template <int HD, typename T>
 __device__ __forceinline__ void store_rows(T* rows, long long stride, int first, int end, Frag f,
-                                           const float (&d)[HD / 2]) {
+                                           const float (&d)[HD / 2], bf16* lo = nullptr) {
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = first + f.row + 8 * half;
-      if (row < end)
-        store2(rows + (long long)row * stride + 8 * j + f.col, d[4 * j + 2 * half],
-               d[4 * j + 2 * half + 1]);
+      if (row < end) {
+        const long long at = (long long)row * stride + 8 * j + f.col;
+        const float x = d[4 * j + 2 * half], y = d[4 * j + 2 * half + 1];
+        if constexpr (std::is_same<T, bf16>::value) {
+          const uint32_t hi = pack(x, y);
+          *reinterpret_cast<uint32_t*>(rows + at) = hi;
+          if (lo != nullptr) {
+            const float2 h = unpack(hi);
+            store2(lo + at, x - h.x, y - h.y);
+          }
+        } else {
+          store2(rows + at, x, y);
+        }
+      }
     }
 }
 
@@ -784,13 +837,17 @@ struct Schedule {
 // K4: forward. A warpgroup owns 64 queries of the item's 64 NWG and walks
 // BN-key tiles of K and V.
 
-// Key tiles of the query tile from q0: those below key_lens (and, causal,
-// up to the tile's last query).
-template <int BN, int BM>
-__device__ __forceinline__ int fwd_tiles(const MstFlashArgs& a, int b, int q0, int& valid) {
+// Key tiles [t0, the return value) of the query tile from q0: those below
+// key_lens (and, causal, up to the tile's last query; with a window, from
+// the first key its first query sees; none where key_lens ends before it).
+template <int BN, int BM, int NP>
+__device__ __forceinline__ int fwd_tiles(const MstFlashArgs& a, int b, int q0, int& valid,
+                                         int& t0) {
   valid = min(max(a.key_lens[b], 0), a.T);
   const int kend = a.causal ? min(valid, min(a.T, q0 + BM)) : valid;
-  return (kend + BN - 1) / BN;
+  const int W = window_of<NP>(a), first = W > 0 ? max(q0 - W + 1, 0) : 0;
+  t0 = first / BN;
+  return kend > first ? (kend + BN - 1) / BN : t0;
 }
 
 // A stage of K4's and the dQ kernel's rings: the K tile's NP planes, then
@@ -801,13 +858,14 @@ template <int HD, int BN, int NWG, int NP, int ST>
 __device__ __forceinline__ int fwd_produce(const MstFlashArgs& a, const Ring<NWG, ST>& ring, int b,
                                            int h, int q0, int it) {
   constexpr int PLANE = BN * Cfg<HD>::ROWB, TILE = NP * PLANE;
-  int valid;
-  const int ntiles = fwd_tiles<BN, NWG * 64>(a, b, q0, valid);
-  const bf16* kh = head(static_cast<const bf16*>(a.k), a.sk, b, h);
-  const bf16* vh = head(static_cast<const bf16*>(a.v), a.sv, b, h);
+  int valid, t0;
+  const int ntiles = fwd_tiles<BN, NWG * 64, NP>(a, b, q0, valid, t0);
+  const bf16* kh = head(static_cast<const bf16*>(a.k), a.sk, b, kv_head<NP>(a, h));
+  const bf16* vh = head(static_cast<const bf16*>(a.v), a.sv, b, kv_head<NP>(a, h));
   const long long plane = plane_of(a);
   const int lane = threadIdx.x % 128;
-  for (int t = 0; t < ntiles; ++t, ++it) {
+  if (lane == 0 && ntiles > t0) add_tile_stats(a, 0, ntiles - t0);
+  for (int t = t0; t < ntiles; ++t, ++it) {
     const uint32_t ks = ring.stages() + (it % ST) * 2 * TILE;
     ring.wait_empty(it);
 #pragma unroll
@@ -847,9 +905,9 @@ __device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG
   static_assert(BN != HD, "the forward's S and P.V products must differ in shape");
   constexpr int TILE = NP * BN * Cfg<HD>::ROWB;
   const int Tn = a.T;
-  int valid;
-  const int ntiles = fwd_tiles<BN, NWG * 64>(a, b, q0, valid);
-  const int w0 = q0 + (threadIdx.x / 128) * 64;
+  int valid, t0;
+  const int ntiles = fwd_tiles<BN, NWG * 64, NP>(a, b, q0, valid, t0);
+  const int w0 = q0 + (threadIdx.x / 128) * 64, W = window_of<NP>(a);
   const Frag f;
   // q * sm_scale: rounded to bf16 here; for float32 inputs the pieces of
   // the product rounded to float32, which the split wrote.
@@ -871,10 +929,11 @@ __device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG
   for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // l: this thread's share of the row sum
 
-  for (int t = 0; t < ntiles; ++t, ++it) {
+  for (int t = t0; t < ntiles; ++t, ++it) {
     const int k0 = t * BN;
     const uint32_t ks = ring.stages() + (it % ST) * 2 * TILE, vs = ks + TILE;
-    const bool active = !a.causal || k0 <= w0 + 63;  // else the tile is above the diagonal
+    // else the tile is above the diagonal, or before every row's window
+    const bool active = (!a.causal || k0 <= w0 + 63) && (W <= 0 || k0 + BN - 1 > w0 - W);
     float s[BN / 2];
     ring.wait_full(it);
     if (active) {
@@ -884,15 +943,17 @@ __device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG
       wgmma_wait<0>();
       fence_regs(s);
 
-      // Mask the tiles that cross key_lens or the diagonal; a masked score is
-      // -1e30 and its p = 2^(-1e30 log2e - ...) an exact zero.
-      if (k0 + BN > valid || (a.causal && k0 + BN - 1 > w0)) {
+      // Mask the tiles that cross key_lens, the diagonal or the window's
+      // edge; a masked score is -1e30 and its p = 2^(-1e30 log2e - ...) an
+      // exact zero.
+      if (k0 + BN > valid || (a.causal && k0 + BN - 1 > w0) ||
+          (W > 0 && k0 <= w0 + 63 - W)) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int row = w0 + f.row + 8 * (e >> 1), col = k0 + 8 * j + f.col + (e & 1);
-            if (!(col < valid && (!a.causal || col <= row))) s[4 * j + e] = kNegInf;
+            if (!(col < valid && sees(a, W, row, col))) s[4 * j + e] = kNegInf;
           }
       }
       float mt[2] = {m[0], m[1]};
@@ -956,7 +1017,8 @@ __device__ __forceinline__ int fwd_consume(const MstFlashArgs& a, const Ring<NWG
   for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[4 * j + e] *= inv[e >> 1];
-  store_rows<HD>(head(static_cast<OutT<NP>*>(a.out), a.so, b, h), a.so[2], w0, Tn, f, o);
+  store_rows<HD>(head(static_cast<OutT<NP>*>(a.out), a.so, b, h), a.so[2], w0, Tn, f, o,
+                 a.out_lo == nullptr ? nullptr : head(static_cast<bf16*>(a.out_lo), a.so, b, h));
   if (f.col == 0) {
     float* lse = a.lse + ((size_t)b * a.H + h) * Tn;
 #pragma unroll
@@ -1015,7 +1077,10 @@ __global__ void __launch_bounds__(NWG * 128 + 128, 3 - NWG) core_fwd_kernel_tc(c
 // K5, first kernel: delta = rowsum(dO * O) - g_lse from the inputs as they
 // are (bf16 or float32); 16 bytes a thread, HD / 8 (bf16) or HD / 4 threads
 // a row. grid ceil(B H T / rows a block) blocks of 256 threads. (K3 computes
-// delta in its dQ kernel instead.)
+// delta in its dQ kernel instead.) With bf16 inputs and K4's out_lo, O is
+// out + out_lo: D from the bf16 out alone misses up to 2^-9 of O, which
+// rowsum(P dP) does not, and a row's every dS = P (dP - D) then carries
+// that shared error (of the order of 3% of dQ on 2047-key rows, PERF.md).
 
 template <int HD, typename T>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_tc(const MstFlashArgs a) {
@@ -1030,6 +1095,18 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel_tc(const MstFlashA
     const T* g = head(static_cast<const T*>(a.dout), a.sdo, b, h) + t * a.sdo[2] + part * EPT;
     const uint4 ov = *reinterpret_cast<const uint4*>(o), gv = *reinterpret_cast<const uint4*>(g);
     const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, gw[4] = {gv.x, gv.y, gv.z, gv.w};
+    if constexpr (!std::is_same<T, float>::value) {
+      if (a.out_lo != nullptr) {
+        const uint4 lv = *reinterpret_cast<const uint4*>(
+            head(static_cast<const T*>(a.out_lo), a.so, b, h) + t * a.so[2] + part * EPT);
+        const uint32_t lw[4] = {lv.x, lv.y, lv.z, lv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = unpack(lw[i]), y = unpack(gw[i]);
+          s = fmaf(y.y, x.y, fmaf(y.x, x.x, s));
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if constexpr (std::is_same<T, float>::value) {
@@ -1068,9 +1145,9 @@ __device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG,
   static_assert(NP == 1 || (BN == 64 && !DELTA), "the SS products are m64n64, K5's dQ kernel");
   constexpr int TILE = NP * BN * Cfg<HD>::ROWB;
   const int Tn = a.T;
-  int valid;
-  const int ntiles = fwd_tiles<BN, NWG * 64>(a, b, q0, valid);
-  const int w0 = q0 + (threadIdx.x / 128) * 64;
+  int valid, t0;
+  const int ntiles = fwd_tiles<BN, NWG * 64, NP>(a, b, q0, valid, t0);
+  const int w0 = q0 + (threadIdx.x / 128) * 64, W = window_of<NP>(a);
   const Frag f;
   // q (bf16: unscaled; float32: the pieces of q * sm_scale) and dO: A
   // fragments (NP = 1), or planes in this warpgroup's part of shared memory.
@@ -1124,10 +1201,10 @@ __device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG,
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
 
-  for (int t = 0; t < ntiles; ++t, ++it) {
+  for (int t = t0; t < ntiles; ++t, ++it) {
     const int k0 = t * BN;
     const uint32_t ks = ring.stages() + (it % ST) * 2 * TILE, vs = ks + TILE;
-    const bool active = !a.causal || k0 <= w0 + 63;
+    const bool active = (!a.causal || k0 <= w0 + 63) && (W <= 0 || k0 + BN - 1 > w0 - W);
     float s[BN / 2], dp[BN / 2];
     ring.wait_full(it);
     if (active) {
@@ -1144,14 +1221,16 @@ __device__ __forceinline__ int dq_consume(const MstFlashArgs& a, const Ring<NWG,
       fence_regs(s);
       fence_regs(dp);
       // dS = P (dP - delta), P = exp(scale S - lse); on the tiles that cross
-      // key_lens or the diagonal the masked terms are selected away.
-      if (k0 + BN > valid || (a.causal && k0 + BN - 1 > w0)) {
+      // key_lens, the diagonal or the window's edge the masked terms are
+      // selected away.
+      if (k0 + BN > valid || (a.causal && k0 + BN - 1 > w0) ||
+          (W > 0 && k0 <= w0 + 63 - W)) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int r = e >> 1, row = w0 + f.row + 8 * r, col = k0 + 8 * j + f.col + (e & 1);
-            const bool ok = col < valid && (!a.causal || col <= row);
+            const bool ok = col < valid && sees(a, W, row, col);
             const float p = ex2(fmaf(s[4 * j + e], scale2, -lse2[r]));
             s[4 * j + e] = ok ? p * (dp[4 * j + e] - delta[r]) : 0.f;
           }
@@ -1239,13 +1318,16 @@ template <int HD, int BN, int NP = 1> struct DkvStage {
 // dO^T, rows keys, columns queries.
 
 // The first query of the walk and its tiles: keys at or past key_lens get
-// nothing; causal queries before k0 see none of the item's keys.
-template <int BN>
+// nothing; causal queries before k0 see none of the item's keys, and with a
+// window those from its last key below key_lens + W on none either.
+template <int BN, int BK, int NP>
 __device__ __forceinline__ int dkdv_tiles(const MstFlashArgs& a, int b, int k0, int& valid,
                                           int& qbegin) {
   valid = min(max(a.key_lens[b], 0), a.T);
   qbegin = k0 < valid ? (a.causal ? (k0 / BN) * BN : 0) : a.T;
-  return (a.T - qbegin + BN - 1) / BN;
+  const int W = window_of<NP>(a);
+  const int qend = W > 0 ? min(a.T, min(k0 + BK, valid) - 1 + W) : a.T;
+  return qend > qbegin ? (qend - qbegin + BN - 1) / BN : 0;
 }
 
 template <int HD, int BN, int NWG, int NP, int ST>
@@ -1254,7 +1336,8 @@ __device__ __forceinline__ int dkdv_produce(const MstFlashArgs& a, const Ring<NW
   constexpr int PLANE = BN * Cfg<HD>::ROWB, TILE = NP * PLANE, STAGE = DkvStage<HD, BN, NP>::BYTES;
   const int Tn = a.T;
   int valid, qbegin;
-  const int ntiles = dkdv_tiles<BN>(a, b, k0, valid, qbegin);
+  const int ntiles = dkdv_tiles<BN, NWG * 64, NP>(a, b, k0, valid, qbegin);
+  if (threadIdx.x % 128 == 0 && ntiles > 0) add_tile_stats(a, 1, ntiles);
   const bf16* qh = head(static_cast<const bf16*>(a.q), a.sq, b, h);
   const bf16* gh = head(static_cast<const bf16*>(a.dout), a.sdo, b, h);
   const float* lse = a.lse + ((size_t)b * a.H + h) * Tn;
@@ -1282,9 +1365,15 @@ __device__ __forceinline__ int dkdv_produce(const MstFlashArgs& a, const Ring<NW
   return it;
 }
 
+// The walk of one key tile over query head h's tiles, into dk and dv; the
+// K and V rows (A fragments kf, vf, or OWN planes at `own`) loaded by the
+// caller.
 template <int HD, int BN, int NWG, int NP, int ST>
-__device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NWG, ST>& ring,
-                                            uint8_t* smem_raw, int b, int h, int k0, int it) {
+__device__ __forceinline__ int dkdv_walk(const MstFlashArgs& a, const Ring<NWG, ST>& ring,
+                                         uint8_t* smem_raw, int b, int k0, int it,
+                                         const uint32_t (&kf)[1][HD / 16][4],
+                                         const uint32_t (&vf)[1][HD / 16][4], uint32_t own,
+                                         float (&dk)[HD / 2], float (&dv)[HD / 2]) {
   constexpr bool OWN = kDkvOwn<HD, NP>;
   constexpr int OWN_BYTES = kOwnBytes<HD, NP, OWN>;
   static_assert(!OWN || BN == 64, "the SS products are m64n64");
@@ -1293,27 +1382,10 @@ __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NW
                 "the causal walk starts at the item's first key");
   const int Tn = a.T;
   int valid, qbegin;
-  const int ntiles = dkdv_tiles<BN>(a, b, k0, valid, qbegin);
-  const int w0 = k0 + (threadIdx.x / 128) * 64;
+  const int ntiles = dkdv_tiles<BN, NWG * 64, NP>(a, b, k0, valid, qbegin);
+  const int w0 = k0 + (threadIdx.x / 128) * 64, W = window_of<NP>(a);
   const Frag f;
   const uint8_t* const stage_ptr = smem_ptr(smem_raw, ring.stages());
-  // K and V: A fragments, or (OWN) planes in this warpgroup's part of
-  // shared memory.
-  uint32_t kf[1][HD / 16][4], vf[1][HD / 16][4];
-  const uint32_t own = ring.stages() + ST * STAGE + (threadIdx.x / 128) * OWN_BYTES;
-  if constexpr (!OWN) {
-    load_frags<HD>(kf[0], head(static_cast<const bf16*>(a.k), a.sk, b, h), a.sk[2], w0, Tn, f);
-    load_frags<HD>(vf[0], head(static_cast<const bf16*>(a.v), a.sv, b, h), a.sv[2], w0, Tn, f);
-  } else {
-    load_own_rows<HD, NP>(own, head(static_cast<const bf16*>(a.k), a.sk, b, h), a.sk[2],
-                          plane_of(a), w0, Tn);
-    load_own_rows<HD, NP>(own + OWN_BYTES / 2, head(static_cast<const bf16*>(a.v), a.sv, b, h),
-                          a.sv[2], plane_of(a), w0, Tn);
-    own_rows_landed();
-  }
-  float dk[HD / 2], dv[HD / 2];
-#pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
   // float32: the Q tiles hold the pieces of q * sm_scale, so S^T and dK
   // come out scaled.
   const float scale2 = (NP == 1 ? a.bwd_scale : 1.f) * kLog2e;
@@ -1321,7 +1393,8 @@ __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NW
   for (int t = 0; t < ntiles; ++t, ++it) {
     const int i0 = qbegin + t * BN;
     const uint32_t qs = ring.stages() + (it % ST) * STAGE, gs = qs + TILE;
-    const bool active = !a.causal || i0 + BN - 1 >= w0;  // else every query is before the keys
+    // else every query is before the keys, or past every key's window
+    const bool active = (!a.causal || i0 + BN - 1 >= w0) && (W <= 0 || i0 < w0 + 63 + W);
     float s[BN / 2], dp[BN / 2];
     ring.wait_full(it);
     if (active) {
@@ -1341,9 +1414,10 @@ __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NW
       fence_regs(s);
       fence_regs(dp);
       // P^T = exp(scale S^T - lse) and dS^T = P^T (dP^T - delta), lse and
-      // delta by column; on the tiles that cross key_lens, T or the diagonal
-      // the masked terms are selected away.
-      if (w0 + 64 > valid || i0 + BN > Tn || (a.causal && i0 < w0 + 63)) {
+      // delta by column; on the tiles that cross key_lens, T, the diagonal or
+      // the window's edge the masked terms are selected away.
+      if (w0 + 64 > valid || i0 + BN > Tn || (a.causal && i0 < w0 + 63) ||
+          (W > 0 && i0 + BN - 1 >= w0 + W)) {
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const float2 lj = *reinterpret_cast<const float2*>(lses + 8 * j + f.col);
@@ -1352,7 +1426,7 @@ __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NW
           for (int e = 0; e < 4; ++e) {
             const int key = w0 + f.row + 8 * (e >> 1), qi = i0 + 8 * j + f.col + (e & 1);
             const float le = (e & 1) ? lj.y : lj.x, de = (e & 1) ? dj.y : dj.x;
-            const bool ok = key < valid && qi < Tn && le > kSentinel && (!a.causal || key <= qi);
+            const bool ok = key < valid && qi < Tn && le > kSentinel && sees(a, W, qi, key);
             const float p = ok ? ex2(fmaf(s[4 * j + e], scale2, -le * kLog2e)) : 0.f;
             s[4 * j + e] = p;
             dp[4 * j + e] = ok ? p * (dp[4 * j + e] - de) : 0.f;
@@ -1406,31 +1480,74 @@ __device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NW
     }
     ring.release(it);
   }
+  return it;
+}
+
+// dK and dV of the key tile from k0 of K/V head hk: the walks of its group's
+// query heads, one after the other.
+template <int HD, int BN, int NWG, int NP, int ST>
+__device__ __forceinline__ int dkdv_consume(const MstFlashArgs& a, const Ring<NWG, ST>& ring,
+                                            uint8_t* smem_raw, int b, int hk, int k0, int it) {
+  constexpr bool OWN = kDkvOwn<HD, NP>;
+  constexpr int OWN_BYTES = kOwnBytes<HD, NP, OWN>, STAGE = DkvStage<HD, BN, NP>::BYTES;
+  const int Tn = a.T, w0 = k0 + (threadIdx.x / 128) * 64;
+  const Frag f;
+  // K and V: A fragments, or (OWN) planes in this warpgroup's part of
+  // shared memory.
+  uint32_t kf[1][HD / 16][4], vf[1][HD / 16][4];
+  const uint32_t own = ring.stages() + ST * STAGE + (threadIdx.x / 128) * OWN_BYTES;
+  if constexpr (!OWN) {
+    load_frags<HD>(kf[0], head(static_cast<const bf16*>(a.k), a.sk, b, hk), a.sk[2], w0, Tn, f);
+    load_frags<HD>(vf[0], head(static_cast<const bf16*>(a.v), a.sv, b, hk), a.sv[2], w0, Tn, f);
+  } else {
+    load_own_rows<HD, NP>(own, head(static_cast<const bf16*>(a.k), a.sk, b, hk), a.sk[2],
+                          plane_of(a), w0, Tn);
+    load_own_rows<HD, NP>(own + OWN_BYTES / 2, head(static_cast<const bf16*>(a.v), a.sv, b, hk),
+                          a.sv[2], plane_of(a), w0, Tn);
+    own_rows_landed();
+  }
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  const int G = group_of<NP>(a);
+  for (int g = 0; g < G; ++g)
+    it = dkdv_walk<HD, BN, NWG, NP, ST>(a, ring, smem_raw, b, k0, it, kf, vf, own, dk, dv);
   if constexpr (NP == 1) {
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) dk[i] *= a.bwd_scale;
   }
-  store_rows<HD>(head(static_cast<OutT<NP>*>(a.dk), a.sdk, b, h), a.sdk[2], w0, Tn, f, dk);
-  store_rows<HD>(head(static_cast<OutT<NP>*>(a.dv), a.sdv, b, h), a.sdv[2], w0, Tn, f, dv);
+  store_rows<HD>(head(static_cast<OutT<NP>*>(a.dk), a.sdk, b, hk), a.sdk[2], w0, Tn, f, dk);
+  store_rows<HD>(head(static_cast<OutT<NP>*>(a.dv), a.sdv, b, hk), a.sdv[2], w0, Tn, f, dv);
   return it;
 }
 
-// grid (ceil(T / (64 NWG)), H, B), one item a block; operands of NP pieces.
+// The producer of dkdv_consume's walks: the query tiles of each head of K/V
+// head hk's group.
+template <int HD, int BN, int NWG, int NP, int ST>
+__device__ __forceinline__ int dkdv_produce_group(const MstFlashArgs& a, const Ring<NWG, ST>& ring,
+                                                  int b, int hk, int k0, int it) {
+  const int G = group_of<NP>(a);
+  for (int g = 0; g < G; ++g) it = dkdv_produce<HD, BN, NWG, NP, ST>(a, ring, b, hk * G + g, k0, it);
+  return it;
+}
+
+// grid (ceil(T / (64 NWG)), H / group, B), one item (a key tile of a K/V
+// head) a block; operands of NP pieces.
 template <int HD, int BN, int NWG, int NP>
 __global__ void __launch_bounds__(NWG * 128 + 128, 1)
     flash_bwd_dkdv_kernel_tc(const MstFlashArgs a) {
   constexpr int ST = kStagesOf<HD, NP>;
   extern __shared__ uint8_t smem_raw[];
   const Ring<NWG, ST> ring(smem_raw);
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * NWG * 64;
+  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * NWG * 64;
   ring.init();
   if (threadIdx.x >= NWG * 128) {  // the producer warpgroup
     regs_give_back<kProducerRegs>();
-    dkdv_produce<HD, BN, NWG, NP, ST>(a, ring, b, h, k0, 0);
+    dkdv_produce_group<HD, BN, NWG, NP, ST>(a, ring, b, hk, k0, 0);
     return;
   }
   regs_take<kConsumerRegs<NWG>>();
-  dkdv_consume<HD, BN, NWG, NP, ST>(a, ring, smem_raw, b, h, k0, 0);
+  dkdv_consume<HD, BN, NWG, NP, ST>(a, ring, smem_raw, b, hk, k0, 0);
 }
 
 // K3's dK/dV kernel: the same items, a block looping over them in the
@@ -1496,14 +1613,15 @@ template <int NWG, typename K> int resident_blocks(K kernel, int smem) {
 }
 
 // Launch `kernel` with NWG consumer warpgroups: K4/K5's grid of one block an
-// item, or with `blocks` > 0 the core's grid of that many blocks, at most
-// one an item.
+// item (over `heads` heads, 0 meaning a.H), or with `blocks` > 0 the core's
+// grid of that many blocks, at most one an item.
 template <int NWG, typename K>
-cudaError_t launch(K kernel, int smem, const MstFlashArgs& a, int blocks, cudaStream_t stream) {
+cudaError_t launch(K kernel, int smem, const MstFlashArgs& a, int blocks, cudaStream_t stream,
+                   int heads = 0) {
   constexpr int threads = NWG * 128 + 128;
   const int nx = (a.T + 64 * NWG - 1) / (64 * NWG);
   if (blocks == 0) {
-    kernel<<<dim3(nx, a.H, a.B), threads, smem, stream>>>(a);
+    kernel<<<dim3(nx, heads > 0 ? heads : a.H, a.B), threads, smem, stream>>>(a);
     return cudaGetLastError();
   }
   const long long items = (long long)a.B * a.H * nx;
@@ -1557,7 +1675,7 @@ template <int HD, int NP> cudaError_t launch_backward(const MstFlashArgs& a, cud
   auto kernel = flash_bwd_dkdv_kernel_tc<HD, BN, NWG, NP>;
   static const cudaError_t allowed = allow_smem(kernel, smem);
   if (allowed != cudaSuccess) return allowed;
-  return launch<NWG>(kernel, smem, ap, 0, stream);
+  return launch<NWG>(kernel, smem, ap, 0, stream, a.H / (a.group > 1 ? a.group : 1));
 }
 
 // The core's kernels: as many blocks as the card holds at once (counted on
@@ -1609,12 +1727,14 @@ template <int NP> cudaError_t run_hd(const MstFlashArgs& a, bool backward, cudaS
 }
 
 cudaError_t run(const MstFlashArgs* a, bool backward, void* stream) {
-  if (a->B < 1 || a->T < 1 || a->H < 1 || a->H > 65535 || a->B > 65535)
+  if (a->B < 1 || a->T < 1 || a->H < 1 || a->H > 65535 || a->B > 65535 || a->window < 0 ||
+      (a->window > 0 && !a->causal) || (a->group > 1 && a->H % a->group != 0))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a->is_bf16) return run_hd<1>(*a, backward, s);
-  // float32: the pieces of q, k, v (and dout) must be there
-  if (a->q3 == nullptr || a->k3 == nullptr || a->v3 == nullptr ||
+  // float32: the pieces of q, k, v (and dout) must be there, at the query
+  // heads, without a window
+  if (a->group > 1 || a->window > 0 || a->q3 == nullptr || a->k3 == nullptr || a->v3 == nullptr ||
       (backward && a->dout3 == nullptr))
     return cudaErrorInvalidValue;
   return run_hd<3>(*a, backward, s);
@@ -1696,6 +1816,7 @@ MstFlashArgs flash_view(const MstCoreArgs& c) {
   a.is_bf16 = c.is_bf16;
   a.fwd_scale = c.fwd_scale;
   a.bwd_scale = c.bwd_scale;
+  a.group = 1;
   return a;
 }
 

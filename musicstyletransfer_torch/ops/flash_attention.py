@@ -33,6 +33,19 @@ anything else and never falls back. ``launches`` counts every launch of a
 wrapper, ``tc_launches`` those of the tensor-core kernels, and
 ``split_bf16x3.launches`` those of the split.
 
+Two arguments beyond the JAX package's, for the decoders of today's open
+models, on the bf16 tensor-core route only: K/V heads fewer than the query
+heads (grouped-query attention: k and v [B, H_kv, T, D], H a multiple of
+H_kv, query head h reads K/V head h // (H / H_kv); dK and dV are summed
+over each group, [B, H_kv, T, D]), and ``window`` W > 0 with ``causal``
+(query i sees keys i - W < j <= i; key tiles wholly outside the window are
+skipped, not masked). With H_kv = H and W = 0 the kernels compute what they
+did without them. ``windowed_launches`` and ``grouped_launches`` count the
+launches that take each; ``tile_stats`` (a device int64 [2], None unless a
+caller sets it: ``track_tiles``) gathers from every launch the key (K4, dQ)
+and query (dK/dV) tiles the blocks loaded, which ``walked_tiles`` counts by
+the walks' rule (the tests hold one to the other).
+
 The layout is the JAX package's: q, k, v [B, H, T, D], ``key_lens`` [B]
 prefix key counts (int32), out [B, H, T, D] in the input dtype and lse
 [B, H, T] in float32. A query sees the keys k < key_lens[b], and under
@@ -53,7 +66,11 @@ dv = p^T dO. The tensor-core backward keeps float32 sums, softmax and scale
 but feeds bf16 operands to its products: S from the raw q, scaled
 afterwards; P (for dv) and ds (for dq, dk) rounded to bf16; dk scaled at the
 end. For float32 inputs the tensor-core kernels keep the rounding points
-above: their operands are exact in three pieces.
+above: their operands are exact in three pieces. Through ``flash_attention``
+bf16 K4 on the tensor cores also writes out's float32 residual (``out_lo``,
+bf16) and K5 takes delta from out + out_lo: delta from the bf16 out alone
+put ~3% of error into dq on rows of 2047 keys (PERF.md); the plain
+versions keep the JAX package's delta from out.
 """
 
 from __future__ import annotations
@@ -78,17 +95,34 @@ TC_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128), torch.float32: (32, 64)}
 # The plain PyTorch versions
 
 
+def flash_mask(key_lens: torch.Tensor, T: int, causal: bool, window: int = 0) -> torch.Tensor:
+    """[B, 1, Tq, Tk] True where query q sees key k: k < key_lens, causal
+    k <= q, and with a window W > 0 also k > q - W."""
+    mask = _mask(key_lens, T, causal)
+    if window > 0:
+        pos = torch.arange(T, device=key_lens.device)
+        mask = mask & (pos[None, None, None, :] > pos[None, None, :, None] - window)
+    return mask
+
+
+def expand_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """K/V [B, H_kv, T, D] repeated to ``heads`` query heads (head h is K/V
+    head h // (heads / H_kv))."""
+    return x if x.shape[1] == heads else x.repeat_interleave(heads // x.shape[1], dim=1)
+
+
 def flash_forward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             key_lens: torch.Tensor, causal: bool,
-                            sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                            sm_scale: float, window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4's function, whole [T, T] score tile at once: (out [B, H, T, D] in
-    the input dtype, lse [B, H, T] float32)."""
+    the input dtype, lse [B, H, T] float32); k and v may hold fewer heads."""
     if q.is_cuda:
         flash_forward_reference.cuda_runs += 1
-    T = q.shape[2]
+    T, H = q.shape[2], q.shape[1]
+    k, v = expand_kv(k, H), expand_kv(v, H)
     qs = q * torch.tensor(sm_scale, dtype=q.dtype)  # rounded in the input dtype
     s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
-    mask = _mask(key_lens, T, causal)
+    mask = flash_mask(key_lens, T, causal, window)
     s = torch.where(mask, s, _NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -113,17 +147,19 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_backward_reference(q, k, v, key_lens, lse, out, g, causal: bool, sm_scale: float,
-                             g_lse: Optional[torch.Tensor] = None
+                             g_lse: Optional[torch.Tensor] = None, window: int = 0
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5's function: (dq, dk, dv) in the input dtype, P recomputed from
-    lse, all in float32; ``g_lse`` (the lse cotangent) folds into delta."""
+    lse, all in float32; ``g_lse`` (the lse cotangent) folds into delta;
+    dk and dv summed over each K/V head's group of query heads."""
     if q.is_cuda:
         flash_backward_reference.cuda_runs += 1
-    T = q.shape[2]
+    B, H, T, D = q.shape
+    Hkv = k.shape[1]
     qs = q.float() * sm_scale  # pre-scaled: dk needs no further scale
-    kf, vf, do = k.float(), v.float(), g.float()
+    kf, vf, do = expand_kv(k, H).float(), expand_kv(v, H).float(), g.float()
     s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
-    mask = _mask(key_lens, T, causal) & (lse[..., None] > _SENTINEL)
+    mask = flash_mask(key_lens, T, causal, window) & (lse[..., None] > _SENTINEL)
     p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
     delta = (do * out.float()).sum(-1)
     if g_lse is not None:
@@ -131,8 +167,8 @@ def flash_backward_reference(q, k, v, key_lens, lse, out, g, causal: bool, sm_sc
     dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
     ds = torch.where(mask, p * (dp - delta[..., None]), 0.0)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * sm_scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs).reshape(B, Hkv, H // Hkv, T, D).sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do).reshape(B, Hkv, H // Hkv, T, D).sum(2)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -178,7 +214,8 @@ class _Args(ctypes.Structure):
         ("HD", ctypes.c_int), ("causal", ctypes.c_int), ("is_bf16", ctypes.c_int),
         ("fwd_scale", ctypes.c_float), ("bwd_scale", ctypes.c_float),
         ("q3", ctypes.c_void_p), ("k3", ctypes.c_void_p), ("v3", ctypes.c_void_p),
-        ("dout3", ctypes.c_void_p),
+        ("dout3", ctypes.c_void_p), ("window", ctypes.c_int), ("group", ctypes.c_int),
+        ("tile_stats", ctypes.c_void_p), ("out_lo", ctypes.c_void_p),
     ]
 
 
@@ -260,17 +297,29 @@ def split_bf16x3(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
 split_bf16x3.launches = 0
 
 
-def _check(q, k, v, key_lens, route: Optional[str] = None) -> Tuple[int, int, int, int, str]:
-    if q.dim() != 4:
-        raise ValueError(f"q must be [B, H, T, D], got {tuple(q.shape)}")
+def _check(q, k, v, key_lens, route: Optional[str] = None, causal: bool = True,
+           window: int = 0) -> Tuple[int, int, int, int, str]:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q and k must be [B, H, T, D], got {tuple(q.shape)}, {tuple(k.shape)}")
     B, H, T, D = q.shape
+    Hkv = k.shape[1]
     if route is None:
         route = kernel_route(q.dtype, D)
     elif route not in ("cuda-core", kernel_route(q.dtype, D)):
         raise ValueError(f"the {route} kernels do not take {q.dtype} at head dimension {D}")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"{H} query heads are not a multiple of {Hkv} K/V heads")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"a window ({window}) needs causal attention")
+    if (Hkv != H or window) and route != "tensor-core":
+        raise ValueError(f"K/V groups and windows are the tensor-core kernels' ({q.dtype} at "
+                         f"head dimension {D} goes to the {route} ones)")
+    if (Hkv != H or window) and q.dtype != torch.bfloat16:
+        raise ValueError("K/V groups and windows are the bf16 kernels' (float32's pieces are "
+                         "laid out at the query heads, and its instances take no window)")
     for name, x in (("k", k), ("v", v)):
-        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
-            raise ValueError(f"{name} must match q: {tuple(q.shape)} {q.dtype} on {q.device}, "
+        if x.shape != (B, Hkv, T, D) or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} must be [{B}, {Hkv}, {T}, {D}] {q.dtype} on {q.device}, "
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(-1) != 1:
@@ -310,16 +359,19 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: torch.Tensor,
-                  causal: bool, sm_scale: float, *, route: Optional[str] = None
+                  causal: bool, sm_scale: float, *, route: Optional[str] = None,
+                  window: int = 0, out_lo: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: (out [B, H, T, D], lse [B, H, T]); one kernel launch (of the
     source ``kernel_route`` names; float32 on the tensor cores first splits
     q, k and v) for CUDA tensors, ``flash_forward_reference`` for CPU ones.
     ``route`` "cuda-core" takes the CUDA-core kernels at any head dimension
-    (to measure them beside the tensor-core ones)."""
+    (to measure them beside the tensor-core ones). ``out_lo`` (bf16 on the
+    tensor cores, shaped and strided as out, ``new_out_lo``) receives what
+    rounding out to bf16 left over, for ``flash_backward``'s delta."""
     if not q.is_cuda:
-        return flash_forward_reference(q, k, v, key_lens, causal, sm_scale)
-    B, H, T, D, route = _check(q, k, v, key_lens, route)
+        return flash_forward_reference(q, k, v, key_lens, causal, sm_scale, window)
+    B, H, T, D, route = _check(q, k, v, key_lens, route, causal, window)
     out = _empty_bthd(B, H, T, D, q)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     fwd_scale, bwd_scale = _scales(q.dtype, sm_scale)
@@ -328,31 +380,99 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: t
                  out=out.data_ptr(), lse=lse.data_ptr(), sq=_strides(q), sk=_strides(k),
                  sv=_strides(v), so=_strides(out), B=B, H=H, T=T, HD=D, causal=int(causal),
                  is_bf16=int(q.dtype == torch.bfloat16), fwd_scale=fwd_scale,
-                 bwd_scale=bwd_scale, q3=_ptr(q3), k3=_ptr(k3), v3=_ptr(v3))
+                 bwd_scale=bwd_scale, q3=_ptr(q3), k3=_ptr(k3), v3=_ptr(v3),
+                 window=window, group=H // k.shape[1], tile_stats=_ptr(tile_stats.buffer),
+                 out_lo=_ptr(out_lo))
     _launch(route, "forward", args, q.device)
-    flash_forward.launches += 1
-    flash_forward.tc_launches += route == "tensor-core"
+    _count(flash_forward, route, window, H != k.shape[1])
     return out, lse
+
+
+def new_out_lo(q: torch.Tensor) -> Optional[torch.Tensor]:
+    """A buffer for K4's residual of out where the kernels keep one: bf16 q
+    on the card at a tensor-core head dimension; None elsewhere."""
+    if not q.is_cuda or q.dtype != torch.bfloat16 or kernel_route(q.dtype, q.shape[-1]) != \
+            "tensor-core":
+        return None
+    B, H, T, D = q.shape
+    return _empty_bthd(B, H, T, D, q)
+
+
+def _count(wrapper, route: str, window: int, grouped: bool) -> None:
+    wrapper.launches += 1
+    wrapper.tc_launches += route == "tensor-core"
+    wrapper.windowed_launches += window > 0
+    wrapper.grouped_launches += grouped
+
+
+class tile_stats:
+    """The tiles the tensor-core flash kernels walk, counted on the device
+    while ``track_tiles`` is on (``buffer``: int64 [2], the key tiles K4 and
+    the dQ kernel loaded, then the dK/dV kernel's query tiles). Launches
+    made meanwhile, captured ones too, add to it at every run; ``read``
+    copies it out."""
+
+    buffer: Optional[torch.Tensor] = None
+
+    @classmethod
+    def track_tiles(cls, device, on: bool = True) -> None:
+        cls.buffer = torch.zeros(2, dtype=torch.int64, device=device) if on else None
+
+    @classmethod
+    def read(cls) -> Optional[list]:
+        return None if cls.buffer is None else cls.buffer.tolist()
+
+
+def walked_tiles(key_lens, T: int, H: int, window: int, head_dim: int) -> Tuple[int, int]:
+    """What ``tile_stats`` should read after one causal K4 and K5 at
+    ``window`` (0: none) over rows of ``key_lens``, by the walks' rule:
+    blocks of 128 rows; K4 (64-key tiles at hd 128, else 128) and the dQ
+    kernel (64) load the key tiles from the one holding the first key the
+    block's first row sees up to the block's last visible key, none where
+    key_lens ends before the first; the dK/dV kernel loads 64-row query
+    tiles from the block's diagonal tile to the last row that sees one of
+    its keys below key_lens."""
+    fwd_bn = 64 if head_dim == 128 else 128
+
+    def keys(q0: int, valid: int, bn: int) -> int:
+        kend = min(valid, T, q0 + 128)
+        first = max(q0 - window + 1, 0) if window else 0
+        return -(-kend // bn) - first // bn if kend > first else 0
+
+    key_tiles = query_tiles = 0
+    for valid in key_lens:
+        valid = max(0, min(int(valid), T))
+        for q0 in range(0, T, 128):
+            key_tiles += H * (keys(q0, valid, fwd_bn) + keys(q0, valid, 64))
+            qbegin = (q0 // 64) * 64 if q0 < valid else T
+            qend = min(T, min(q0 + 128, valid) - 1 + window) if window else T
+            query_tiles += H * max(0, -(-(qend - qbegin) // 64))
+    return key_tiles, query_tiles
 
 
 flash_forward.launches = 0
 flash_forward.tc_launches = 0
+flash_forward.windowed_launches = 0
+flash_forward.grouped_launches = 0
 
 
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: torch.Tensor,
                    lse: torch.Tensor, out: torch.Tensor, g: torch.Tensor, causal: bool,
                    sm_scale: float, g_lse: Optional[torch.Tensor] = None, *,
-                   route: Optional[str] = None
+                   route: Optional[str] = None, window: int = 0,
+                   out_lo: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5: (dq, dk, dv) in q's dtype; one call (three kernels: delta, dQ,
     dK/dV, of the source ``kernel_route`` names; float32 on the tensor cores
     first splits q, k, v and dO) for CUDA tensors,
     ``flash_backward_reference`` for CPU ones. ``route`` as for
-    ``flash_forward``."""
+    ``flash_forward``; ``out_lo``, K4's residual of out, makes delta
+    rowsum(dO * (out + out_lo))."""
     if not q.is_cuda:
         return flash_backward_reference(q, k, v, key_lens, lse, out, g, causal, sm_scale,
-                                        g_lse)
-    B, H, T, D, route = _check(q, k, v, key_lens, route)
+                                        g_lse, window)
+    B, H, T, D, route = _check(q, k, v, key_lens, route, causal, window)
+    Hkv = k.shape[1]
     g = g.to(q.dtype)
     if g.stride(-1) != 1:
         g = g.contiguous()
@@ -367,7 +487,8 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: 
                              f"on {q.device}")
     if route == "tensor-core":
         check_tc_layout(out=out, g=g)
-    dq, dk, dv = (_empty_bthd(B, H, T, D, q) for _ in range(3))
+    dq = _empty_bthd(B, H, T, D, q)
+    dk, dv = (_empty_bthd(B, Hkv, T, D, q) for _ in range(2))
     delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     fwd_scale, bwd_scale = _scales(q.dtype, sm_scale)
     q3, k3, v3, g3 = _pieces(route, bwd_scale, q, k, v, g)
@@ -379,53 +500,64 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: 
                  sdo=_strides(g), sdq=_strides(dq), sdk=_strides(dk), sdv=_strides(dv),
                  B=B, H=H, T=T, HD=D, causal=int(causal),
                  is_bf16=int(q.dtype == torch.bfloat16), fwd_scale=fwd_scale,
-                 bwd_scale=bwd_scale, q3=_ptr(q3), k3=_ptr(k3), v3=_ptr(v3), dout3=_ptr(g3))
+                 bwd_scale=bwd_scale, q3=_ptr(q3), k3=_ptr(k3), v3=_ptr(v3), dout3=_ptr(g3),
+                 window=window, group=H // Hkv, tile_stats=_ptr(tile_stats.buffer),
+                 out_lo=_ptr(out_lo))
     _launch(route, "backward", args, q.device)
-    flash_backward.launches += 1
-    flash_backward.tc_launches += route == "tensor-core"
+    _count(flash_backward, route, window, H != Hkv)
     return dq, dk, dv
 
 
 flash_backward.launches = 0
 flash_backward.tc_launches = 0
+flash_backward.windowed_launches = 0
+flash_backward.grouped_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """K4 forward (residuals: q, k, v, key_lens, lse, out) and K5 backward;
-    an lse cotangent, where lse is used, folds into delta."""
+    """K4 forward (residuals: q, k, v, key_lens, lse, out, and for bf16 on
+    the tensor cores out's residual ``out_lo``) and K5 backward; an lse
+    cotangent, where lse is used, folds into delta."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_lens, causal, sm_scale):
-        out, lse = flash_forward(q, k, v, key_lens, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, key_lens, lse, out)
-        ctx.config = (causal, sm_scale)
+    def forward(ctx, q, k, v, key_lens, causal, sm_scale, window=0):
+        windowed = {"window": window} if window else {}
+        out_lo = new_out_lo(q)
+        extra = windowed if out_lo is None else {**windowed, "out_lo": out_lo}
+        out, lse = flash_forward(q, k, v, key_lens, causal, sm_scale, **extra)
+        ctx.save_for_backward(q, k, v, key_lens, lse, out, out_lo)
+        ctx.config = (causal, sm_scale, windowed)
         ctx.set_materialize_grads(False)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        q, k, v, key_lens, lse, out = ctx.saved_tensors
-        causal, sm_scale = ctx.config
+        q, k, v, key_lens, lse, out, out_lo = ctx.saved_tensors
+        causal, sm_scale, extra = ctx.config
         if g_out is None:
             g_out = torch.zeros_like(out)
+        if out_lo is not None:
+            extra = {**extra, "out_lo": out_lo}
         dq, dk, dv = flash_backward(q, k, v, key_lens, lse, out, g_out, causal, sm_scale,
-                                    None if g_lse is None else g_lse.contiguous())
-        return dq, dk, dv, None, None, None
+                                    None if g_lse is None else g_lse.contiguous(), **extra)
+        return dq, dk, dv, None, None, None, None
 
 
-def _apply(q, k, v, key_lens, causal, sm_scale):
+def _apply(q, k, v, key_lens, causal, sm_scale, window=0):
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     return FlashAttention.apply(q, k, v, key_lens.to(torch.int32).contiguous(), causal,
-                                float(sm_scale))
+                                float(sm_scale), int(window))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: torch.Tensor,
-                    causal: bool = False, sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over q, k, v [B, H, T, D] with prefix ``key_lens`` [B]:
-    out [B, H, T, D], differentiable in q, k and v. ``sm_scale`` defaults
-    to 1/sqrt(D)."""
-    return _apply(q, k, v, key_lens, causal, sm_scale)[0]
+                    causal: bool = False, sm_scale: Optional[float] = None,
+                    window: int = 0) -> torch.Tensor:
+    """Attention over q [B, H, T, D] and k, v [B, H_kv, T, D] (H a multiple
+    of H_kv) with prefix ``key_lens`` [B], under ``causal`` within a left
+    ``window`` (0: none): out [B, H, T, D], differentiable in q, k and v.
+    ``sm_scale`` defaults to 1/sqrt(D)."""
+    return _apply(q, k, v, key_lens, causal, sm_scale, window)[0]
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -29,7 +29,10 @@ The spans the port records:
   ``graph.copy_in``, ``graph.capture`` (a key's first use), ``graph.replay``,
   ``graph.after``;
 - the prefetching feed: ``prefetch.stage`` a batch on the producer thread,
-  ``prefetch.wait`` a batch on the consumer.
+  ``prefetch.wait`` a batch on the consumer;
+- the experts (``models/moe.py``): ``moe.route``, ``moe.permute``,
+  ``moe.experts``, ``moe.combine``, a layer each (in an eager step, or
+  once as a graph captures its step: a replay runs no host code).
 """
 
 from __future__ import annotations

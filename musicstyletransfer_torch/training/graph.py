@@ -8,8 +8,8 @@ issues one launch for the group instead of hundreds a step. A replay does
 what the same eager steps from the same state do:
 
 - the parameters, the optimizers' state and every other tensor the steps
-  update (the metric sums, the step count) are updated in place, and the
-  graph reads and writes them where they are;
+  update (the metric sums, the step count, the experts' load counters) are
+  updated in place, and the graph reads and writes them where they are;
 - dropout, the reparameterisation and the GAN's noise draw from one CUDA
   ``torch.Generator``, registered with every graph
   (``CUDAGraph.register_generator_state``): each replay draws the next
@@ -37,6 +37,7 @@ from typing import Callable, Dict, Hashable, List, Sequence, Tuple
 import torch
 
 from .. import tracing
+from ..models.moe import load_counters
 from ..ops import counters
 from .train_step import LossConfig, TrainState, step_body
 
@@ -69,7 +70,9 @@ class GraphedGroups:
 
     def _capture(self, key: Hashable) -> Tuple[torch.cuda.CUDAGraph, Dict[str, int]]:
         torch.cuda.synchronize()
-        saved = [t.clone() for t in self.tensors()]
+        # on the host: a model of billions of parameters has no room for a
+        # second copy of its state beside the warm-up steps' activations
+        saved = [t.to("cpu", copy=True) for t in self.tensors()]
         rng = self.generator.get_state()
         before = counters.read()
         side = torch.cuda.Stream()
@@ -81,6 +84,7 @@ class GraphedGroups:
         with torch.no_grad():
             for t, v in zip(self.tensors(), saved):
                 t.copy_(v)
+        del saved
         self.generator.set_state(rng)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
@@ -137,7 +141,7 @@ class GraphedSteps(GraphedGroups):
 
         def tensors() -> List[torch.Tensor]:
             return [optimizer.flat, *optimizer.state.values(), state.step, state.sums,
-                    state.counts]
+                    state.counts, *load_counters(model)]
 
         super().__init__(body, tensors, [optimizer], generator, max_steps, warmup_key=1)
 

@@ -54,6 +54,9 @@ import torch
 OPTIMIZERS = ("adam", "adamw", "sgd", "rmsprop")
 
 
+UPDATE_PIECE = 1 << 27  # elements of the flat buffers one pass of the update takes
+
+
 @dataclasses.dataclass
 class OptimizerConfig:
     optimizer: str = "adam"
@@ -224,46 +227,58 @@ class Optimizer:
                 total = torch.where(emit, total, st["total_notfinite"])
             st["notfinite_count"].copy_(notfinite)
             st["total_notfinite"].copy_(total)
-        u = grad
+        norm = None
+        if self.max_norm is not None:
+            u = grad if self.clip is None else grad.clamp(-self.clip, self.clip)
+            norm = torch.sqrt(self.sq_sum(u))
+            del u
+        count = st["count"]
+        count_inc = (count + 1).float()
+        rate = -self.learning_rate(count.float())
+        keep = apply if emit is None else (emit if apply is None else apply & emit)
+        # the elementwise chain a piece of the flat buffers at a time: its
+        # temporaries stay a piece's size whatever the model's
+        for lo in range(0, self.flat.numel(), UPDATE_PIECE):
+            self._update_piece(slice(lo, lo + UPDATE_PIECE), grad, norm, count_inc, rate, apply,
+                               emit, keep)
+        count.add_(1 if keep is None else keep.long())
+
+    def _update_piece(self, at: slice, grad, norm, count_inc, rate, apply, emit, keep) -> None:
+        st, flat = self.state, self.flat[at]
+        u = grad[at]
         if self.clip is not None:
             u = u.clamp(-self.clip, self.clip)
-        if self.max_norm is not None:
-            norm = torch.sqrt(self.sq_sum(u))
+        if norm is not None:
             u = torch.where(norm < self.max_norm, u, u / norm * self.max_norm)
         if self.wd:
-            u = u + self.wd * self.flat
-        count = st["count"]
+            u = u + self.wd * flat
         moments = {}
         if self.name in ("adam", "adamw"):
-            count_inc = (count + 1).float()
-            moments["mu"] = mu = (1.0 - self.b1) * u + self.b1 * st["mu"]
-            moments["nu"] = nu = (1.0 - self.b2) * (u * u) + self.b2 * st["nu"]
+            moments["mu"] = mu = (1.0 - self.b1) * u + self.b1 * st["mu"][at]
+            moments["nu"] = nu = (1.0 - self.b2) * (u * u) + self.b2 * st["nu"][at]
             mu_hat = mu / (1.0 - self.b1 ** count_inc)
             nu_hat = nu / (1.0 - self.b2 ** count_inc)
             step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
             if self.adamw_wd:
-                step = step + self.adamw_wd * self.flat
+                step = step + self.adamw_wd * flat
         elif self.name == "rmsprop":
-            moments["nu"] = nu = (1.0 - self.gamma1) * (u * u) + self.gamma1 * st["nu"]
+            moments["nu"] = nu = (1.0 - self.gamma1) * (u * u) + self.gamma1 * st["nu"][at]
             step = torch.rsqrt(nu + self.eps) * u
         else:
-            moments["trace"] = step = u + self.momentum * st["trace"]
-        update = -self.learning_rate(count.float()) * step
-        keep = apply if emit is None else (emit if apply is None else apply & emit)
+            moments["trace"] = step = u + self.momentum * st["trace"][at]
+        update = rate * step
         if keep is None:
             for k, v in moments.items():
-                st[k].copy_(v)
-            count.add_(1)
-            self.flat.add_(update)
+                st[k][at].copy_(v)
+            flat.add_(update)
             return
         for k, v in moments.items():
-            st[k].copy_(torch.where(keep, v, st[k]))
-        count.add_(keep.long())
+            st[k][at].copy_(torch.where(keep, v, st[k][at]))
         if apply is not None:
             update = torch.where(apply, update, 0.0)
         if emit is not None:
             update = emit.float() * update  # NaN stays NaN off the emit, as in optax
-        self.flat.add_(update)
+        flat.add_(update)
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         return dict(self.state)

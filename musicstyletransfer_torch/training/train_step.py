@@ -141,6 +141,8 @@ def step_body(model: StyleVAE, optimizer: Optimizer, loss_config: LossConfig,
         p.grad = None
     total.backward()
     grad = optimizer.flat_grad()
+    for p in optimizer.params:  # the flat copy holds them now
+        p.grad = None
     optimizer.reduce_gradients(grad)
     optimizer.step(grad)
     with torch.no_grad():

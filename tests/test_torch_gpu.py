@@ -1078,3 +1078,185 @@ def test_k1_span_holds_the_launch_of_its_kernel(cuda):
     for e in launches:
         where = (e.name(), e.start_ns() - k1.start_ns, k1.end_ns - e.start_ns() - e.duration_ns())
         assert k1.start_ns <= e.start_ns() <= e.start_ns() + e.duration_ns() <= k1.end_ns, where
+
+
+def gqa_inputs(device, B, H, Hkv, T, hd, lens, seed):
+    """bf16 q [B, H, T, hd] and k, v [B, Hkv, T, hd] as views of [B, T, heads,
+    hd] tensors (the model's layout), dO like q, int32 key lengths."""
+    rng = np.random.default_rng(seed)
+
+    def bthd(heads, scale=1.0):
+        x = rng.normal(size=(B, T, heads, hd)) * scale
+        return torch.as_tensor(x, dtype=torch.bfloat16, device=device).transpose(1, 2)
+
+    return (bthd(H), bthd(Hkv), bthd(Hkv), bthd(H, 0.1),
+            torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,H,Hkv,T,W", [
+    (128, 8, 2, 300, 64), (128, 32, 4, 2048, 1024), (128, 4, 1, 130, 0),
+    (64, 8, 2, 700, 100), (64, 4, 4, 300, 37)])
+def test_windowed_grouped_flash_kernels_match_plain_versions(cuda, hd, H, Hkv, T, W):
+    """K4/K5 on the tensor cores with grouped K/V heads and a left window
+    (causal), rows of key length T, 300, 1 and 0: against the plain
+    versions at the bf16 tolerances above (dK and dV summed over each
+    group), the windowed and grouped counters, and the kernels' own tile
+    counts against ``walked_tiles``, which counts the tiles that hold a
+    visible pair (test_torch_mellum2): none wholly outside the window is
+    loaded."""
+    lens = [T, min(300, T), 1, 0]
+    q, k, v, g, L = gqa_inputs(cuda, 4, H, Hkv, T, hd, lens, seed=T + hd + W)
+    scale = hd ** -0.5
+    counts = (fa.flash_forward.windowed_launches, fa.flash_forward.grouped_launches,
+              fa.flash_backward.windowed_launches, fa.flash_backward.grouped_launches,
+              fa.flash_forward.tc_launches, fa.flash_backward.tc_launches)
+    fa.tile_stats.track_tiles(cuda)
+    try:
+        out, lse = fa.flash_forward(q, k, v, L, True, scale, window=W)
+        grads = fa.flash_backward(q, k, v, L, lse, out, g, True, scale, window=W)
+        torch.cuda.synchronize()
+        tiles = fa.tile_stats.read()
+    finally:
+        fa.tile_stats.track_tiles(cuda, on=False)
+    pout, plse = fa.flash_forward_reference(q, k, v, L, True, scale, W)
+    pgrads = fa.flash_backward_reference(q, k, v, L, lse, out, g, True, scale, None, W)
+    assert (fa.flash_forward.windowed_launches, fa.flash_forward.grouped_launches,
+            fa.flash_backward.windowed_launches, fa.flash_backward.grouped_launches,
+            fa.flash_forward.tc_launches, fa.flash_backward.tc_launches) == (
+        counts[0] + (W > 0), counts[1] + (H != Hkv), counts[2] + (W > 0),
+        counts[3] + (H != Hkv), counts[4] + 1, counts[5] + 1)
+    assert float((out.float() - pout.float()).abs().max()) <= 3e-2
+    valid = plse > -1e29
+    assert torch.equal(lse > -1e29, valid)
+    assert float((lse - plse)[valid].abs().max()) <= 1e-3
+    assert bool((out[L == 0] == 0).all())
+    for d, pd in zip(grads, pgrads):
+        assert d.shape == pd.shape
+        assert float((d.float() - pd.float()).abs().max()) <= 2e-2 * float(pd.float().abs().max())
+    assert tiles == list(fa.walked_tiles(lens, T, H, W, hd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,causal", [(64, False), (32, True), (128, True)])
+def test_bf16_k5_on_ragged_long_rows(cuda, hd, causal):
+    """bf16 K5 at T = 2047 (2048 causal) on rows of key length T, 300, 1
+    and 0, q, k and v with a mean per head as activations have, against the
+    float32 plain version of the same bf16 inputs (its own float32 forward's
+    out and lse). With K4's residual of out (``out_lo``, as the autograd
+    path keeps it) every gradient of a row of 300 or more keys is within 1%
+    of the row's norm; a row of one key, whose true dq and dk are round-off,
+    within 1% of the longest row's. Delta from the bf16 out alone (no
+    ``out_lo``) misses by more on the longest row's dq: the fault this
+    pins."""
+    T = 2048 if causal else 2047
+    lens = [T, 300, 1, 0]
+    rng = np.random.default_rng(hd)
+
+    def bthd(scale=1.0, mean=0.0):
+        x = rng.normal(size=(4, T, 8, hd)) + mean * rng.normal(size=(1, 1, 8, hd))
+        return torch.as_tensor(x * scale, dtype=torch.bfloat16, device=cuda).transpose(1, 2)
+
+    q, k, v, g = bthd(mean=1.0), bthd(mean=1.0), bthd(mean=1.0), bthd(0.01)
+    L = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    scale = hd ** -0.5
+    out_lo = fa.new_out_lo(q)
+    out, lse = fa.flash_forward(q, k, v, L, causal, scale, out_lo=out_lo)
+    grads = fa.flash_backward(q, k, v, L, lse, out, g, causal, scale, out_lo=out_lo)
+    old = fa.flash_backward(q, k, v, L, lse, out, g, causal, scale)
+    f32 = [x.float() for x in (q, k, v, g)]
+    o32, l32 = fa.flash_forward_reference(*f32[:3], L, causal, scale)
+    truth = fa.flash_backward_reference(*f32[:3], L, l32, o32, f32[3], causal, scale)
+    errs = {}
+    for name, d, t, o in zip(("dq", "dk", "dv"), grads, truth, old):
+        for b in range(3):
+            ref = t[b if lens[b] > 1 or name == "dv" else 0].norm()
+            errs[name, b] = (float((d[b].float() - t[b]).norm() / ref),
+                             float((o[b].float() - t[b]).norm() / ref),
+                             float(d[b].float().norm()), float(t[b].norm()))
+        assert bool((d[3] == 0).all())
+    assert all(e[0] < 1e-2 for e in errs.values()), errs
+    old_dq = float((old[0][0].float() - truth[0][0]).norm() / truth[0][0].norm())
+    assert old_dq > 1e-2, old_dq
+
+
+@pytest.mark.gpu
+def test_grouped_expert_products_match_a_loop(cuda):
+    """``models.moe.GroupedMM`` (``torch._grouped_mm`` on the card) in bf16,
+    forward and both gradients, against a float32 loop over the experts,
+    with experts that get no rows: within bf16's rounding (2e-2 of each
+    result's largest magnitude)."""
+    from musicstyletransfer_torch.models.moe import GroupedMM
+
+    rng = np.random.default_rng(3)
+    E, K, N = 8, 256, 192
+    sizes = [0, 37, 200, 0, 64, 1, 130, 80]
+    offs = torch.tensor(np.cumsum(sizes), dtype=torch.int32, device=cuda)
+    a = torch.as_tensor(rng.normal(size=(sum(sizes), K)), dtype=torch.bfloat16, device=cuda)
+    b = torch.as_tensor(rng.normal(size=(E, K, N)) * K ** -0.5, dtype=torch.bfloat16,
+                        device=cuda)
+    dy = torch.as_tensor(rng.normal(size=(sum(sizes), N)), dtype=torch.bfloat16, device=cuda)
+    a.requires_grad_(), b.requires_grad_()
+    y = GroupedMM.apply(a, b, offs)
+    da, db = torch.autograd.grad(y, (a, b), dy)
+    ys, das, dbs = [], [], torch.zeros(E, K, N, device=cuda)
+    start = 0
+    for e, n in enumerate(sizes):
+        rows = slice(start, start + n)
+        ys.append(a[rows].float() @ b[e].float())
+        das.append(dy[rows].float() @ b[e].float().t())
+        dbs[e] = a[rows].float().t() @ dy[rows].float()
+        start += n
+    for got, want in ((y, torch.cat(ys)), (da, torch.cat(das)), (db, dbs)):
+        assert got.shape == want.shape
+        assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+def modern_recipe(device, lr=1e-3):
+    """A tiny VAE whose decoder is the modern block (GQA 4/2 at head
+    dimension 128, a window of 40 on the first of two layers, RoPE with
+    YaRN on the full layer, RMSNorm, 8 experts top 2), bf16, the flash
+    route from T = 16, and its Adam."""
+    from musicstyletransfer_torch.models.vae import init_params
+    from musicstyletransfer_torch.training.optimizer import Optimizer, OptimizerConfig
+
+    enc = TransformerConfig(model_size=64, num_layers=1, num_heads=2, dropout=0.1,
+                            use_flash_attention=True, flash_min_seq_len=16)
+    dec = TransformerConfig(model_size=128, num_layers=2, num_heads=4, num_kv_heads=2,
+                            head_dim=128, layer_types=("sliding_attention", "full_attention"),
+                            sliding_window=40, bias=False, norm="rmsnorm", norm_scheme="pre",
+                            ffn="moe", num_experts=8, experts_per_token=2, expert_width=64,
+                            positions="rope", rope_theta=500000.0, yarn_factor=16.0,
+                            yarn_original_max_positions=8192,
+                            yarn_attention_factor=1.2772588722239782,
+                            use_flash_attention=True, flash_min_seq_len=16)
+    cfg = ModelConfig(encoder_config=EncoderConfig(transformer_config=enc, latent_dim=8),
+                      decoder_config=DecoderConfig(transformer_config=dec, latent_dim=8,
+                                                   class_conditioning="per_step"),
+                      dtype="bfloat16")
+    model = init_params(StyleVAE(cfg), 0).to(device)
+    opt = Optimizer(list(model.parameters()), OptimizerConfig("adam", "clip_gradient:1.0", lr))
+    return model, opt
+
+
+@pytest.mark.gpu
+def test_modern_block_graph_equals_eager_steps(cuda):
+    """The modern decoder (grouped and windowed K4/K5, the experts' grouped
+    products, the experts' load counter): two replays of a graph of 3
+    training steps against 6 eager steps, bit for bit, the load counted
+    alike, every flash launch on the tensor cores."""
+    from musicstyletransfer_torch.models.moe import MoE
+
+    group = step_batches(cuda, 3)
+    out = []
+    for graphed in (False, True):
+        model, opt = modern_recipe(cuda)
+        state, gen, count = run_groups(model, opt, [group, group], graphed, cuda)
+        loads = [m.load.clone() for m in model.modules() if isinstance(m, MoE)]
+        out.append((state, gen, count, loads))
+    (a, ga, ca, la), (b, gb, cb, lb) = out
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(ga, gb) and ca == cb
+    assert all(torch.equal(x, y) for x, y in zip(la, lb)) and int(la[0].sum()) > 0
+    assert ca["K4"] == ca["K4 tc"] == 6 * 3 and ca["K5"] == ca["K5 tc"] == 6 * 3
+    assert ca["K4 windowed"] == 6 and ca["K4 grouped"] == 6 * 2
