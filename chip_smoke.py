@@ -5,8 +5,8 @@
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the kernels of musicstyletransfer_torch/ops/csrc with nvcc, one
-   process per source, all at once: K1 (fused_decode.cu), K2/K3 in bfloat16
-   at head dimension 32 or 64, K4/K5 in bfloat16 at 16, 32, 64 or 128 and
+   process per source, all at once: Adam's update (fused_adam.cu), K1
+   (fused_decode.cu), K2/K3 in bfloat16 at head dimension 32 or 64, K4/K5 in bfloat16 at 16, 32, 64 or 128 and
    in float32 at 32 or 64 on the tensor cores (flash_attention_tc.cu,
    float32 as three bf16 pieces from its split kernel), K2/K3 in float32
    and at the other head dimensions (attention_core.cu), K4/K5 at head
@@ -49,6 +49,16 @@
    bfloat16 at head dimensions 16, 32, 64 and 128 and float32 at 32 and 64
    go through the tensor-core kernels (float32 through the split), the rest
    through the CUDA-core ones, and a second run of K5 gives the same bits.
+   Holds Adam's update (fused_adam.cu) against the optimizer's chain of
+   torch ops bit for bit, adam and adamw under four settings with a NaN
+   step, and the cells' Adam at the three training cells' parameter counts
+   (1.69B elements among them) and the wide recipe's, and kernel A's sum of
+   squares against the double sum and its finite flag at those counts
+   (check_adam); times both kernels, their plain versions, the library's
+   (vector_norm, torch._fused_adam_) and a step of each route at the three
+   training cells' counts beside their byte bounds (time_adam). On every
+   training path of one card, one call of each kernel an optimizer step
+   ("adam", "adam stats").
 6. CUDA graphs of N training steps (training/graph.py) against 2N eager
    steps from one seeded state, at the canonical (N=8, and N=2 with
    --remat), wide (N=4) and long (N=1) recipes: parameters, optimizer
@@ -889,6 +899,174 @@ def time_gqa(fa) -> dict:
     return out
 
 
+# the flat parameter vectors of the training cells (benchmark/configs): mellum2, long, canonical
+ADAM_SIZES = (("vae_mellum2", 1_686_815_013), ("vae_long_fp32", 15_147_557),
+              ("vae_canonical", 2_093_349))
+ADAM_CELLS = "clip_gradient:1.0,skip_nonfinite:10"  # the training cells' Adam extras
+ADAM_CHECKS = (ADAM_CELLS, "clip_gradient:1.0",
+               "clip_global_norm:1.0,warmup_steps:2,decay_steps:5,skip_nonfinite:2", "wd:0.1")
+ADAM_PIECE = 1 << 26  # elements a comparison takes at a time: no whole-vector temporaries
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (float32: NaN where NaN), ADAM_PIECE elements at a
+    time."""
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    for x, y in zip(a.split(ADAM_PIECE), b.split(ADAM_PIECE)):
+        nan = torch.isnan(x)
+        if not (torch.equal(nan, torch.isnan(y))
+                and torch.equal(x[~nan].view(torch.int32), y[~nan].view(torch.int32))):
+            return False
+    return True
+
+
+def adam_optimizer(name: str, extras: str, n: int, seed: int = 0):
+    """An optimizer over n seeded parameters on the card (the kernel route)."""
+    from musicstyletransfer_torch.training.optimizer import Optimizer, OptimizerConfig
+
+    init = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(seed),
+                       device="cuda")
+    opt = Optimizer([torch.nn.Parameter(init)], OptimizerConfig(name, extras, 1e-2))
+    check(opt.route == "kernel", f"{name} {extras}: the optimizer took {opt.route}")
+    return opt
+
+
+def adam_pair(name: str, extras: str, n: int):
+    """Two optimizers over the same parameters: the kernel route, and the
+    chain (its route set by hand)."""
+    pair = [adam_optimizer(name, extras, n) for _ in range(2)]
+    pair[1].route = "chain"
+    return pair
+
+
+def adam_steps(name: str, extras: str, n: int, nan_at: dict) -> float:
+    """len(nan_at) + 1 steps of the kernel route and of the chain on the
+    same seeded gradients (step -> the index given a NaN), every buffer
+    compared bit for bit after each; returns the largest |kernel - chain|
+    over the parameters where neither is NaN."""
+    kern, chain = adam_pair(name, extras, n)
+    g = torch.empty(n, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+    for step in range(len(nan_at) + 1):
+        g.normal_(generator=gen).mul_(3)
+        if step in nan_at:
+            g[nan_at[step]] = float("nan")
+        kern.step(g)
+        chain.step(g)
+        for k, a in (("flat", kern.flat), *kern.state.items()):
+            b = chain.flat if k == "flat" else chain.state[k]
+            check(bits_equal(a, b),
+                  f"adam kernel {name} {extras} at {n} step {step}: {k} differs from the chain")
+        worst = max(worst, max(float(torch.nan_to_num(x - y, nan=0.0).abs().max())
+                               for x, y in zip(kern.flat.split(ADAM_PIECE),
+                                               chain.flat.split(ADAM_PIECE))))
+    del kern, chain, g
+    torch.cuda.empty_cache()
+    return worst
+
+
+def check_adam() -> dict:
+    """Kernel B (Adam's update) against the optimizer's chain on the card,
+    bit for bit (NaN where NaN): adam and adamw at ADAM_CHECKS over 4 steps
+    with a NaN at the third, at 2^20 + 3 elements; then the cells' Adam
+    (ADAM_CELLS) over 3 steps, a NaN at the last element at the third, at
+    each of ADAM_SIZES and the wide recipe's vector (at 1.69B elements the
+    byte offsets pass 2^32 and a thread walks ~3,100 grid strides). Kernel
+    A at each size: its sum within 2^-23 of the sum in double, and its flag
+    False with an Inf in the last element. Returns {"update": the largest
+    |kernel - chain|, "stats": the largest |A - double sum|}."""
+    from musicstyletransfer_torch.ops import fused_adam
+
+    n, worst = (1 << 20) + 3, 0.0
+    for name in ("adam", "adamw"):
+        for extras in ADAM_CHECKS:
+            worst = max(worst, adam_steps(name, extras, n, {2: n // 3}))
+    opt = recipe_setup("train-vae-wide.sh")[2]
+    sizes = (*ADAM_SIZES, ("wide recipe", opt.flat.numel()))
+    del opt
+    stats_err = 0.0
+    for label, n in sizes:
+        worst = max(worst, adam_steps("adam", ADAM_CELLS, n, {2: n - 1}))
+        g = torch.randn(n, generator=torch.Generator(device="cuda").manual_seed(5),
+                        device="cuda") * 10
+        sq, finite = fused_adam.grad_stats(g)
+        exact = math.fsum(float(torch.sum(x.double() * x.double()))
+                          for x in g.split(ADAM_PIECE))
+        stats_err = max(stats_err, abs(float(sq) - exact))
+        check(bool(finite) and abs(float(sq) - exact) <= 2.0 ** -23 * exact,
+              f"grad_stats at {label}'s {n}: {float(sq)} against the double sum {exact}")
+        g[-1] = float("inf")
+        check(not bool(fused_adam.grad_stats(g)[1]), f"grad_stats at {n}: an Inf read as finite")
+        del g
+        torch.cuda.empty_cache()
+        log(f"Adam at {label}'s {n} parameters: kernel B equals the chain bit for bit over 3 "
+            f"steps (a NaN in the last element at the third); kernel A {float(sq)} against the "
+            f"double sum {exact} (relative {abs(float(sq) - exact) / exact:.3g})")
+    log(f"Adam kernel against the chain, bit for bit: adam and adamw at {len(ADAM_CHECKS)} "
+        f"settings, {(1 << 20) + 3} elements, 4 steps with a NaN, and the cells' Adam at "
+        f"{', '.join(str(n) for _, n in sizes)}; largest |kernel - chain| {worst}; kernel A "
+        f"within 2^-23 of the double sum")
+    return {"update": worst, "stats": stats_err}
+
+
+def time_adam() -> dict:
+    """At ADAM_SIZES, as the training cells run Adam (ADAM_CELLS): kernel A
+    beside its byte bound (reads g: 4 bytes an element), its plain version
+    (the chain's isfinite for the guard and sum(g * g) for the log) and the
+    library's one-pass reduction (torch.linalg.vector_norm); kernel B beside
+    its bound (reads g, p, mu, nu, writes p, mu, nu: 28), its plain version
+    (the chain's update, a 2^27-element piece at a time) and PyTorch's fused
+    Adam (torch._fused_adam_ on the same buffers, one launch; it has no
+    clamp and no guard: one read of each buffer and one write as kernel B's);
+    one optimizer step on the kernel route (kernels A and B and the guard's
+    and the schedule's scalars) and on the chain with the log's sum. CUDA
+    events over 5 calls after a warm-up, the card held back while the host
+    enqueues. Returns {config: {"n", "a_ms", "a_plain_ms", "a_lib_ms",
+    "a_bound_ms", "b_ms", "b_plain_ms", "b_lib_ms", "b_bound_ms", "ms" (A +
+    B), "bound_ms" (32 bytes an element), "step_ms", "chain_ms"}}."""
+    from musicstyletransfer_torch.ops import fused_adam
+
+    def timed(fn):
+        return min(time_cuda(fn, 5, queued=True) for _ in range(2))
+
+    out = {}
+    for label, n in ADAM_SIZES:
+        kern = adam_optimizer("adam", ADAM_CELLS, n)
+        g = torch.randn(n, device="cuda") * 3
+        mu, nu = kern.state["mu"], kern.state["nu"]
+        rate, one = torch.full((), -1e-3, device="cuda"), torch.ones((), device="cuda")
+        r = {"n": n, "a_bound_ms": 4 * n / PEAK_BYTES * 1e3,
+             "b_bound_ms": 28 * n / PEAK_BYTES * 1e3, "bound_ms": 32 * n / PEAK_BYTES * 1e3}
+        r["a_ms"] = timed(lambda: fused_adam.grad_stats(g))
+        r["a_plain_ms"] = timed(lambda: (torch.isfinite(g).all(), torch.sum(g * g)))
+        r["a_lib_ms"] = timed(lambda: torch.linalg.vector_norm(g))
+        r["b_ms"] = timed(lambda: fused_adam.adam_update(
+            kern.flat, mu, nu, g, rate, one, one, b1=0.9, b2=0.999, eps=1e-8, clip=1.0))
+        steps, found = [torch.zeros((), device="cuda")], torch.zeros((), device="cuda")
+        r["b_lib_ms"] = timed(lambda: (steps[0].add_(1), torch._fused_adam_(
+            [kern.flat], [g], [mu], [nu], [], steps, lr=1e-3, beta1=0.9, beta2=0.999,
+            weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False, found_inf=found)))
+        r["step_ms"] = timed(lambda: kern.step(g))
+        kern.route = "chain"
+        finite = torch.isfinite(g).all()
+        r["b_plain_ms"] = timed(lambda: kern._update(g, None, finite))
+        r["chain_ms"] = timed(lambda: (kern.step(g), kern.sq_sum(g)))
+        r["ms"] = r["a_ms"] + r["b_ms"]
+        out[label] = r
+        log(f"Adam at {label}'s {n} parameters: kernel A {r['a_ms']:.4f} ms (bound "
+            f"{r['a_bound_ms']:.4f}, chain {r['a_plain_ms']:.4f}, vector_norm "
+            f"{r['a_lib_ms']:.4f}); kernel B {r['b_ms']:.4f} ms (bound {r['b_bound_ms']:.4f}, "
+            f"chain {r['b_plain_ms']:.4f}, torch._fused_adam_ {r['b_lib_ms']:.4f}); A + B "
+            f"{r['ms']:.4f} ms against the byte bound {r['bound_ms']:.4f} ms (32 B an element at "
+            f"3.35 TB/s: {100 * r['bound_ms'] / r['ms']:.1f}%); a step on the kernel route "
+            f"{r['step_ms']:.4f} ms, on the chain {r['chain_ms']:.4f} ms")
+        del kern, g, mu, nu
+        torch.cuda.empty_cache()
+    return out
+
+
 def recipe_argv(script: str, data: str, model_output: str, out_samples: str,
                 required=("--use-flash-attention", "--max-seq-len", "--batch-size"),
                 module: str = "main"):
@@ -929,6 +1107,15 @@ def train_lines(path: str):
     with open(path) as f:
         lines = [json.loads(x) for x in f]
     return lines
+
+
+def check_adam_counts(c: dict, steps: int, label: str) -> None:
+    """One call of kernel A (the guard's and the log's gradient pass) and
+    one launch of kernel B (Adam's update) an optimizer step, as a training
+    path on one card runs them, graph replays included."""
+    check(c["adam"] == steps and c["adam stats"] == steps,
+          f"the {label} path's Adam: {c['adam']} updates and {c['adam stats']} gradient passes "
+          f"over {steps} steps")
 
 
 def check_train_log(lines, label: str, guarded: bool = True) -> None:
@@ -981,6 +1168,7 @@ def train_path(ac, fd, tmp: str) -> dict:
     check(c["K1"] > 0, "the generation-health probe did not launch K1")
     for k in counters.PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the training path")
+    check_adam_counts(c, steps, "wide")
     main_counts = c
 
     # Resume: a copy of the run as it stood at its first checkpoint.
@@ -1070,6 +1258,7 @@ def canonical_path(tmp: str) -> dict:
     check(c["K1"] > 0, "the generation-health probe did not launch K1")
     for k in counters.PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the canonical training path")
+    check_adam_counts(c, 2 * per_epoch, "canonical")
     main_counts = c
 
     out = io.StringIO()
@@ -1162,6 +1351,7 @@ def long_path(tmp: str, extra=(), epochs: int = 2, sample: bool = True,
     check(c["K1"] > 0, "the generation-health probe did not launch K1")
     for k in counters.PLAIN:
         check(c[k] == 0, f"{k} ran {c[k]} times on CUDA in the {tag} training path")
+    check_adam_counts(c, steps, tag)
     main_counts = c
     if not sample:
         return main_counts
@@ -1503,7 +1693,9 @@ def gan_path(tmp: str, batches, card: str) -> dict:
     t0 = time.perf_counter()
     rates = gan_rates(batches, card)
     c = counters.read()
-    check(all(v == 0 for v in c.values()), f"the GAN path launched a hand kernel: {c}")
+    check(all(v == 0 for k, v in c.items() if k not in ("adam", "adam stats"))
+          and c["adam"] > 0 and c["adam stats"] == c["adam"],
+          f"the GAN path launched a hand kernel, or its Adam left the update kernel: {c}")
     log(f"gan path: {time.perf_counter() - t_phase:.1f} s (the rates {time.perf_counter() - t0:.1f} s)")
     return rates
 
@@ -3421,7 +3613,8 @@ def main() -> int:
     from musicstyletransfer_torch.ops import fused_decode as fd
 
     t0 = time.perf_counter()
-    sources = ("fused_decode", "attention_core", "flash_attention", "flash_attention_tc")
+    sources = ("fused_decode", "attention_core", "flash_attention", "flash_attention_tc",
+               "fused_adam")
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
         list(pool.map(_build.build, sources))
     for name in sources:
@@ -3451,6 +3644,7 @@ def main() -> int:
     split_err = check_split(fa)
     flash_err = check_flash(fa, long_batch.seq_lens)
     gqa_err = check_gqa(fa)
+    adam_err = check_adam()
 
     wide_batch = next(iter(MelodyDataset(8, 512, Loader(corpus, 512).melodies)))
     corpus_batches = list(MelodyDataset(32, L, Loader(corpus, L).melodies))
@@ -3490,6 +3684,7 @@ def main() -> int:
                                               "core_bwd_dkdv_kernel_tc")}, 4)}
     flash = measure_flash(fa, ac, long_batch)
     gqa = time_gqa(fa)
+    adam = time_adam()
     steps["long"] = measure_training(long_batch, "long", "train-vae-long.sh",
                                      {"K4": ("flash_fwd_kernel_tc",), "K5": ("flash_bwd_",)}, 1)
     steps["long float32"] = measure_training(
@@ -3585,6 +3780,18 @@ def main() -> int:
             "replaces": replaces, "launches": None,
             "max_abs_err": gqa_err["decoder sliding"][0 if kid == "K4" else 1], "ms": ms,
             "plain_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
+    big = adam["vae_mellum2"]  # times at the Mellum2 cell's size
+    for name, kid, counter in (("adam_update", "b", "adam"), ("grad_stats", "a", "adam stats")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "musicstyletransfer_torch/ops/csrc/fused_adam.cu",
+            # replaces none: optax's chain, which XLA fuses
+            "replaces": None, "launches": train_counts[counter],
+            "max_abs_err": adam_err["update" if kid == "b" else "stats"],
+            "ms": big[f"{kid}_ms"], "plain_ms": big[f"{kid}_plain_ms"],
+            "bound_ms": big[f"{kid}_bound_ms"], "bound_by": "bytes",
+            "library_ms": big[f"{kid}_lib_ms"],
         })
     ms, plain_ms, bound_ms, bound_by = split_ms
     kernels.append({

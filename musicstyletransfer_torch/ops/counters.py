@@ -1,9 +1,12 @@
-"""The launch counters of the hand kernels (K1-K5 in PERF.md, and the split
-of float32 inputs for K4/K5's tensor-core route).
+"""The launch counters of the hand kernels (K1-K5 in PERF.md, the split
+of float32 inputs for K4/K5's tensor-core route, and Adam's update).
 
 Each wrapper adds one to its counter where it launches its kernel, and
 each plain version adds one where it runs on a CUDA tensor; K4/K5 count
-apart their launches with a window and with grouped K/V heads. They are host
+apart their launches with a window and with grouped K/V heads. "adam" counts
+the launches of Adam's update kernel, "adam stats" the calls of the
+gradient's reduction pass before it, and "adam plain" the optimizer steps
+that ran its torch chain on CUDA buffers instead. They are host
 counters: a CUDA graph that captured launches runs no Python when it is
 replayed, so ``training/graph.py`` records the counts a capture added and
 adds them again at every replay (``add``).
@@ -15,6 +18,7 @@ from typing import Dict
 
 from . import attention_core as ac
 from . import flash_attention as fa
+from . import fused_adam
 from . import fused_decode as fd
 
 # name -> (the function that carries the counter, its attribute)
@@ -40,9 +44,12 @@ COUNTERS = {
     "K4 plain": (fa.flash_forward_reference, "cuda_runs"),
     "K5 plain": (fa.flash_backward_reference, "cuda_runs"),
     "split plain": (fa.split_bf16x3_reference, "cuda_runs"),
+    "adam": (fused_adam.adam_update, "launches"),
+    "adam stats": (fused_adam.grad_stats, "launches"),
+    "adam plain": (fused_adam.adam_update, "chain_cuda_runs"),
 }
 PLAIN = ("K1 plain", "K2 plain", "K3 plain", "XLA-backward twin", "K4 plain", "K5 plain",
-         "split plain")
+         "split plain", "adam plain")
 
 
 def read() -> Dict[str, int]:

@@ -34,6 +34,13 @@ The parameters are re-pointed into one flat float32 buffer, and the state
 is flat buffers too: a step is a few whole-buffer operations whatever the
 number of tensors.
 
+On a CUDA buffer, adam and adamw without accumulation take the card's two
+kernels (``ops.fused_adam``: one pass over the gradient for its sum of
+squares and the non-finite guard, one pass that updates the parameters and
+the moments), equal to the chain of torch operations below bit for bit; the
+chain runs everything else: CPU buffers, accumulation, sgd and rmsprop
+(``update_route``).
+
 Under a mesh (``sync``, a ``parallel.mesh.FlatSync``) the buffers hold this
 rank's parameters (its shards under tensor parallelism), and three things
 are made global: the gradient (``reduce_gradients``: summed over the model
@@ -47,14 +54,26 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+
+from ..ops import fused_adam
 
 OPTIMIZERS = ("adam", "adamw", "sgd", "rmsprop")
 
 
-UPDATE_PIECE = 1 << 27  # elements of the flat buffers one pass of the update takes
+UPDATE_PIECE = 1 << 27  # elements of the flat buffers one pass of the chain takes
+
+
+def update_route(device: torch.device, name: str, k: int) -> str:
+    """Which code updates an optimizer's flat buffers: "kernel" (the two
+    kernels of ``ops.fused_adam``) for adam or adamw on a CUDA buffer
+    without accumulation (``k`` = 1), else "chain" (the torch operations of
+    ``Optimizer._update_piece``)."""
+    if device.type == "cuda" and name in ("adam", "adamw") and k == 1:
+        return "kernel"
+    return "chain"
 
 
 @dataclasses.dataclass
@@ -120,6 +139,7 @@ class Optimizer:
                 p.data = self.flat[offset:offset + n].view_as(p)
                 offset += n
         dev = self.flat.device
+        self.route = update_route(dev, self.name, self.k)
 
         def scalar():
             return torch.zeros((), dtype=torch.int64, device=dev)
@@ -185,12 +205,18 @@ class Optimizer:
         return list(flat.split([p.numel() for p in self.params]))
 
     @torch.no_grad()
-    def step(self, grad: torch.Tensor) -> None:
+    def step(self, grad: torch.Tensor) -> Optional[torch.Tensor]:
         """One step from the flat raw gradient, every state tensor updated in
         place: under accumulation the running mean, and every k-th step the
-        update of the mean (optax.MultiSteps with its gradient mean)."""
+        update of the mean (optax.MultiSteps with its gradient mean).
+        Returns ``grad``'s sum of squares where kernel A took it without a
+        mesh (the kernel route: in double, rounded once), else None (take
+        ``sq_sum``)."""
+        stats = None
+        if self.route == "kernel" and (self.skip_nonfinite or self.sync is None):
+            stats = fused_adam.grad_stats(grad)
         if self.k == 1:
-            self._update(grad, None)
+            self._update(grad, None, None if stats is None else stats[1])
         else:
             mini, acc = self.state["mini_step"], self.state["acc_grad"]
             mean = acc + (grad - acc) / (mini + 1).float()
@@ -199,6 +225,7 @@ class Optimizer:
             acc.copy_((1 - emit.float()) * mean)  # a NaN mean stays NaN, as in optax
             mini.copy_((mini + 1) % self.k)
         self.params_changed()
+        return stats[0] if stats is not None and self.sync is None else None
 
     def params_changed(self) -> None:
         """Bump the parameters' version counters after a write to ``flat``.
@@ -208,15 +235,18 @@ class Optimizer:
         see the new values."""
         torch.autograd.graph.increment_version(self.params)
 
-    def _update(self, grad: torch.Tensor, emit) -> None:
+    def _update(self, grad: torch.Tensor, emit, finite=None) -> None:
         """The chain (``optax.apply_if_finite`` around it under
-        ``skip_nonfinite``) on ``grad``. With ``emit`` (a bool device tensor:
-        MultiSteps' k-th step), its state moves only where ``emit`` holds and
-        its update is multiplied by ``emit``, as optax's wrapper does."""
+        ``skip_nonfinite``) on ``grad``, through kernel B on the kernel
+        route. With ``emit`` (a bool device tensor: MultiSteps' k-th step),
+        its state moves only where ``emit`` holds and its update is
+        multiplied by ``emit``, as optax's wrapper does. ``finite``: whether
+        ``grad`` is finite on this rank, where kernel A said so."""
         st = self.state
         apply = None  # whether the guard lets the update through (None: always)
         if self.skip_nonfinite:
-            finite = torch.isfinite(grad).all()
+            if finite is None:
+                finite = torch.isfinite(grad).all()
             if self.sync is not None:
                 finite = self.sync.all_finite(finite)
             notfinite = torch.where(finite, 0, st["notfinite_count"] + 1)
@@ -236,14 +266,26 @@ class Optimizer:
         count_inc = (count + 1).float()
         rate = -self.learning_rate(count.float())
         keep = apply if emit is None else (emit if apply is None else apply & emit)
-        # the elementwise chain a piece of the flat buffers at a time: its
-        # temporaries stay a piece's size whatever the model's
-        for lo in range(0, self.flat.numel(), UPDATE_PIECE):
-            self._update_piece(slice(lo, lo + UPDATE_PIECE), grad, norm, count_inc, rate, apply,
-                               emit, keep)
+        corrections = None  # Adam's 1 - b1^t and 1 - b2^t
+        if self.name in ("adam", "adamw"):
+            corrections = (1.0 - self.b1 ** count_inc, 1.0 - self.b2 ** count_inc)
+        if self.route == "kernel":  # emit is None here: keep is apply
+            fused_adam.adam_update(self.flat, st["mu"], st["nu"], grad, rate, *corrections,
+                                   b1=self.b1, b2=self.b2, eps=self.eps, clip=self.clip,
+                                   max_norm=self.max_norm, norm=norm, wd=self.wd,
+                                   adamw_wd=self.adamw_wd, apply=apply)
+        else:
+            if self.flat.is_cuda:
+                fused_adam.adam_update.chain_cuda_runs += 1
+            # the elementwise chain a piece of the flat buffers at a time: its
+            # temporaries stay a piece's size whatever the model's
+            for lo in range(0, self.flat.numel(), UPDATE_PIECE):
+                self._update_piece(slice(lo, lo + UPDATE_PIECE), grad, norm, corrections, rate,
+                                   apply, emit, keep)
         count.add_(1 if keep is None else keep.long())
 
-    def _update_piece(self, at: slice, grad, norm, count_inc, rate, apply, emit, keep) -> None:
+    def _update_piece(self, at: slice, grad, norm, corrections, rate, apply, emit,
+                      keep) -> None:
         st, flat = self.state, self.flat[at]
         u = grad[at]
         if self.clip is not None:
@@ -256,8 +298,8 @@ class Optimizer:
         if self.name in ("adam", "adamw"):
             moments["mu"] = mu = (1.0 - self.b1) * u + self.b1 * st["mu"][at]
             moments["nu"] = nu = (1.0 - self.b2) * (u * u) + self.b2 * st["nu"][at]
-            mu_hat = mu / (1.0 - self.b1 ** count_inc)
-            nu_hat = nu / (1.0 - self.b2 ** count_inc)
+            mu_hat = mu / corrections[0]
+            nu_hat = nu / corrections[1]
             step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
             if self.adamw_wd:
                 step = step + self.adamw_wd * flat

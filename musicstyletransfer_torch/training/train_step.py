@@ -144,13 +144,15 @@ def step_body(model: StyleVAE, optimizer: Optimizer, loss_config: LossConfig,
     for p in optimizer.params:  # the flat copy holds them now
         p.grad = None
     optimizer.reduce_gradients(grad)
-    optimizer.step(grad)
+    sq_sum = optimizer.step(grad)
     with torch.no_grad():
         metrics = step_metrics(logits.detach(), labels,
                                {k: v.detach() for k, v in scalars.items()})
         sums = [metrics[k][0].float() for k in METRIC_KEYS[:-1]]
         counts = [metrics[k][1].float() for k in METRIC_KEYS[:-1]]
-        norms = torch.sqrt(optimizer.sq_sum(grad)).reshape(1)
+        if sq_sum is None:
+            sq_sum = optimizer.sq_sum(grad)
+        norms = torch.sqrt(sq_sum).reshape(1)
         if len(state.names) > len(METRIC_KEYS):
             norms = torch.cat([norms, optimizer.param_norms(grad)])
         sums = torch.cat([torch.stack(sums), norms])

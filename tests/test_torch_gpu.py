@@ -24,7 +24,11 @@ that makes the pieces equals its plain version bit for bit. K1 at padded
 widths and wide vocabularies takes K1's tolerances. A graph of training
 steps and the same eager steps run the same kernels on the same inputs in
 the same order: bit for bit; so do the LSTM-decoder VAE's graphed steps and
-the GAN's graphed groups of D and G steps.
+the GAN's graphed groups of D and G steps. Adam's update kernel equals the
+optimizer's chain of torch ops bit for bit (the same roundings in the same
+order, NaN where NaN); the gradient's sum of squares in kernel A is summed in
+double and rounded once: within 2^-23 of the sum in double, and within 1e-5
+of torch.sum(g * g), whose float32 partial sums carry the error.
 """
 
 import numpy as np
@@ -40,7 +44,9 @@ from musicstyletransfer_torch.models import (
 )
 from musicstyletransfer_torch.ops import attention_core as ac
 from musicstyletransfer_torch.ops import flash_attention as fa
+from musicstyletransfer_torch.ops import fused_adam
 from musicstyletransfer_torch.ops import fused_decode as fd
+from adam_helpers import EXTRAS, adam_pair, assert_same_state
 
 
 @pytest.fixture
@@ -1260,3 +1266,138 @@ def test_modern_block_graph_equals_eager_steps(cuda):
     assert all(torch.equal(x, y) for x, y in zip(la, lb)) and int(la[0].sum()) > 0
     assert ca["K4"] == ca["K4 tc"] == 6 * 3 and ca["K5"] == ca["K5 tc"] == 6 * 3
     assert ca["K4 windowed"] == 6 and ca["K4 grouped"] == 6 * 2
+
+
+NONFINITE = {2: float("nan"), 3: float("inf"), 7: float("nan"), 8: float("-inf"),
+             9: float("nan")}  # step -> the value of one gradient element
+
+
+def seeded_vector(device, n: int) -> torch.Tensor:
+    return torch.randn(n, generator=torch.Generator(device=device).manual_seed(0), device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("extra", sorted(EXTRAS))
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+def test_adam_kernel_equals_the_chain_bit_for_bit(cuda, name, extra, skip):
+    """Ten steps across a warmup and a cosine decay on 4k+3 elements, with
+    NaN and Inf gradients at steps 2-3 and 7-9 (skip_nonfinite:2 skips two,
+    then lets the third through; without the guard the NaN spreads): kernel
+    B's parameters, moments and counts equal the chain's after every step."""
+    extras = ",".join(x for x in (EXTRAS[extra], "warmup_steps:2,decay_steps:5",
+                                  "skip_nonfinite:2" if skip else "") if x)
+    n = 4 * 1027 + 3
+    kern, chain = adam_pair(seeded_vector(cuda, n), name, extras)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    launches, stats = fused_adam.adam_update.launches, fused_adam.grad_stats.launches
+    for step in range(10):
+        g = torch.randn(n, generator=gen, device=cuda) * 3
+        if step in NONFINITE:
+            g[n // 2] = NONFINITE[step]
+        kern.step(g)
+        chain.step(g)
+        assert_same_state(kern, chain, step)
+    assert fused_adam.adam_update.launches - launches == 10
+    assert fused_adam.grad_stats.launches - stats == 10
+    if skip:
+        assert int(kern.state["total_notfinite"]) == 5 and bool(torch.isnan(kern.flat).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4 * 4099 + 3, (1 << 29) + 5])
+def test_adam_kernel_at_any_length(cuda, n):
+    """One element, the scalar tail, and a vector whose byte offsets pass
+    2^31 (64-bit indices): kernel B against the chain bit for bit over three
+    steps as the training cells run Adam (clip_gradient, skip_nonfinite)."""
+    kern, chain = adam_pair(seeded_vector(cuda, n), "adam",
+                            "clip_gradient:1.0,skip_nonfinite:10")
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for step in range(3):
+        g = torch.randn(n, generator=gen, device=cuda) * 3
+        kern.step(g)
+        chain.step(g)
+        assert_same_state(kern, chain, step)
+    del kern, chain
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 4 * 4099 + 3, (1 << 24) + 1])
+def test_grad_stats_sum_and_finite_flag(cuda, n):
+    """Kernel A: the sum of squares within 2^-23 of the sum in double (one
+    rounding to float32 after a double sum) and within 1e-5 of torch.sum(g *
+    g) (float32's own accumulation error), the same bits a second time; the
+    flag False where an element is NaN, Inf or -Inf."""
+    g = torch.randn(n, generator=torch.Generator(device=cuda).manual_seed(3), device=cuda) * 10
+    sq, finite = fused_adam.grad_stats(g)
+    exact = float(torch.sum(g.double() * g.double()))
+    assert bool(finite) and sq.dtype == torch.float32 and sq.dim() == 0
+    assert abs(float(sq) - exact) <= 2.0 ** -23 * exact
+    assert float(sq) == pytest.approx(float(torch.sum(g * g)), rel=1e-5)
+    assert torch.equal(sq, fused_adam.grad_stats(g)[0])
+    ref_sq, ref_finite = fused_adam.grad_stats_reference(g)
+    assert bool(ref_finite) and abs(float(sq) - float(ref_sq)) <= 2.0 ** -23 * exact
+    for bad in (float("nan"), float("inf"), float("-inf")):
+        h = g.clone()
+        h[n // 2] = bad
+        assert not bool(fused_adam.grad_stats(h)[1])
+
+
+@pytest.mark.gpu
+def test_adam_kernels_refuse_unaligned_vectors(cuda):
+    buf = torch.zeros(9, device=cuda)
+    one = torch.ones((), device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_adam.grad_stats(buf[1:])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fused_adam.adam_update(buf[1:], buf[:8], buf[:8], buf[:8], one, one, one, b1=0.9,
+                               b2=0.999, eps=1e-8)
+
+
+@pytest.mark.gpu
+def test_captured_adam_step_replays_equal_eager_chain_steps(cuda):
+    """A CUDA graph of one step on the kernel route (kernel A for the guard,
+    the schedule's and the guard's scalars, kernel B), replayed on three
+    gradients (one with a NaN), against three eager steps of the chain: bit
+    for bit after each."""
+    n = 4 * 1027 + 3
+    kern, chain = adam_pair(seeded_vector(cuda, n), "adam",
+                            "clip_gradient:1.0,warmup_steps:2,decay_steps:5,skip_nonfinite:2")
+    static = torch.randn(n, device=cuda)
+    saved = [t.clone() for t in (kern.flat, *kern.state.values())]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: builds and loads the library
+        kern.step(static)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.no_grad():
+        for t, v in zip((kern.flat, *kern.state.values()), saved):
+            t.copy_(v)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kern.step(static)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for step in range(3):
+        g = torch.randn(n, generator=gen, device=cuda) * 3
+        if step == 1:
+            g[5] = float("nan")
+        static.copy_(g)
+        graph.replay()
+        chain.step(g)
+        assert_same_state(kern, chain, step)
+    assert int(kern.state["count"]) == 2
+
+
+@pytest.mark.gpu
+def test_graphed_steps_replay_the_adam_counter(cuda):
+    """Training steps without accumulation take kernels A and B: two
+    replays of a graph of 3 steps count 6 calls of each, as 6 eager steps
+    do, and no chain step on the card; states bit for bit."""
+    group = step_batches(cuda, 3)
+    out = [run_groups(*tiny_recipe(False, cuda, False, accumulate=1), [group, group], graphed,
+                      cuda) for graphed in (False, True)]
+    (a, ga, ca), (b, gb, cb) = out
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(ga, gb) and ca == cb
+    assert ca["adam"] == ca["adam stats"] == 6 and ca["adam plain"] == 0
