@@ -9,7 +9,8 @@ dropped, no capacity), and nothing depends on the data's shape on the host:
 - ``moe.route``: the router's logits, softmax and top k;
 - ``moe.permute``: the (position, expert) pairs sorted by expert (a stable
   sort, so a position's pairs keep their order), the experts' end offsets
-  in that order (``searchsorted`` on the device), x gathered in it;
+  in that order (``searchsorted`` on the device), the inverse permutation,
+  x gathered in it;
 - ``moe.experts``: two grouped products over the sorted rows,
   [rows, D] x [E, D, 2F] (gate and up side by side) and [rows, F] x
   [E, F, D], each expert's rows against its own weights
@@ -24,6 +25,15 @@ replays it. The spans are host spans: they record in eager runs and while a
 graph is captured. ``load`` [E] (int64, a buffer) counts the non-PAD
 positions routed to each expert in training mode, added on the device
 inside the step (and inside a graph), read by the caller when it likes.
+
+Both gathers are ``GatherRows``: an ``index_select`` whose backward gathers
+by the inverse permutation, where ``index_select``'s own backward is an
+``index_add_`` (an atomic add an element on a card). The combine's backward
+is a gather into the sorted order; the dispatch's a gather back into the
+pairs' order and a sum of each position's k rows (float32 sums of the
+compute-dtype terms, rounded once). So the layer's backward adds in a fixed
+order and repeats bit for bit.
+
 Parameters: ``router`` (a bias-free ``Dense``, flax ``router/kernel``),
 ``w_gate_up`` [E, D, 2F] and ``w_down`` [E, F, D] kept as they are (in, out).
 """
@@ -80,6 +90,27 @@ class GroupedMM(torch.autograd.Function):
         return da, db, None
 
 
+class GatherRows(torch.autograd.Function):
+    """``src.index_select(0, index)``, where each row of src is taken k times
+    and ``inverse[r * k + j]`` is where its j-th take went
+    (``index[inverse] == arange(len(src)).repeat_interleave(k)``): the
+    backward gathers dy by ``inverse`` and sums each row's k terms."""
+
+    @staticmethod
+    def forward(ctx, src, index, inverse, k: int):
+        ctx.save_for_backward(inverse)
+        ctx.k = k
+        return src.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (inverse,) = ctx.saved_tensors
+        dsrc = dy.index_select(0, inverse)
+        if ctx.k > 1:
+            dsrc = dsrc.view(-1, ctx.k, dsrc.shape[-1]).sum(1)
+        return dsrc, None, None, None
+
+
 def load_counters(model: nn.Module) -> list:
     """The ``load`` buffers of ``model``'s expert layers (state a training
     step updates beside the optimizer's)."""
@@ -121,7 +152,9 @@ class MoE(nn.Module):
             sorted_experts, order = torch.sort(flat, stable=True)
             offs = torch.searchsorted(sorted_experts, torch.arange(E, device=x.device),
                                       right=True).to(torch.int32)
-            rows = xf.to(dt).index_select(0, order // k)
+            back = torch.empty_like(order).scatter_(0, order, torch.arange(
+                order.numel(), device=x.device))
+            rows = GatherRows.apply(xf.to(dt), order // k, back, k)
             if self.training and key_mask is not None:
                 with torch.no_grad():
                     self.load.index_add_(0, flat, key_mask.reshape(-1, 1).expand(-1, k)
@@ -131,9 +164,7 @@ class MoE(nn.Module):
             gate, up = h.chunk(2, dim=-1)
             y = GroupedMM.apply(F.silu(gate) * up, self.w_down.to(dt), offs)
         with tracing.span("moe.combine"):
-            back = torch.empty_like(order).scatter_(0, order, torch.arange(
-                order.numel(), device=x.device))
-            y = y.index_select(0, back).view(-1, k, shape[-1])
+            y = GatherRows.apply(y, back, order, 1).view(-1, k, shape[-1])
             # [N, 1, k] x [N, k, D]: float32 sums of the compute-dtype terms
             out = torch.bmm(weights.to(dt)[:, None, :], y)[:, 0]
         return out.reshape(shape)

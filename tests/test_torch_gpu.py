@@ -28,7 +28,10 @@ the GAN's graphed groups of D and G steps. Adam's update kernel equals the
 optimizer's chain of torch ops bit for bit (the same roundings in the same
 order, NaN where NaN); the gradient's sum of squares in kernel A is summed in
 double and rounded once: within 2^-23 of the sum in double, and within 1e-5
-of torch.sum(g * g), whose float32 partial sums carry the error.
+of torch.sum(g * g), whose float32 partial sums carry the error. The expert
+layer's gathered backward against its ``index_add_`` route at the Mellum2
+cell's widths: the output and the weights' gradients bit for bit, the
+input's gradient within bf16's 2e-2 of its largest magnitude.
 """
 
 import numpy as np
@@ -1216,6 +1219,60 @@ def test_grouped_expert_products_match_a_loop(cuda):
     for got, want in ((y, torch.cat(ys)), (da, torch.cat(das)), (db, dbs)):
         assert got.shape == want.shape
         assert float((got.float() - want).abs().max()) <= 2e-2 * float(want.abs().max())
+
+
+def index_add_route(moe, x):
+    """``MoE.forward`` with both gathers as plain ``index_select``, whose
+    backward is ``index_add_``: an atomic add an element on the card."""
+    import torch.nn.functional as F
+    from musicstyletransfer_torch.models.moe import GroupedMM
+
+    dt, k, D = moe.compute_dtype, moe.top_k, x.shape[-1]
+    xf = x.reshape(-1, D)
+    weights, experts = moe.route(xf)
+    sorted_experts, order = torch.sort(experts.reshape(-1), stable=True)
+    offs = torch.searchsorted(sorted_experts, torch.arange(moe.num_experts, device=x.device),
+                              right=True).to(torch.int32)
+    h = GroupedMM.apply(xf.to(dt).index_select(0, order // k), moe.w_gate_up.to(dt), offs)
+    gate, up = h.chunk(2, dim=-1)
+    y = GroupedMM.apply(F.silu(gate) * up, moe.w_down.to(dt), offs)
+    y = y.index_select(0, torch.argsort(order)).view(-1, k, D)
+    return torch.bmm(weights.to(dt)[:, None, :], y)[:, 0].reshape(x.shape)
+
+
+@pytest.mark.gpu
+def test_expert_layer_gathered_backward_matches_the_scatter_adds(cuda):
+    """One expert layer at the Mellum2 cell's widths (D 2304, 64 experts of
+    width 896, top 8, 16 x 2048 positions, bf16) against the ``index_add_``
+    route: the same output bit for bit; the router's and experts' weight
+    gradients bit for bit (the combine's scatter adds each element once, to
+    zero); the input's gradient within bf16's rounding (2e-2 of its largest
+    magnitude), where the scatter-adds rounded up to 8 times in any order.
+    Two backward passes of the layer are equal bit for bit."""
+    from musicstyletransfer_torch.models.moe import MoE
+
+    D, width, E, k = 2304, 896, 64, 8
+    torch.manual_seed(0)
+    moe = MoE(D, width, E, k, torch.bfloat16).to(cuda).train()
+    with torch.no_grad():
+        moe.router.weight.normal_(0, D ** -0.5)
+        moe.w_gate_up.normal_(0, D ** -0.5)
+        moe.w_down.normal_(0, width ** -0.5)
+    x = torch.randn(16, 2048, D, device=cuda, dtype=torch.bfloat16)
+    dy = torch.randn_like(x)
+
+    def run(route):
+        xg = x.clone().requires_grad_()
+        out = route(xg)
+        return [out.detach()] + list(torch.autograd.grad(out, [xg, *moe.parameters()], dy))
+
+    new, again, old = run(moe), run(moe), run(lambda xg: index_add_route(moe, xg))
+    assert all(torch.equal(a, b) for a, b in zip(new, again))
+    assert torch.equal(new[0], old[0])
+    assert all(torch.equal(a, b) for a, b in zip(new[2:], old[2:]))
+    dx, want = new[1].float(), old[1].float()
+    assert float((dx - want).abs().max()) <= 2e-2 * float(want.abs().max())
+    assert float((dx - want).abs().max()) > 0  # the scatter-adds round more often
 
 
 def modern_recipe(device, lr=1e-3):

@@ -225,6 +225,43 @@ def test_every_tokens_experts_and_output():
         assert torch.allclose(out.reshape(-1, 64)[n], y, atol=1e-5)
 
 
+@pytest.mark.parametrize("N,k,E", [(37, 1, 8), (37, 8, 16), (1, 8, 64), (1, 1, 4)])
+@pytest.mark.parametrize("gather", ["dispatch", "combine"])
+def test_gather_rows_is_index_select_with_a_gathered_backward(gather, N, k, E):
+    """``GatherRows`` on the expert layer's two maps, every position routed
+    to k distinct experts and expert 3 to none: its forward equals
+    ``index_select`` bit for bit; its backward equals ``index_select``'s
+    (``index_add_``) to 1e-12 in float64, and in bf16 each sum of k terms is
+    within one bf16 rounding (2^-8 relative) of the float64 sum of the same
+    terms, plus the float32 partial sums' (k - 1) 2^-24 of its terms'
+    magnitudes."""
+    from musicstyletransfer_torch.models.moe import GatherRows
+
+    g = torch.Generator().manual_seed(1000 * N + 10 * k + E)
+    experts = torch.stack([torch.randperm(E - 1, generator=g)[:k] for _ in range(N)])
+    experts += (experts >= 3).long()
+    order = torch.sort(experts.reshape(-1), stable=True).indices
+    back = torch.argsort(order)
+    index, inverse, takes = ((order // k, back, k) if gather == "dispatch"
+                             else (back, order, 1))
+    x64 = torch.randn(N * k // takes, 24, dtype=torch.float64, generator=g)
+    dy64 = torch.randn(N * k, 24, dtype=torch.float64, generator=g)
+    for dt in (torch.float64, torch.bfloat16):
+        x, dy = x64.to(dt).requires_grad_(), dy64.to(dt)
+        out = GatherRows.apply(x, index, inverse, takes)
+        assert out.dtype == dt and torch.equal(out, x.detach().index_select(0, index))
+        (got,) = torch.autograd.grad(out, x, dy)
+        assert got.dtype == dt
+        old = x.detach().double().requires_grad_()
+        (exact,) = torch.autograd.grad(old.index_select(0, index), old, dy.double())
+        if dt == torch.float64:
+            assert float((got - exact).abs().max()) <= 1e-12
+        else:
+            magnitudes = torch.zeros_like(exact).index_add_(0, index, dy.double().abs())
+            bound = 2.0 ** -8 * exact.abs() + (takes - 1) * 2.0 ** -24 * magnitudes
+            assert bool(((got.double() - exact).abs() <= bound).all())
+
+
 def test_yarn_frequencies_against_the_formula():
     """Mellum2's YaRN at head dimension 128 (theta 500000, factor 16, 8192
     original positions, beta 32 / 1): the interpolated frequency below the
