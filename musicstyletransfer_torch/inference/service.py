@@ -49,7 +49,7 @@ import torch
 import torch.distributed as dist
 
 from .. import tracing
-from ..midi import native_writer, smf
+from ..midi import native_request, native_writer, smf
 from ..midi.codec import MelodyWriter, melody_from_ids, tokenize_track
 from ..midi.vocab import PAD_ID, SOS_ID, note_on_id
 from ..parallel.mesh import mesh_device
@@ -152,7 +152,28 @@ class ServiceStats:
 
 
 def tokens_from_midi(midi_bytes: bytes, max_seq_len: int) -> np.ndarray:
-    """The first track with note events, tokenized and cut to max_seq_len."""
+    """The first track with note events, tokenized and cut to max_seq_len: one
+    call of the native request tokenizer (``midi/native_request.py``), or
+    ``tokens_in_python`` where its library does not load or it declines the
+    file, which then tokenizes or raises as it always has. A fresh int32
+    array either way; ``tokens_from_midi.native_files`` and ``python_files``
+    count the files each route took."""
+    with tracing.span("service.tokenize"):
+        toks = native_request.first_track_tokens(midi_bytes, max_seq_len)
+        if toks is not None:
+            _count(tokens_from_midi, "native_files")
+            return toks
+        _count(tokens_from_midi, "python_files")
+        return tokens_in_python(midi_bytes, max_seq_len)
+
+
+tokens_from_midi.native_files = 0
+tokens_from_midi.python_files = 0
+
+
+def tokens_in_python(midi_bytes: bytes, max_seq_len: int) -> np.ndarray:
+    """``tokens_from_midi`` through ``smf.parse_midifile`` and
+    ``tokenize_track``: the plain route."""
     mf = smf.parse_midifile(midi_bytes)
     for track in mf.tracks:
         toks = tokenize_track(track)
@@ -170,7 +191,7 @@ def results_of(rows: List[Dict[int, np.ndarray]],
     ``writer``; ``results_of.native_rows`` and ``results_of.python_rows``
     count the rows written each way."""
     if native_writer.load_library() is None:
-        _count_rows("python_rows", sum(len(r) for r in rows))
+        _count(results_of, "python_rows", sum(len(r) for r in rows))
         return _results_in_python(rows, writer)
     flat = [row for r in rows for row in r.values()]
     with tracing.span("service.detokenize"):
@@ -178,7 +199,7 @@ def results_of(rows: List[Dict[int, np.ndarray]],
         ids = native_writer.event_ids(tokens, offsets)
     with tracing.span("service.midi_write"):
         midi = native_writer.write_midi(tokens, offsets)
-    _count_rows("native_rows", len(flat))
+    _count(results_of, "native_rows", len(flat))
     out, k = [], 0
     for r in rows:
         out.append(TransferResult(dict(zip(r, midi[k:k + len(r)])),
@@ -192,10 +213,10 @@ results_of.python_rows = 0
 _counts_lock = threading.Lock()
 
 
-def _count_rows(counter: str, rows: int) -> None:
-    """Add to a counter of ``results_of``: it may run on several threads."""
+def _count(fn, counter: str, n: int = 1) -> None:
+    """Add to a counter of ``fn``: it may run on several threads."""
     with _counts_lock:
-        setattr(results_of, counter, getattr(results_of, counter) + rows)
+        setattr(fn, counter, getattr(fn, counter) + n)
 
 
 def _results_in_python(rows: List[Dict[int, np.ndarray]],

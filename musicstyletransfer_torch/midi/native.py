@@ -10,8 +10,9 @@ flags of ``native/Makefile`` into ``build/native/`` under the repository
 root, the file name carrying the hash of the source and the flags, so an
 edited source is rebuilt and ``native/`` is never written. Where no
 compiler builds it, ``load_library`` returns None and the Loader reads with
-the Python codec, as the JAX package's does. ``compile_library`` builds the
-port's batched MIDI writer (``native_writer.py``) the same way.
+the Python codec, as the JAX package's does. ``PortLibrary`` builds and
+loads the port's own sources the same way: the batched MIDI writer
+(``native_writer.py``) and the request tokenizer (``native_request.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
@@ -75,6 +76,37 @@ def compile_library(source: Path, stem: str) -> Tuple[Optional[Path], str]:
         return None, f"{' '.join(cmd)} exited {proc.returncode}: {proc.stderr[-2000:]}"
     os.replace(tmp, out)
     return out, ""
+
+
+class PortLibrary:
+    """One of the port's own sources (``midi/csrc/``), built with
+    ``compile_library`` and loaded at its first ``load``, once for all
+    threads; ``bind`` sets its functions' argument and result types.
+    ``load`` gives the library, or None with the reason in ``error``."""
+
+    def __init__(self, source: Path, stem: str, bind: Callable[[ctypes.CDLL], None]):
+        self.source, self.stem, self._bind = source, stem, bind
+        self.lib: Optional[ctypes.CDLL] = None
+        self.failed = False
+        self.error = ""
+        self._lock = threading.Lock()
+
+    def load(self) -> Optional[ctypes.CDLL]:
+        if self.lib is not None or self.failed:
+            return self.lib
+        with self._lock:
+            if self.lib is None and not self.failed:
+                path, self.error = compile_library(self.source, self.stem)
+                try:
+                    lib = ctypes.CDLL(str(path)) if path is not None else None
+                except OSError as exc:
+                    lib, self.error = None, f"loading {path}: {exc}"
+                if lib is None:
+                    self.failed = True
+                else:
+                    self._bind(lib)
+                    self.lib = lib
+        return self.lib
 
 
 def build() -> Optional[Path]:

@@ -12,7 +12,7 @@ cast as ``melody_from_ids`` casts them. Built at first use as ``native.py``
 builds the tokenizer: with ``$CXX`` (else ``g++``) and the same flags into
 ``build/native/``, the file name carrying the hash of the source and the
 flags. Where no compiler builds it, ``load_library`` returns None (the
-reason in ``build_error``) and the callers write with ``MelodyWriter``.
+reason in ``LIBRARY.error``) and the callers write with ``MelodyWriter``.
 """
 
 from __future__ import annotations
@@ -30,44 +30,31 @@ from .vocab import DEFAULT_BPM, DEFAULT_RESOLUTION
 SOURCE = Path(__file__).resolve().parent / "csrc" / "midi_writer.cpp"
 STEM = "libmst_midi_writer"
 
-_lib: Optional[ctypes.CDLL] = None
-_lib_load_failed = False
-_load_lock = threading.Lock()
 _scratch = threading.local()
-build_error = ""  # why the last build failed
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    lib.mst_midi_capacity.restype = i64
+    lib.mst_midi_capacity.argtypes = [i64, i64]
+    lib.mst_event_ids.restype = i64
+    lib.mst_event_ids.argtypes = [ptr, i64, ptr, i32, ptr, ptr]
+    lib.mst_write_midi_rows.restype = i64
+    lib.mst_write_midi_rows.argtypes = [ptr, i64, ptr, i32, i32, i32, ptr, i64, ptr]
+
+
+LIBRARY = native.PortLibrary(SOURCE, STEM, _bind)
 
 
 def load_library() -> Optional[ctypes.CDLL]:
     """The writer's library (built first if needed); None if unavailable."""
-    global _lib, _lib_load_failed, build_error
-    if _lib is not None:
-        return _lib
-    with _load_lock:
-        if _lib is not None or _lib_load_failed:
-            return _lib
-        path, build_error = native.compile_library(SOURCE, STEM)
-        try:
-            lib = ctypes.CDLL(str(path)) if path is not None else None
-        except OSError as exc:
-            build_error, lib = f"loading {path}: {exc}", None
-        if lib is None:
-            _lib_load_failed = True
-            return None
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.mst_midi_capacity.restype = i64
-        lib.mst_midi_capacity.argtypes = [i64, i64]
-        lib.mst_event_ids.restype = i64
-        lib.mst_event_ids.argtypes = [ptr, i64, ptr, i32, ptr, ptr]
-        lib.mst_write_midi_rows.restype = i64
-        lib.mst_write_midi_rows.argtypes = [ptr, i64, ptr, i32, i32, i32, ptr, i64, ptr]
-        _lib = lib
-        return lib
+    return LIBRARY.load()
 
 
 def _library() -> ctypes.CDLL:
     lib = load_library()
     if lib is None:
-        raise RuntimeError(f"native MIDI writer unavailable ({build_error})")
+        raise RuntimeError(f"native MIDI writer unavailable ({LIBRARY.error})")
     return lib
 
 

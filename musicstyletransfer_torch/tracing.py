@@ -21,7 +21,8 @@ newest ``MAX_SPANS`` spans are kept in memory; ``spans`` reads them and
 
 The spans the port records:
 
-- convert: ``service.dispatch`` (``service.batch``, ``decode.encode``,
+- convert: ``service.tokenize`` a request file (``tokens_from_midi``);
+  ``service.dispatch`` (``service.batch``, ``decode.encode``,
   ``decode.k1``) and ``service.finish`` (``service.copy_back``,
   ``service.detokenize``, ``service.midi_write``), a micro-batch each
   (the streaming engine records the last two, a request each);

@@ -97,7 +97,7 @@ CASES = {
 
 @pytest.fixture(scope="module", autouse=True)
 def library():
-    assert native_writer.load_library() is not None, native_writer.build_error
+    assert native_writer.load_library() is not None, native_writer.LIBRARY.error
 
 
 def as_requests(rows):
@@ -197,13 +197,14 @@ def test_without_the_library_results_of_writes_in_python(monkeypatch, tmp_path):
     natively = service.results_of(requests, MelodyWriter())
     assert (service.results_of.native_rows, service.results_of.python_rows) == (len(rows), 0)
 
-    monkeypatch.setattr(native_writer, "_lib", None)
-    monkeypatch.setattr(native_writer, "_lib_load_failed", False)
+    monkeypatch.setattr(native_writer.LIBRARY, "lib", None)
+    monkeypatch.setattr(native_writer.LIBRARY, "failed", False)
+    monkeypatch.setattr(native_writer.LIBRARY, "error", "")
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native")
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
     in_python = service.results_of(requests, MelodyWriter())
     assert native_writer.load_library() is None
-    assert "no-such-compiler" in native_writer.build_error
+    assert "no-such-compiler" in native_writer.LIBRARY.error
     assert not os.listdir(tmp_path / "native")
     assert (service.results_of.native_rows, service.results_of.python_rows) == (len(rows),
                                                                                 len(rows))
@@ -218,8 +219,8 @@ def test_without_the_library_results_of_writes_in_python(monkeypatch, tmp_path):
 @pytest.mark.parametrize("way", ["native", "python"])
 def test_results_of_records_detokenize_then_midi_write(monkeypatch, way):
     if way == "python":
-        monkeypatch.setattr(native_writer, "_lib", None)
-        monkeypatch.setattr(native_writer, "_lib_load_failed", True)
+        monkeypatch.setattr(native_writer.LIBRARY, "lib", None)
+        monkeypatch.setattr(native_writer.LIBRARY, "failed", True)
     tracing.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         service.results_of(as_requests(random_rows(NUM_EVENTS)[:4]), MelodyWriter())
